@@ -7,7 +7,10 @@ setup(
         "TPU-native learned index for approximate nearest-neighbor search "
         "(JAX/XLA/Pallas re-design of the SISAP'23 LAION2B LMI submission)"
     ),
-    packages=find_packages(include=["tpulmi", "tpulmi.*"]),
+    packages=find_packages(include=["tpulmi", "tpulmi.*",
+                                    "tpulmi_torch", "tpulmi_torch.*"]),
+    # the CUDA sources of tpulmi_torch, compiled with nvcc at first use
+    package_data={"tpulmi_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={

@@ -40,3 +40,5 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-process runtime, etc.)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")

@@ -1,0 +1,93 @@
+"""tpulmi_torch stands alone: it imports neither JAX nor the JAX package,
+and its entry points never fall back from the card to the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import tpulmi_torch
+from tpulmi_torch import LearnedIndex
+from tpulmi_torch.convert import store_from_arrays
+from tpulmi_torch.models.train import BucketClassifier
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "tpulmi"):
+    sys.modules[name] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+import tpulmi_torch
+from tpulmi_torch import IndexConfig, LearnedIndex
+from tpulmi_torch.data import synthetic_dataset
+ds = synthetic_dataset(n=3000, n_queries=20, d_nav=16, d_search=32,
+                       n_clusters=6, seed=1)
+li = LearnedIndex(IndexConfig(n_categories=6, epochs=2), device="cpu")
+li.build(ds["data_nav"], ds["data_search"])
+d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=2)
+assert d.shape == ids.shape == (20, 10) and ids.min() >= 1
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpulmi")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_runs_without_jax_or_tpulmi():
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|flax|optax|tpulmi)\b"
+    r"|from\s+(jax|jaxlib|flax|optax|tpulmi)(\.|\s))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "tpulmi_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_source_imports_no_jax(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), path
+
+
+def test_default_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LearnedIndex()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LearnedIndex(device="cuda:0")
+    assert LearnedIndex(device="cpu").device.type == "cpu"
+    # the other public entry points that place tensors default to the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BucketClassifier(8, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        store_from_arrays(np.zeros((4, 8), np.float32), np.arange(4),
+                          [0, 4], [4], 4, 0, 1)
+    assert BucketClassifier(8, 4, device="cpu").device.type == "cpu"
+
+
+def test_exports():
+    assert set(tpulmi_torch.__all__) == {"LearnedIndex", "IndexConfig",
+                                         "SearchConfig", "__version__"}
+
+
+def test_chip_smoke_refuses_without_card():
+    """chip_smoke.py exits non-zero and prints no result without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,101 @@
+"""Builds the CUDA sources in tpulmi_torch/csrc with nvcc and loads them with
+ctypes.
+
+Each source is compiled at first use into ``tpulmi_torch/_build/`` (listed
+in .gitignore) as a shared library with a plain C interface, named by a hash
+of the source and the flags, so an edited source is rebuilt and an unchanged
+one is reused. Nothing here runs at import time.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures of every entry point, by source name
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "probe_topk": {
+        "probe_topk_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I,
+                               _P], _I),
+        "probe_topk_block_slots": ([], _I),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time, "log": nvcc/ptxas output}; empty entry
+# when the library was already built
+build_info: Dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile the named sources that are not built yet, one nvcc process
+    per source, all started together. Returns each library's path."""
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    start = time.perf_counter()
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_info[n] = {"seconds": time.perf_counter() - start, "log": out}
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu:\n{out}")
+            continue
+        os.replace(tmp, todo[n])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library `name`, with argtypes and restype set."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, (args, res) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = res
+            _libs[name] = lib
+        return lib

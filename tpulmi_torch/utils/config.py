@@ -1,0 +1,111 @@
+"""Configuration dataclasses for tpulmi_torch.
+
+Field for field the same as ``tpulmi.utils.config`` (names and defaults), so
+that a config converts 1:1 between the two packages through ``to_dict()``.
+The defaults (12 epochs, lr 0.003, batch 1024, MLP-5, 122 buckets) train one
+Adam step per batch; ``max_train_steps`` caps the total step budget, rounded
+down to whole epochs, and ``reference_step_semantics=True`` reproduces the
+reference's one-step-per-epoch loop.
+"""
+
+from dataclasses import asdict, dataclass
+from typing import List, Optional
+
+
+@dataclass(frozen=True)
+class IndexConfig:
+    """Build-time configuration of the learned index."""
+
+    n_categories: int = 122
+    epochs: int = 12
+    lr: float = 0.003
+    model_type: str = "MLP-5"
+    batch_size: int = 1024
+    seed: int = 2023
+
+    # Hard cap on total optimizer steps, truncated to whole epochs.
+    # None = no cap.
+    max_train_steps: Optional[int] = 20_000
+
+    # K-means: 25 Lloyd iterations on at most this many points per centroid
+    # (faiss Clustering defaults).
+    kmeans_iters: int = 25
+    kmeans_max_points_per_centroid: int = 256
+
+    compute_dtype: str = "float32"
+
+    # Build through the fused staged build (tpulmi_torch/build.py); False
+    # runs the modular k-means / train / predict / store path.
+    fused_build: bool = True
+
+    # Every bucket starts on a multiple of this many store rows (sentinel
+    # rows, id -1, fill the gaps). The CUDA probe kernel addresses rows
+    # directly and needs no alignment; the default keeps the store layout
+    # (and its row count) identical to the JAX package's.
+    row_align: int = 2048
+
+    # True: one optimizer step per epoch, like the reference's training loop.
+    reference_step_semantics: bool = False
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+@dataclass(frozen=True)
+class SearchConfig:
+    """Query-time configuration."""
+
+    k: int = 10
+    n_buckets: int = 4
+    queries_per_bucket_pad: Optional[int] = None
+    data_chunk: int = 2048
+    query_chunk: int = 512
+    batch_queries: Optional[int] = None  # split very large query sets
+    # Input precision of the distance products; accumulation is always
+    # float32. None = float32.
+    compute_dtype: Optional[str] = "bfloat16"
+
+    # Probe backend: "cuda" (the hand-written probe kernel,
+    # csrc/probe_topk.cu), "torch" (its plain PyTorch version), or "auto"
+    # ("cuda" for a store on the card, "torch" for one on the CPU).
+    backend: str = "auto"
+    # The pallas_* names are kept so that configs convert 1:1 with the JAX
+    # package. pallas_extract is only checked: all three modes compute the
+    # same function and run the same CUDA kernel. pallas_qc
+    # and pallas_mc were TPU tile sizes; the CUDA kernel fixes its own tile
+    # (64 slots x 64 rows). pallas_worklist, pallas_pool, pallas_pair and
+    # int8_queries select kernel variants that are not ported yet and are
+    # refused when set.
+    pallas_qc: int = 512
+    pallas_mc: int = 1024
+    pallas_extract: str = "group"
+    int8_queries: bool = False
+    pallas_worklist: bool = False
+    pallas_pool: bool = False
+    pallas_pair: bool = False
+
+    # Quantized stores and their host rerank (not ported yet).
+    rerank: bool = True
+    rerank_extra: Optional[int] = None
+    rerank_dtype: str = "float32"
+
+    # Threshold pruning (not ported yet; refused when set).
+    prune_after: int = 0
+    prune_eps: Optional[float] = None
+
+    # Cast the returned distances to this dtype (ids are unaffected).
+    fetch_dtype: Optional[str] = None
+
+    # Per-query adaptive probe truncation: stop probing once the cumulative
+    # routed probability reaches this mass. None = off.
+    probe_mass: Optional[float] = None
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+def n_buckets_from_percentage(bp: List[int], n_categories: int) -> List[int]:
+    """Reference `-bp` semantics: percent of n_categories, floored, deduped,
+    zero-dropped. bp=4, 122 cats -> 4 buckets; bp=6 -> 7 buckets."""
+    buckets = [int((b / 100) * n_categories) for b in bp]
+    return sorted(set(b for b in buckets if b > 0))

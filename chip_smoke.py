@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
 """Drive tpulmi_torch on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --kernels-only]
 
 Phases, in order; any failure exits non-zero. ``--profile`` adds, after the
-timing, one search's time by stage and by device kernel.
+timing, one search's time by stage and by device kernel. ``--kernels-only``
+stops after phase 2 (a short check of a changed kernel) and prints no
+result line.
 
 1. build   - compile every CUDA kernel of tpulmi_torch/csrc with nvcc;
 2. kernels - each kernel against its plain PyTorch version on the card, on
-             random bfloat16, float16 and float32 stores (the main path's
-             shapes, skewed bucket sizes, buckets smaller than k, dumped
-             slots);
+             random bfloat16, float16 and float32 stores and on their int8
+             and packed-int4 quantizations with float and int8 queries (the
+             main path's shapes and a narrow one, skewed bucket sizes,
+             buckets smaller than k, dumped slots);
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
              synthetic corpus with 122 buckets, then LearnedIndex.search of
              10k queries at 1, 2, 3, 4 and 7 probes, recall@10 against an
              exact oracle, and the launch count of every kernel;
-4. timing  - each kernel, its plain version and one library call for the
+4. quantized - on that index, for an int8 and then a packed-int4 store:
+             LearnedIndex.quantize with the host corpus attached, searches
+             at 2 probes with float and int8 queries, with and without the
+             exact host rerank (recall@10, time, the rerank's share, the
+             launch count of each kernel variant), a probe sweep with the
+             rerank, and one save / load round trip of the int4 index;
+5. timing  - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work.
 
@@ -25,6 +34,7 @@ name and power limit as nvidia-smi reports them, and
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -36,6 +46,11 @@ RECALL_GATE = 0.90           # bench.py's recall gate, at 2 probes
 # recall@10 of the JAX package at this shape (BENCH_r05.json), for context
 REFERENCE_RECALL = {1: 0.8366, 2: 0.9511, 3: 0.9775, 4: 0.986, 7: 0.9938}
 DIST_TOL = 1e-4   # bf16 inputs, f32 sums taken in another order
+# int8 x int8: the integer sums are exact and the scaling is written without
+# contraction on both sides, so kernel and plain version agree to rounding
+INT8Q_TOL = 1e-5
+KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
+                  "probe_topk_quant": "tpulmi_torch/csrc/probe_topk_quant.cu"}
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -43,6 +58,7 @@ PEAKS = (("H100 PCIe", 756e12, 2.0e12), ("H100 NVL", 835e12, 3.9e12),
          ("H200", 989e12, 4.8e12), ("H100", 989e12, 3.35e12))
 # float32 rate of the CUDA cores (no tensor cores) of an H100 SXM
 F32_PEAK = 67e12
+INT8_OVER_BF16 = 2.0   # dense int8 tensor-core rate over the bf16 rate
 
 
 def log(msg: str) -> None:
@@ -88,8 +104,15 @@ def phase_build():
     log(f"[build] {len(paths)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, info in _kernels.build_info.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+        # ptxas reports every instantiation: keep the most registers any of
+        # them uses and the lines of those that spill
+        lines = info["log"].splitlines()
+        regs = [int(m) for line in lines
+                for m in re.findall(r"Used (\d+) registers", line)]
+        log(f"[build] {name}: {len(regs)} kernels, at most "
+            f"{max(regs, default=0)} registers")
+        for line in lines:
+            if re.search(r"[1-9]\d* bytes spill", line):
                 log(f"[build] {name}: {line.strip()}")
     return time.perf_counter() - t0
 
@@ -110,23 +133,25 @@ def random_store(d, counts, dev, gen, dtype):
             torch.tensor(counts, dtype=torch.int32, device=dev))
 
 
-def compare(kern, plain, q, qidx, data, layout, n_slots):
-    """Max |distance| error over live slots; raises on a disagreement."""
+def compare(kern, plain, own_dist, layout, n_slots, tol=DIST_TOL):
+    """Max |distance| error over live slots; raises on a disagreement.
+    `own_dist(query index of each live row, ids clamped at 0)` recomputes
+    the distance of every returned id from the inputs."""
     import torch
 
     (kd, ki), (pd, pi) = kern, plain
     live = layout.slot_of_row < n_slots
     kd, ki, pd, pi = kd[live], ki[live], pd[live], pi[live]
     err = float((kd - pd).abs().max()) if kd.numel() else 0.0
-    if not err <= DIST_TOL:
+    if not err <= tol:
         raise AssertionError(f"kernel distances differ by {err}")
     if not torch.equal(ki < 0, pi < 0):
         raise AssertionError("kernel and plain disagree on empty places")
+    if not bool((kd[ki < 0] == 10000.0).all()):
+        raise AssertionError("an empty place does not hold the sentinel")
     # every id the kernel returns carries its own distance
     real = ki >= 0
-    qrows = q[qidx[live].long()].float()
-    x = data[torch.clamp(ki, min=0).long()].float()
-    own = 1.0 - torch.einsum("rd,rkd->rk", qrows, x)
+    own = own_dist(layout.qidx[live].long(), torch.clamp(ki, min=0).long())
     if not bool(((own - kd).abs() <= DIST_TOL)[real].all()):
         raise AssertionError("kernel ids do not carry their distances")
     # ids agree wherever the distance is apart from its neighbours
@@ -137,7 +162,7 @@ def compare(kern, plain, q, qidx, data, layout, n_slots):
         gap[:, :-1] = torch.minimum(gap[:, :-1], step)
         gap[:, 1:] = torch.minimum(gap[:, 1:], step)
     gap[:, -1] = 0.0   # the k-th place may tie with the (k+1)-th
-    apart = gap > DIST_TOL
+    apart = gap > tol
     if not bool((ki == pi)[apart].all()):
         bad = int((ki != pi)[apart].sum())
         raise AssertionError(f"{bad} kernel ids differ where distances "
@@ -145,11 +170,47 @@ def compare(kern, plain, q, qidx, data, layout, n_slots):
     return err
 
 
+def own_full(q, data):
+    """Distances of ids over a full-precision store, from the inputs."""
+    import torch
+
+    def own(qi, ids):
+        return 1.0 - torch.einsum("rd,rkd->rk", q[qi].float(),
+                                  data[ids].float())
+    return own
+
+
+def own_quant(q, codes, scales, bits, q_scales=None):
+    """Distances of ids over a quantized store, from codes and scales; with
+    `q_scales`, q holds int8 query codes."""
+    import torch
+    from tpulmi_torch.ops.quantize import unpack_int4
+
+    levels = 7.0 if bits == 4 else 127.0
+
+    def own(qi, ids):
+        x = codes[ids]
+        x = (unpack_int4(x) if bits == 4 else x).float()
+        sims = torch.einsum("rd,rkd->rk", q[qi].float(), x) * (
+            scales[ids] / levels)
+        if q_scales is not None:
+            sims = sims * (q_scales[qi] / 127.0)[:, None]
+        return 1.0 - sims
+    return own
+
+
 def phase_kernels(dev):
-    """Each kernel against its plain version on the card."""
+    """Each kernel against its plain version on the card. Returns the max
+    |err| of each kernel variant."""
     import torch
     from tpulmi_torch.ops.probe_topk import (group_slots, probe_topk,
-                                             probe_topk_plain)
+                                             probe_topk_int8q,
+                                             probe_topk_int8q_plain,
+                                             probe_topk_plain,
+                                             probe_topk_quant,
+                                             probe_topk_quant_plain)
+    from tpulmi_torch.ops.quantize import (quantize_rows,
+                                           quantize_rows_int4)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = torch.Generator().manual_seed(SEED)
@@ -158,18 +219,36 @@ def phase_kernels(dev):
     sizes = (torch.rand(N_CAT, generator=rng) ** 3 * 9000).long() + 1
     sizes[5], sizes[9] = 3, 0
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
-    cases = [(768, 10, p, N_QUERIES, bf16) for p in (1, 2, 7)]
-    cases += [(128, 128, 2, 2000, bf16), (768, 128, 1, 1000, bf16),
-              (128, 10, 7, 2000, bf16)]
-    # compute_dtype=None (float32) and float16 searches
-    cases += [(768, 10, 2, N_QUERIES, f32), (128, 128, 2, 2000, f32),
-              (768, 10, 2, 2000, f16)]
-    max_err = 0.0
-    for d, k, p, nq, dtype in cases:
+    # (d, k, probes, queries, dtype, variants); variants: "full" the
+    # full-precision kernel, "quant" int8 and int4 codes with queries of
+    # dtype, "int8q" int8 queries on int8 and int4 codes. d = 96: half the
+    # width is no multiple of a staged slice.
+    cases = [(768, 10, 1, N_QUERIES, bf16, ("full", "quant", "int8q")),
+             (768, 10, 2, N_QUERIES, bf16, ("full", "quant", "int8q")),
+             (768, 10, 7, N_QUERIES, bf16, ("full",)),
+             (768, 40, 7, 3000, bf16, ("quant", "int8q")),
+             (128, 128, 2, 2000, bf16, ("full", "quant", "int8q")),
+             (768, 128, 1, 1000, bf16, ("full", "quant", "int8q")),
+             (128, 10, 7, 2000, bf16, ("full",)),
+             (96, 40, 7, 2000, bf16, ("quant", "int8q")),
+             # compute_dtype=None (float32) and float16 searches
+             (768, 10, 2, N_QUERIES, f32, ("full", "quant")),
+             (128, 128, 2, 2000, f32, ("full",)),
+             (96, 20, 2, 2000, f32, ("quant",)),
+             (768, 10, 2, 2000, f16, ("full", "quant"))]
+    errs = {}
+
+    def note(name, err, d, k, p, nq, what):
+        errs[name] = max(errs.get(name, 0.0), err)
+        log(f"[kernels] {name} {what} d={d} k={k} probes={p} queries={nq}: "
+            f"max |err| {err:.3g}")
+
+    for d, k, p, nq, dtype, variants in cases:
         data, offsets, counts = random_store(d, sizes.tolist(), dev, gen,
                                              dtype)
-        q = torch.randn((nq, d), generator=gen, device=dev)
-        q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+        qf = torch.randn((nq, d), generator=gen, device=dev)
+        qf = qf / qf.norm(dim=1, keepdim=True)
+        q = qf.to(dtype)
         probes = torch.argsort(torch.rand((nq, N_CAT), generator=gen,
                                           device=dev), dim=1)[:, :p]
         if p > 1:   # dump some later probes, as probe_mass does
@@ -177,16 +256,39 @@ def phase_kernels(dev):
             drop[:, 0] = False
             probes = torch.where(drop, N_CAT, probes)
         layout = group_slots(probes.int(), offsets, counts)
-        kern = probe_topk(q, layout.qidx, data, layout.blocks, k)
-        torch.cuda.synchronize()
-        plain = probe_topk_plain(q, layout.qidx, data, layout.blocks, k)
-        torch.cuda.synchronize()
-        err = compare(kern, plain, q, layout.qidx, data, layout, nq * p)
-        max_err = max(max_err, err)
-        log(f"[kernels] probe_topk {dtype} d={d} k={k} probes={p} "
-            f"queries={nq}: "
-            f"max |err| {err:.3g}")
-    return max_err
+        if "full" in variants:
+            args = (q, layout.qidx, data, layout.blocks, k)
+            kern = probe_topk(*args)
+            torch.cuda.synchronize()
+            err = compare(kern, probe_topk_plain(*args), own_full(q, data),
+                          layout, nq * p)
+            note("probe_topk", err, d, k, p, nq, str(dtype))
+        for bits in (8, 4):
+            if not {"quant", "int8q"} & set(variants):
+                break
+            codes, scales = (quantize_rows_int4 if bits == 4
+                             else quantize_rows)(data.float())
+            if "quant" in variants:
+                args = (q, layout.qidx, codes, scales, layout.blocks, k, bits)
+                kern = probe_topk_quant(*args)
+                torch.cuda.synchronize()
+                err = compare(kern, probe_topk_quant_plain(*args),
+                              own_quant(q, codes, scales, bits), layout,
+                              nq * p)
+                note(f"probe_topk_quant_int{bits}", err, d, k, p, nq,
+                     f"{dtype} queries")
+            if "int8q" in variants:
+                qc, qs = quantize_rows(qf)
+                args = (qc, qs, layout.qidx, codes, scales, layout.blocks, k,
+                        bits)
+                kern = probe_topk_int8q(*args)
+                torch.cuda.synchronize()
+                err = compare(kern, probe_topk_int8q_plain(*args),
+                              own_quant(qc, codes, scales, bits, qs), layout,
+                              nq * p, tol=INT8Q_TOL)
+                note(f"probe_topk_int8q_int{bits}", err, d, k, p, nq,
+                     "int8 queries")
+    return errs
 
 
 def phase_main(dev):
@@ -196,7 +298,8 @@ def phase_main(dev):
     from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
     from tpulmi_torch.data import synthetic_dataset
     from tpulmi_torch.evaluate import recall_at_k
-    from tpulmi_torch.ops.probe_topk import probe_topk
+    from tpulmi_torch.ops.probe_topk import (launch_counts, probe_topk,
+                                             reset_launch_counts)
 
     t0 = time.perf_counter()
     ds = synthetic_dataset(n=N, n_queries=N_QUERIES, d_nav=D_NAV,
@@ -206,7 +309,7 @@ def phase_main(dev):
     cfg = IndexConfig(n_categories=N_CAT, epochs=12, lr=0.003,
                       model_type="MLP-5", batch_size=1024, seed=SEED)
 
-    probe_topk.launches = 0
+    reset_launch_counts()
     index = LearnedIndex(cfg, device=dev)
     _, build_s = index.build(ds["data_nav"], ds["data_search"])
     # host queries (numpy), and the same queries staged on the card first
@@ -236,7 +339,7 @@ def phase_main(dev):
     f32_s = time.perf_counter() - t
     if probe_topk.launches <= before:
         raise AssertionError("float32 search launched no probe kernel")
-    launches = probe_topk.launches
+    launches = launch_counts()["probe_topk"]
 
     store = index.built.store
     log(f"[main] build {build_s:.3f}s; store {tuple(store.data_sorted.shape)}"
@@ -260,7 +363,135 @@ def phase_main(dev):
         raise AssertionError(f"recall@10 {recalls[2]} at 2 probes is under "
                              f"the {RECALL_GATE} gate")
     log(f"[main] probe_topk launches over build + searches: {launches}")
-    return index, ds, launches
+    return index, ds, launches, gt, recall_at_k(f32_ids - 1, gt, 10)
+
+
+def phase_quantized(index, ds, dev, gt, f32_recall):
+    """The quantized path on the index phase_main built: quantize to int8,
+    then (from the same full-precision store) to packed int4; search 10k
+    queries at 2 probes with float and int8 queries, with and without the
+    exact host rerank. Returns the launch counts of the phase and the two
+    quantized stores."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import LearnedIndex, SearchConfig
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+
+    full = index.built.store
+    host = (ds["queries_nav"], ds["queries_search"])
+    rerank_s = [0.0]
+    plain_rerank = index._rerank_host
+
+    def timed_rerank(*a, **kw):
+        t = time.perf_counter()
+        out = plain_rerank(*a, **kw)
+        rerank_s[0] += time.perf_counter() - t
+        return out
+
+    index._rerank_host = timed_rerank
+
+    def search(p, runs=2, **opts):
+        """(recall@10, seconds of the last run, of which in the host
+        rerank, ids); two runs: the first call of a shape, then steady
+        state."""
+        scfg = SearchConfig(k=10, n_buckets=p, **opts)
+        for _ in range(runs):
+            rerank_s[0] = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dists, ids = index.search(*host, n_buckets=p, k=10,
+                                      search_config=scfg)
+            secs = time.perf_counter() - t
+        if dists.shape != (N_QUERIES, 10) or not np.isfinite(dists).all():
+            raise AssertionError(f"bad quantized result: {dists.shape}")
+        return recall_at_k(ids - 1, gt, 10), secs, rerank_s[0], ids
+
+    reset_launch_counts()
+    stores = {}
+    for bits in (8, 4):
+        # int4 codes are made from the full-precision store, not from the
+        # int8 codes: re-quantizing is refused
+        index.built.store = full
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index.quantize(host_corpus=ds["data_search"], normalized=True,
+                       bits=bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t
+        store = stores[bits] = index.built.store
+        nbytes = (store.data_sorted.numel() * store.data_sorted.element_size()
+                  + store.scales.numel() * 4)
+        log(f"[quantized] int{bits}: quantize {quant_s:.3f}s; store "
+            f"{tuple(store.data_sorted.shape)} {store.data_sorted.dtype} + "
+            f"scales = {nbytes / 1e9:.4f} GB (bf16 copy of the "
+            f"full-precision store: {full.data_sorted.numel() * 2 / 1e9:.4f}"
+            f" GB)")
+        for int8q in (False, True):
+            variant = (f"probe_topk_int8q_int{bits}" if int8q
+                       else f"probe_topk_quant_int{bits}")
+            before = launch_counts()
+            for rerank in (True, False):
+                rec, secs, rr, _ = search(2, int8_queries=int8q,
+                                          rerank=rerank)
+                log(f"[quantized] int{bits} store, "
+                    f"{'int8' if int8q else 'bf16'} queries, "
+                    f"{'host rerank' if rerank else 'no rerank'}, probes=2: "
+                    f"recall@10 {rec:.4f} (float32 search {f32_recall:.4f}, "
+                    f"gap {rec - f32_recall:+.4f}); search {secs:.4f}s = "
+                    f"{N_QUERIES / secs:.0f} QPS, host rerank {rr:.4f}s "
+                    f"({rr / secs:.1%})")
+                if rerank and not rec >= RECALL_GATE:
+                    raise AssertionError(
+                        f"int{bits} reranked recall@10 {rec} at 2 probes is "
+                        f"under the {RECALL_GATE} gate")
+            after = launch_counts()
+            if not after[variant] > before[variant]:
+                raise AssertionError(f"{variant} was launched by no search")
+            others = [n for n in after if n != variant
+                      and after[n] != before[n]]
+            if others:
+                raise AssertionError(f"searches of {variant} launched "
+                                     f"{others}")
+        for p in PROBES:
+            if p == 2:
+                continue
+            rec, secs, rr, _ = search(p, runs=1)
+            log(f"[quantized] int{bits} store, bf16 queries, host rerank, "
+                f"probes={p}: recall@10 {rec:.4f}; search (first call) "
+                f"{secs:.4f}s, host rerank {rr:.4f}s ({rr / secs:.1%})")
+    launches = launch_counts()
+
+    # one save / load round trip of the int4 index; the corpus is not in
+    # the checkpoint and is attached again (its fingerprint is checked)
+    want = search(2)[3]
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        index.save(tmp)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored = LearnedIndex.load(tmp, device=dev)
+        load_s = time.perf_counter() - t
+    if restored._host_corpus is not None:
+        raise AssertionError("a corpus was attached from nowhere")
+    restored.attach_host_corpus(ds["data_search"])
+    got = restored.search(*host, n_buckets=2, k=10)[1]
+    if not np.array_equal(got, want):
+        raise AssertionError("the restored int4 index searches differently")
+    log(f"[quantized] int4 index saved in {save_s:.3f}s, loaded in "
+        f"{load_s:.3f}s, corpus attached again: ids equal")
+    del restored
+
+    # leave the index as phase_main built it
+    index.built.store = full
+    index._search_programs = {}
+    index._host_corpus = None
+    del index._rerank_host
+    log(f"[quantized] launches over the phase: {launches}")
+    return launches, stores
 
 
 def oracle(ds, dev, k=10, bf16_inputs=False):
@@ -286,13 +517,20 @@ def oracle(ds, dev, k=10, bf16_inputs=False):
     return best_i.cpu().numpy()
 
 
-def phase_timing(index, ds, dev, name):
-    """probe_topk, its plain version and a library yardstick on the main
-    path's probe inputs at 2 probes."""
+def phase_timing(index, stores, ds, dev, name):
+    """Every kernel variant, its plain version and a library yardstick on
+    the main path's probe inputs at 2 probes, beside its bound. `stores`:
+    the int8 and int4 quantizations of the index's store, by code width.
+    Returns the numbers of each variant by name."""
     import torch
     from tpulmi_torch.ops.distance import l2_normalize
     from tpulmi_torch.ops.probe_topk import (bucket_runs, group_slots,
-                                             probe_topk, probe_topk_plain)
+                                             probe_topk, probe_topk_int8q,
+                                             probe_topk_int8q_plain,
+                                             probe_topk_plain,
+                                             probe_topk_quant,
+                                             probe_topk_quant_plain)
+    from tpulmi_torch.ops.quantize import quantize_rows, unpack_int4
     from tpulmi_torch.search import route_probes
 
     store = index.built.store
@@ -304,53 +542,112 @@ def phase_timing(index, ds, dev, name):
         qs = l2_normalize(torch.as_tensor(ds["queries_search"], device=dev))
     layout = group_slots(probes, store.offsets, store.counts)
     q = qs.to(torch.bfloat16).contiguous()
+    q_codes, q_scales = quantize_rows(qs)
     data = store.data_as(torch.bfloat16)
-    args = (q, layout.qidx, data, layout.blocks, k)
-
-    err = compare(probe_topk(*args), probe_topk_plain(*args), q,
-                  layout.qidx, data, layout, q.shape[0] * p)
-    ms = cuda_ms(lambda: probe_topk(*args), 20)
-    plain_ms = cuda_ms(lambda: probe_topk_plain(*args), 3)
     runs = bucket_runs(layout.blocks)
+    qrows = [layout.qidx[rows].long() for _, _, rows in runs]
+    n_q, d = q.shape
 
-    def library():
-        for start, cnt, rows in runs:
-            sims = q[layout.qidx[rows].long()] @ data[start:start + cnt].T
-            torch.topk(sims.float(), min(k, cnt), dim=1)
-
-    library_ms = cuda_ms(library, 3)
-
-    # the least time: each probed bucket's rows and the queries read once,
-    # the slot layout read once and the per-slot results written once; and
-    # 2 d slots rows operations per bucket on the tensor cores
-    d = store.dim
+    # The least time. Bytes: each probed bucket's rows (and scales) and the
+    # queries read once, the slot layout read once, the per-slot results
+    # written once. Operations: 2 d slots rows per bucket, at the tensor
+    # cores' rate for the type that is multiplied.
     slots = layout.slot_counts.double()
     rows = store.counts.double()
     flops = float(2 * d * (slots * rows).sum())
-    nbytes = float(rows[slots > 0].sum() * d * 2 + q.numel() * 2
-                   + layout.qidx.numel() * 4 + layout.blocks.numel() * 4
-                   + q.shape[0] * p * k * 8)
+    probed_rows = float(rows[slots > 0].sum())
+    around = (layout.qidx.numel() * 4 + layout.blocks.numel() * 4
+              + n_q * p * k * 8)
     peak_flops, peak_bw = peaks(name)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    log(f"[timing] probe_topk at probes={p}: {ms:.4f} ms; plain "
-        f"{plain_ms:.3f} ms; library (per-bucket matmul + topk) "
-        f"{library_ms:.3f} ms; bound {max(t_ops, t_bytes):.4f} ms "
-        f"({flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e9:.4f} GB"
-        f" -> {t_bytes:.4f} ms)")
+
+    def bound(row_bytes, query_bytes, rate):
+        nbytes = probed_rows * row_bytes + query_bytes + around
+        t_ops, t_bytes = flops / rate * 1e3, nbytes / peak_bw * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    note=f"{flops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
+                         f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms")
+
+    def measure(label, kernel, plain, library, own, tol, bnd):
+        err = compare(kernel(), plain(), own, layout, n_q * p, tol=tol)
+        out = dict(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
+                   library_ms=cuda_ms(library, 3), max_abs_err=err, **bnd)
+        log(f"[timing] {label} at probes={p}: {out['ms']:.4f} ms; plain "
+            f"{out['plain_ms']:.3f} ms; library {out['library_ms']:.3f} ms; "
+            f"bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
+            f"({out.pop('note')}); max |err| {err:.3g}")
+        return out
+
+    results = {}
+    args = (q, layout.qidx, data, layout.blocks, k)
+
+    def library():      # per-bucket matmul + topk
+        for (start, cnt, _), qr in zip(runs, qrows):
+            sims = q[qr] @ data[start:start + cnt].T
+            torch.topk(sims.float(), min(k, cnt), dim=1)
+
+    results["probe_topk"] = measure(
+        "probe_topk (bf16)", lambda: probe_topk(*args),
+        lambda: probe_topk_plain(*args), library, own_full(q, data),
+        DIST_TOL, bound(d * 2, n_q * d * 2, peak_flops))
+
     # the same probe in float32 (compute_dtype=None): CUDA-core products
     qf = qs.contiguous()
     f32_args = (qf, layout.qidx, store.data_sorted, layout.blocks, k)
-    f32_err = compare(probe_topk(*f32_args), probe_topk_plain(*f32_args), qf,
-                      layout.qidx, store.data_sorted, layout, q.shape[0] * p)
+    f32_err = compare(probe_topk(*f32_args), probe_topk_plain(*f32_args),
+                      own_full(qf, store.data_sorted), layout, n_q * p)
     f32_ms = cuda_ms(lambda: probe_topk(*f32_args), 5)
     log(f"[timing] probe_topk float32 at probes={p}: {f32_ms:.4f} ms "
         f"(max |err| {f32_err:.3g}); its operations at the float32 CUDA-core"
         f" rate ({F32_PEAK / 1e12:.0f} TFLOP/s) take "
         f"{flops / F32_PEAK * 1e3:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                max_abs_err=max(err, f32_err))
+    results["probe_topk"]["max_abs_err"] = max(
+        results["probe_topk"]["max_abs_err"], f32_err)
+
+    for bits, qstore in stores.items():
+        codes, scales = qstore.data_sorted, qstore.scales
+        sc = scales / qstore.q_levels
+        row_bytes = d * bits / 8 + 4          # codes and the row's scale
+        qargs = (q, layout.qidx, codes, scales, layout.blocks, k, bits)
+
+        def bucket_codes(start, cnt):
+            x = codes[start:start + cnt]
+            return unpack_int4(x) if bits == 4 else x
+
+        def library_quant():    # per bucket: cast, matmul, scale, topk
+            for (start, cnt, _), qr in zip(runs, qrows):
+                x = bucket_codes(start, cnt).to(torch.bfloat16)
+                sims = (q[qr] @ x.T).float() * sc[start:start + cnt]
+                torch.topk(sims, min(k, cnt), dim=1)
+
+        results[f"probe_topk_quant_int{bits}"] = measure(
+            f"probe_topk_quant int{bits} store, bf16 queries",
+            lambda: probe_topk_quant(*qargs),
+            lambda: probe_topk_quant_plain(*qargs), library_quant,
+            own_quant(q, codes, scales, bits), DIST_TOL,
+            bound(row_bytes, n_q * d * 2, peak_flops))
+
+        iargs = (q_codes, q_scales, layout.qidx, codes, scales, layout.blocks,
+                 k, bits)
+
+        def library_int8q():    # per bucket: torch._int_mm, scale, topk
+            for (start, cnt, _), qr in zip(runs, qrows):
+                # _int_mm wants more than 16 rows and a width in eights
+                if qr.numel() <= 16:
+                    qr = qr.repeat(-(-17 // qr.numel()))
+                wide = min(-(-cnt // 8) * 8, codes.shape[0] - start)
+                dots = torch._int_mm(q_codes[qr],
+                                     bucket_codes(start, wide).T)[:, :cnt]
+                sims = dots.float() * sc[start:start + cnt]
+                torch.topk(sims, min(k, cnt), dim=1)
+
+        results[f"probe_topk_int8q_int{bits}"] = measure(
+            f"probe_topk_int8q int{bits} store, int8 queries",
+            lambda: probe_topk_int8q(*iargs),
+            lambda: probe_topk_int8q_plain(*iargs), library_int8q,
+            own_quant(q_codes, codes, scales, bits, q_scales), INT8Q_TOL,
+            bound(row_bytes, n_q * (d + 4), peak_flops * INT8_OVER_BF16))
+    return results
 
 
 def phase_stages(index, ds, dev, p=2, reps=5):
@@ -366,8 +663,12 @@ def phase_stages(index, ds, dev, p=2, reps=5):
                                              probe_topk)
     from tpulmi_torch.search import route_probes
 
+    from tpulmi_torch import SearchConfig
+
     store, k = index.built.store, 10
     model = index.built.classifier.model
+    scfg = SearchConfig(k=k, n_buckets=p)
+    plan = index._plan_search(torch.zeros((1, D_NAV)), p, k, scfg)
     st = {}
 
     def stage(name, fn):
@@ -392,7 +693,8 @@ def phase_stages(index, ds, dev, p=2, reps=5):
                 q, lay.qidx, store.data_as(torch.bfloat16), lay.blocks, k))
             fd, fi = stage("merge", lambda: merge_slots(
                 *out, lay, q.shape[0], p, k, store.ids_sorted))
-            stage("finalize", lambda: index._finalize(fd, fi))
+            stage("finalize", lambda: index._finalize(
+                fd, fi, plan, k, scfg, qs, qs_np))
             stage("search", lambda: index.search(qn_np, qs_np, n_buckets=p,
                                                  k=k))
     med = {n: float(np.median(v[1:])) * 1e3 for n, v in st.items()}
@@ -445,22 +747,37 @@ def main(args) -> int:
         f"cuda {torch.version.cuda}")
 
     phase_build()
-    kernel_err = phase_kernels(dev)
-    index, ds, launches = phase_main(dev)
-    t = phase_timing(index, ds, dev, name)
+    kernel_errs = phase_kernels(dev)
+    if "--kernels-only" in args:
+        log("[kernels] --kernels-only: stopping after the kernel checks")
+        return 0
+    index, ds, main_launches, gt, f32_recall = phase_main(dev)
+    quant_launches, stores = phase_quantized(index, ds, dev, gt, f32_recall)
+    timing = phase_timing(index, stores, ds, dev, name)
     if "--profile" in args:
         phase_stages(index, ds, dev)
 
-    kernel = {
-        "name": "probe_topk", "route": "cuda",
-        "source": "tpulmi_torch/csrc/probe_topk.cu",
-        "replaces": "tpulmi/ops/pallas_topk.py:218",
-        "launches": launches,
-        "max_abs_err": max(kernel_err, t["max_abs_err"]),
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    # name -> (source, the TPU kernel it replaces, launches on its path)
+    launches = {**quant_launches, "probe_topk": main_launches}
+    replaces = {"probe_topk": ("probe_topk", 218),
+                "probe_topk_quant_int8": ("probe_topk_quant", 268),
+                "probe_topk_quant_int4": ("probe_topk_quant", 268),
+                "probe_topk_int8q_int8": ("probe_topk_quant", 288),
+                "probe_topk_int8q_int4": ("probe_topk_quant", 288)}
+    kernels = []
+    for kname, (source, line) in replaces.items():
+        t = timing[kname]
+        if not launches[kname] > 0:
+            raise AssertionError(f"{kname} was launched by no path")
+        kernels.append({
+            "name": kname, "route": "cuda", "source": KERNEL_SOURCES[source],
+            "replaces": f"tpulmi/ops/pallas_topk.py:{line}",
+            "launches": launches[kname],
+            "max_abs_err": max(kernel_errs[kname], t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

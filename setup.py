@@ -10,7 +10,7 @@ setup(
     packages=find_packages(include=["tpulmi", "tpulmi.*",
                                     "tpulmi_torch", "tpulmi_torch.*"]),
     # the CUDA sources of tpulmi_torch, compiled with nvcc at first use
-    package_data={"tpulmi_torch": ["csrc/*.cu"]},
+    package_data={"tpulmi_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={

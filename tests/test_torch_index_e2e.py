@@ -186,7 +186,13 @@ def test_auto_backend_follows_the_store(compute_dtype, k):
 def test_unported_options_are_refused(synthetic_small, port_index):
     ds = synthetic_small
     for opt in (dict(pallas_worklist=True), dict(pallas_pair=True),
-                dict(int8_queries=True), dict(prune_after=1)):
-        with pytest.raises(NotImplementedError):
+                dict(pallas_pool=True), dict(prune_after=1)):
+        with pytest.raises(NotImplementedError, match=next(iter(opt))):
             port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4],
                               search_config=SearchConfig(**opt))
+    # int8 queries are ported: ignored on a full-precision store
+    d, i = port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4])
+    d8, i8 = port_index.search(ds["queries_nav"][:4],
+                               ds["queries_search"][:4],
+                               search_config=SearchConfig(int8_queries=True))
+    np.testing.assert_array_equal(i8, i)

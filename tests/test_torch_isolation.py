@@ -34,6 +34,15 @@ li = LearnedIndex(IndexConfig(n_categories=6, epochs=2), device="cpu")
 li.build(ds["data_nav"], ds["data_search"])
 d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=2)
 assert d.shape == ids.shape == (20, 10) and ids.min() >= 1
+import tempfile
+from tpulmi_torch import SearchConfig
+li.quantize(host_corpus=ds["data_search"], normalized=True, bits=4)
+with tempfile.TemporaryDirectory() as tmp:
+    li.save(tmp, include_corpus=True)
+    li = LearnedIndex.load(tmp, device="cpu")
+d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=2,
+                   search_config=SearchConfig(int8_queries=True))
+assert d.shape == ids.shape == (20, 10) and ids.min() >= 1
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpulmi")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -6,6 +6,11 @@
   padding rows;
 - ``offsets``/``counts``: CSR bucket boundaries.
 
+A quantized store (`tpulmi_torch/ops/quantize.py::quantize_store`) holds
+int8 codes in ``data_sorted`` (two packed int4 codes per byte when
+``quant_bits == 4``) and one float32 scale per row in ``scales``, with
+``x ~ codes * (scales / q_levels)[:, None]``.
+
 With ``row_align > 1`` every bucket starts on a multiple of ``row_align``
 rows (sentinel rows fill the gaps), and the store holds the static worst case
 ``n + n_categories*row_align`` rows, rounded, plus ``pad_rows`` — the same
@@ -13,20 +18,27 @@ row count as the JAX package's store.
 """
 
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 
 @dataclass
 class BucketStore:
-    data_sorted: torch.Tensor  # (rows, d) float32 search vectors, bucket-sorted
+    data_sorted: torch.Tensor  # (rows, d) float32 search vectors, bucket-sorted;
+    #                            int8 codes, (rows, d/2) when packed int4
     ids_sorted: torch.Tensor   # (rows,) int32 original row ids; -1 on padding
     offsets: torch.Tensor      # (n_categories + 1,) int32 CSR offsets
     counts: torch.Tensor       # (n_categories,) int32 bucket sizes
     n: int = 0
     pad_rows: int = 0
     row_align: int = 1
+    # (rows,) float32 per-row scales of a quantized store; None when the
+    # store is full precision
+    scales: Optional[torch.Tensor] = None
+    # code width of a quantized store: 8, or 4 (two codes per stored byte);
+    # means something only when scales is not None
+    quant_bits: int = 8
     # data_sorted cast to the probe's compute dtype, made once per dtype.
     # The bfloat16 copy on the main path costs rows * d * 2 bytes beside the
     # float32 store (the JAX package casts the store on every search call).
@@ -38,15 +50,35 @@ class BucketStore:
         return int(self.counts.shape[0])
 
     @property
+    def is_quantized(self) -> bool:
+        return self.scales is not None
+
+    @property
+    def packed(self) -> bool:
+        """True for a packed int4 store (two codes per stored byte)."""
+        return self.is_quantized and self.quant_bits == 4
+
+    @property
+    def q_levels(self) -> float:
+        """Dequantization divisor: x ~ codes * (scales / q_levels)."""
+        return 7.0 if self.quant_bits == 4 else 127.0
+
+    @property
     def dim(self) -> int:
-        return int(self.data_sorted.shape[1])
+        """Logical vector width (a packed int4 store holds dim/2 bytes)."""
+        d = int(self.data_sorted.shape[1])
+        return d * 2 if self.packed else d
 
     @property
     def device(self) -> torch.device:
         return self.data_sorted.device
 
     def data_as(self, dtype: torch.dtype) -> torch.Tensor:
-        """`data_sorted` in `dtype`, cast once and kept."""
+        """`data_sorted` in `dtype`, cast once and kept. Codes are never
+        cast: a quantized store raises."""
+        if self.is_quantized:
+            raise ValueError("a quantized store holds codes, not vectors: "
+                             "the probe reads data_sorted and scales")
         if dtype == self.data_sorted.dtype:
             return self.data_sorted
         if dtype not in self._casts:

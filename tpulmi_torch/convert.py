@@ -2,7 +2,8 @@
 
 - `mlp_state_from_flax`: flax ``Dense_i`` params -> the MLP's state_dict
   (a Dense ``kernel (in, out)`` is a Linear ``weight (out, in)``).
-- `store_from_arrays`: the bucket store's arrays -> `BucketStore`.
+- `store_from_arrays`: the bucket store's arrays -> `BucketStore`; a
+  quantized store's codes and scales cross bit for bit.
 - `index_from_arrays`: router params and store arrays -> a built
   `LearnedIndex`.
 """
@@ -49,31 +50,40 @@ def mlp_from_flax(params: Mapping) -> MLP:
 
 
 def store_from_arrays(data_sorted, ids_sorted, offsets, counts, n: int,
-                      pad_rows: int, row_align: int,
-                      device="cuda") -> BucketStore:
+                      pad_rows: int, row_align: int, device="cuda",
+                      scales=None, quant_bits: int = 8) -> BucketStore:
+    """`scales` (one float32 per store row) marks a quantized store:
+    `data_sorted` then holds its int8 codes ((rows, d/2) packed bytes when
+    ``quant_bits == 4``) and is kept as int8."""
     device = resolve_device(device)
 
     def t(x, dtype):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
     return BucketStore(
-        data_sorted=t(data_sorted, torch.float32),
+        data_sorted=t(data_sorted,
+                      torch.float32 if scales is None else torch.int8),
         ids_sorted=t(ids_sorted, torch.int32),
         offsets=t(offsets, torch.int32), counts=t(counts, torch.int32),
-        n=int(n), pad_rows=int(pad_rows), row_align=int(max(row_align, 1)))
+        n=int(n), pad_rows=int(pad_rows), row_align=int(max(row_align, 1)),
+        scales=None if scales is None else t(scales, torch.float32),
+        quant_bits=int(quant_bits))
 
 
 def index_from_arrays(params: Mapping, data_sorted, ids_sorted, offsets,
                       counts, n: int, pad_rows: int, row_align: int, *,
                       config: IndexConfig = IndexConfig(),
                       centroids=None, pred_categories=None,
-                      device="cuda") -> LearnedIndex:
-    """A built `LearnedIndex` from router params and store arrays."""
+                      device="cuda", scales=None,
+                      quant_bits: int = 8) -> LearnedIndex:
+    """A built `LearnedIndex` from router params and store arrays (codes
+    and `scales` for a quantized store)."""
     index = LearnedIndex(config, device=device)
     dev = index.device
     model = mlp_from_flax(params)
     store = store_from_arrays(data_sorted, ids_sorted, offsets, counts, n,
-                              pad_rows, row_align, device=dev)
+                              pad_rows, row_align, device=dev, scales=scales,
+                              quant_bits=quant_bits)
     classifier = BucketClassifier(
         model.layers[0].in_features, model.n_classes, lr=config.lr,
         model_type=config.model_type, seed=config.seed, device=dev,

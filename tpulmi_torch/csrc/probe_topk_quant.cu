@@ -1,0 +1,104 @@
+// Fused cosine-distance + running top-k probe kernels over a quantized
+// store, for Hopper (sm_90a).
+//
+// Replaces the quantized branches of tpulmi/ops/pallas_topk.py::_kernel_core:
+//
+//   - store of int8 codes or packed int4 codes with bfloat16 / float16 /
+//     float32 queries (the `quantized` and `packed` branches): the codes are
+//     converted to the queries' type while they are staged into shared
+//     memory (every code is exact in each type), the product runs as for a
+//     full-precision store, and each column is scaled by
+//     scales[row] / q_levels (127 or 7) before 1 - s;
+//   - int8 x int8 (the `int8q` branch): the queries arrive as int8 codes,
+//     the product runs on the tensor cores with int32 sums (WMMA 16x16x16,
+//     signed char), and the int32 tile is cast to float32 and scaled the
+//     same way. The query's own scale stays out of the kernel, as on the
+//     TPU: it is positive and constant per slot, so it changes no ranking,
+//     and the wrapper (tpulmi_torch/ops/probe_topk.py) applies it to the
+//     final lists. With a packed int4 store the nibbles are unpacked to int8
+//     while staging.
+//
+// Design. The kernel is csrc/probe_common.cuh::probe_kernel, the CTA design
+// of probe_topk.cu (one CTA per 64-slot block looping over its bucket's
+// rows, ballot-gated insert into a sorted list held across a warp's lanes,
+// ties to the lower store row); this file instantiates it for the two code
+// layouts and the four query types. What the TPU kernel needed and this one
+// does not: scales fed as (mc/128, 128) tiles (a tile's 64 scales are staged
+// into shared memory once), mc % 1024 == 0, int32 shifts for the nibbles (a
+// packed byte is split where it is staged; byte j holds dim j in the low and
+// dim j + d/2 in the high nibble, so a staged vector of 4, 8 or 16
+// neighbouring features lies in one nibble of as many neighbouring bytes).
+//
+// Limits. k <= 128; int8 codes need d % 16 == 0 (16-byte row loads of the
+// int8 queries), packed int4 d % 32 == 0 (so that d/2 keeps that alignment).
+//
+// What bounds it. Each probed bucket's codes are read once (half or a
+// quarter of a bfloat16 store's bytes) and 2 d slots rows operations done on
+// them; at the 300K x 768 shape with bfloat16 queries the operations at the
+// bf16 tensor-core rate are the larger bound, with int8 queries the two are
+// of one order. This first version is bound by neither: like probe_topk.cu
+// its staged loads are synchronous, WMMA reads its operands from shared
+// memory, and a bucket is re-read (from L2) once per 64-slot block; the
+// conversion of the codes adds instructions to the staging loop. The int8
+// cells of a staged slice are padded to 32 bytes, so an int8 slice holds 128
+// features like a bfloat16 one. wgmma (s8 for int8 queries) fed by TMA is
+// the next step.
+
+#include "probe_common.cuh"
+
+namespace {
+
+using namespace probe;
+
+template <typename T>
+int launch_src(const void *q, const void *qidx, const void *codes,
+               const void *scales, const void *blocks, void *out_d,
+               void *out_i, int n_blocks, int d, long long n_rows, int k,
+               int bits, cudaStream_t s) {
+  if (bits == 8)
+    return launch_k<T, SRC_INT8>(q, qidx, codes, scales, blocks, out_d, out_i,
+                                 n_blocks, d, n_rows, k, 127.0f, s);
+  return launch_k<T, SRC_INT4>(q, qidx, codes, scales, blocks, out_d, out_i,
+                               n_blocks, d, n_rows, k, 7.0f, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Slots per block: the wrapper lays slots out in blocks of this size.
+int probe_topk_quant_block_slots() { return probe::QB; }
+
+// Launch on `stream`. `qdtype` is the type of q: 0 bfloat16, 1 float16,
+// 2 float32, 3 int8 codes (int8 x int8). `bits` is the store's code width:
+// 8 (codes is (n_rows, d) int8) or 4 (codes is (n_rows, d/2) packed bytes).
+// `d` is the logical width. Returns the CUDA error code (0 = ok).
+int probe_topk_quant_launch(const void *q, const void *qidx,
+                            const void *codes, const void *scales,
+                            const void *blocks, void *out_d, void *out_i,
+                            int n_blocks, int d, long long n_rows, int k,
+                            int qdtype, int bits, void *stream) {
+  if (n_blocks <= 0) return 0;
+  if (k < 1 || k > 128 || (bits != 8 && bits != 4) || d < 16 ||
+      d % (bits == 4 ? 32 : 16) != 0)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (qdtype) {
+    case 0:
+      return launch_src<__nv_bfloat16>(q, qidx, codes, scales, blocks, out_d,
+                                       out_i, n_blocks, d, n_rows, k, bits, s);
+    case 1:
+      return launch_src<__half>(q, qidx, codes, scales, blocks, out_d, out_i,
+                                n_blocks, d, n_rows, k, bits, s);
+    case 2:
+      return launch_src<float>(q, qidx, codes, scales, blocks, out_d, out_i,
+                               n_blocks, d, n_rows, k, bits, s);
+    case 3:
+      return launch_src<signed char>(q, qidx, codes, scales, blocks, out_d,
+                                     out_i, n_blocks, d, n_rows, k, bits, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

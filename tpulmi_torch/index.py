@@ -1,4 +1,4 @@
-"""LearnedIndex facade: build and search.
+"""LearnedIndex facade: build, quantize, search, save and load.
 
 - ``build(data_nav, data_search)``: k-means-partition the navigation
   vectors, train the MLP router on the partition, assign every row to its
@@ -6,14 +6,23 @@
   search vectors out in the bucket-sorted store on the index's device.
 - ``search(queries_nav, queries_search, n_buckets, k)``: route each query to
   its top-`n_buckets` buckets and run the exact probe over them.
+- ``quantize(host_corpus, bits)``: turn the store into int8 or packed int4
+  codes with per-row scales. With a host-resident full-precision corpus
+  attached, `search` fetches a few more candidates than k and reranks them
+  exactly on the host, which takes the quantization error out of the result.
+- ``save`` / ``load``: ``state.npz`` (numpy, no pickle) and ``meta.json``;
+  the rerank corpus is recorded by fingerprint and reattached or asked for.
 
 The index runs on ``device`` ("cuda" by default). A CUDA device on a machine
 without one is an error; the CPU is used only when asked for. External ids
 are 1-based (SISAP convention); everything internal is 0-based.
 """
 
+import hashlib
+import json
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
@@ -23,7 +32,7 @@ import torch
 from tpulmi_torch.buckets import (BucketStore, bucket_stats,
                                   build_bucket_store)
 from tpulmi_torch.models.train import BucketClassifier
-from tpulmi_torch.ops.distance import l2_normalize
+from tpulmi_torch.ops.distance import SENTINEL_DIST, l2_normalize
 from tpulmi_torch.ops.kmeans import kmeans
 from tpulmi_torch.search import make_search_program
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
@@ -37,6 +46,19 @@ _DTYPES = {None: torch.float32, "float32": torch.float32,
 # the TPU kernel's top-k strategies; all compute the same function, and the
 # one CUDA kernel serves them all
 _EXTRACT_MODES = ("scalar", "group", "group2")
+CHECKPOINT_VERSION = 2
+
+
+def _host_mem_available():
+    """Host MemAvailable in bytes, or None where /proc/meminfo is absent."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
 
 
 @dataclass
@@ -58,6 +80,10 @@ class LearnedIndex:
         self.built: Optional[BuiltIndex] = None
         self._search_programs = {}   # static config -> search function
         self.last_max_slots = None   # slots routed to the busiest bucket
+        # (host corpus, normalized) for the exact rerank of a quantized store
+        self._host_corpus = None
+        self._rerank_meta = None     # a restored checkpoint's rerank contract
+        self._rerank_shadow = None   # (corpus, its float16 copy)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -140,7 +166,8 @@ class LearnedIndex:
         store = BucketStore(
             data_sorted=result.data_sorted, ids_sorted=result.ids_sorted,
             offsets=result.offsets, counts=result.counts,
-            n=int(data_nav.shape[0]), pad_rows=result.pad_rows, row_align=max(cfg.row_align, 1))
+            n=int(data_nav.shape[0]), pad_rows=result.pad_rows,
+            row_align=max(cfg.row_align, 1))
         mx, mn, mean = bucket_stats(store)
         log.info("fused build: N=%d buckets=%d size max/mean/min=%d/%.0f/%d;"
                  " final loss %.4f; build %.3fs", store.n, n_categories, mx,
@@ -149,27 +176,132 @@ class LearnedIndex:
                                 result.pred_categories, cfg, mx)
         return result.pred_categories.cpu().numpy(), build_time
 
+    # --------------------------------------------------------------- quantize
+    def quantize(self, host_corpus=None, normalized: bool = False,
+                 bits: int = 8) -> None:
+        """Convert the built store to int8 (``bits=8``) or packed int4
+        (``bits=4``) codes + per-row scales in place (half / a quarter of a
+        bfloat16 store's bytes). Optionally attach a host-resident
+        full-precision corpus so that `search` reranks the final candidates
+        exactly; int4 in effect requires it."""
+        if self.built is None:
+            raise ValueError("Index is not built, call `build` first.")
+        from tpulmi_torch.ops.quantize import quantize_store
+
+        self.built = replace(
+            self.built, store=quantize_store(self.built.store, bits=bits))
+        self._search_programs = {}
+        if host_corpus is not None:
+            self._host_corpus = (host_corpus, normalized)
+
+    def _resolve_rerank_extra(self, scfg) -> int:
+        """Rerank depth: `SearchConfig.rerank_extra=None` resolves to 30 for
+        a packed int4 store (whose coarser codes otherwise drop true
+        neighbours from the candidate cut), else 10."""
+        if scfg.rerank_extra is not None:
+            return scfg.rerank_extra
+        store = self.built.store if self.built is not None else None
+        return 30 if getattr(store, "quant_bits", 8) == 4 else 10
+
+    def _rerank_host(self, dists, ids, queries_search, k: int,
+                     host_queries=None, rerank_dtype: str = "float32"):
+        """Exact top-k over the quantized candidates, on the host: gather
+        the candidate rows from the host corpus, recompute full-precision
+        cosine distances, reorder, truncate to k. `ids` (numpy) are 0-based,
+        -1 = empty. `dists` is unused (and may be None): every kept
+        candidate's distance is recomputed.
+
+        ``host_queries``: host-side mirror of ``queries_search``; without
+        it the queries are copied back from the card.
+
+        ``rerank_dtype="float16"`` gathers from a cached float16 shadow of
+        the corpus: half the gathered bytes for ~4e-4 relative distance
+        error, an order below the int8 error the rerank erases."""
+        corpus, normalized = self._host_corpus
+        q, k_eff = ids.shape
+        d = int(np.asarray(corpus[:1]).shape[1])
+        # a candidate list may hold one row twice: mark repeats empty so the
+        # exact reorder can never return a row twice (a no-op otherwise)
+        sort_idx = np.argsort(ids, axis=1, kind="stable")
+        sorted_ids = np.take_along_axis(ids, sort_idx, axis=1)
+        dup_sorted = np.zeros(ids.shape, dtype=bool)
+        dup_sorted[:, 1:] = ((sorted_ids[:, 1:] == sorted_ids[:, :-1])
+                             & (sorted_ids[:, 1:] >= 0))
+        if dup_sorted.any():
+            dup = np.zeros(ids.shape, dtype=bool)
+            np.put_along_axis(dup, sort_idx, dup_sorted, axis=1)
+            ids = np.where(dup, -1, ids)
+        if host_queries is not None:
+            qs = np.array(host_queries, np.float32)  # writable copy
+        else:
+            qs = np.array(torch.as_tensor(queries_search).float().cpu(),
+                          np.float32)
+        qs /= np.maximum(np.linalg.norm(qs, axis=1, keepdims=True), 1e-12)
+        flat = np.maximum(ids, 0).reshape(-1)
+        if rerank_dtype == "float16":
+            shadow = self._rerank_shadow
+            if shadow is None or shadow[0] is not corpus:
+                # The shadow is a full-size float16 copy of the corpus. Past
+                # the available host RAM the allocation would not raise, the
+                # kernel's OOM killer would end the process: refuse instead.
+                need = 2 * d * len(corpus)
+                avail = _host_mem_available()
+                if avail is not None and need > avail - (8 << 30):
+                    raise RuntimeError(
+                        f"f16 rerank shadow needs {need / 2**30:.1f} GiB but "
+                        f"only {avail / 2**30:.1f} GiB host RAM is available")
+                shadow = (corpus, np.asarray(corpus, np.float16))
+                self._rerank_shadow = shadow
+            # the gathered rows stay float16: torch's CPU half bmm sums in
+            # float32, and an upcast of the block costs more than the
+            # halved gather saves
+            rows = shadow[1][flat].reshape(q, k_eff, d)
+        else:
+            rows = np.asarray(corpus[flat], np.float32).reshape(q, k_eff, d)
+        if not normalized:
+            rows = np.asarray(rows, np.float32)
+            rows /= np.maximum(
+                np.linalg.norm(rows, axis=2, keepdims=True), 1e-12)
+        qcol = torch.from_numpy(qs.astype(rows.dtype)).unsqueeze(2)
+        sims = torch.bmm(torch.from_numpy(rows), qcol).float().numpy()[:, :, 0]
+        exact = np.where(ids < 0, SENTINEL_DIST, 1.0 - sims)
+        order = np.argsort(exact, axis=1, kind="stable")[:, :k]
+        return (np.take_along_axis(exact, order, axis=1).astype(np.float32),
+                np.take_along_axis(ids, order, axis=1))
+
     # ----------------------------------------------------------------- search
     def search(self, queries_nav, queries_search=None, n_buckets: int = 4,
-               k: int = 10, search_config: Optional[SearchConfig] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
+               k: int = 10, search_config: Optional[SearchConfig] = None,
+               queries_search_host=None) -> Tuple[np.ndarray, np.ndarray]:
         """k-NN search probing the top-`n_buckets` routed buckets per query.
         Returns (dists, anns) of shape (Q, k): float32 cosine distances
         ascending and 1-based ids (an empty place is id 1 at distance
-        10000)."""
+        10000).
+
+        ``queries_search_host``: optional host-side (numpy) mirror of
+        ``queries_search``, used by the quantized-store rerank so that it
+        never copies the queries back from the card. When ``queries_search``
+        arrives as a numpy array the mirror is captured by itself."""
         if self.built is None:
             raise ValueError("Index is not built, call `build` first.")
         scfg = search_config or SearchConfig(k=k, n_buckets=n_buckets)
+        if queries_search is None:
+            queries_search = queries_nav
+        if queries_search_host is None and isinstance(queries_search,
+                                                      np.ndarray):
+            queries_search_host = queries_search
         queries_nav = self._tensor(queries_nav)
-        queries_search = (queries_nav if queries_search is None
-                          else self._tensor(queries_search))
+        queries_search = self._tensor(queries_search)
 
         bq = scfg.batch_queries
         if bq and queries_nav.shape[0] > bq:
-            parts = [self.search(queries_nav[lo:lo + bq],
-                                 queries_search[lo:lo + bq],
-                                 n_buckets=n_buckets, k=k, search_config=scfg)
-                     for lo in range(0, queries_nav.shape[0], bq)]
+            parts = [self.search(
+                queries_nav[lo:lo + bq], queries_search[lo:lo + bq],
+                n_buckets=n_buckets, k=k, search_config=scfg,
+                queries_search_host=(queries_search_host[lo:lo + bq]
+                                     if queries_search_host is not None
+                                     else None))
+                for lo in range(0, queries_nav.shape[0], bq)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
 
@@ -178,15 +310,16 @@ class LearnedIndex:
         program = self._dispatch_program(plan, n_buckets, scfg)
         out = program(queries_nav, queries_search, self.built.store)
         dists, ids = self._absorb_result(plan, out)
-        return self._finalize(dists, ids)
+        return self._finalize(dists, ids, plan, k, scfg, queries_search,
+                              queries_search_host)
 
     def _plan_search(self, queries_nav, n_buckets: int, k: int,
                      scfg: SearchConfig) -> SimpleNamespace:
-        """Resolve the static decisions of one probe search: backend and
-        compute dtype. Options of kernel variants not ported yet are
-        refused."""
+        """Resolve the static decisions of one probe search: backend,
+        compute dtype, rerank depth. Options of kernel variants not ported
+        yet are refused."""
         unported = [name for name in ("pallas_worklist", "pallas_pool",
-                                      "pallas_pair", "int8_queries")
+                                      "pallas_pair")
                     if getattr(scfg, name)]
         if scfg.prune_after > 0:
             unported.append("prune_after")
@@ -207,22 +340,32 @@ class LearnedIndex:
                        else "torch")
         elif backend not in ("cuda", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
+        store = self.built.store
+        quantized = bool(getattr(store, "is_quantized", False))
+        # a quantized store with a host corpus attached: fetch extra
+        # candidates and rerank them at full precision on the host
+        rerank = (scfg.rerank and quantized
+                  and self._host_corpus is not None)
+        k_eff = k + self._resolve_rerank_extra(scfg) if rerank else k
         return SimpleNamespace(q=int(queries_nav.shape[0]), backend=backend,
-                               compute_dtype=compute_dtype, k=k)
+                               compute_dtype=compute_dtype, k=k,
+                               rerank=rerank, k_eff=k_eff,
+                               int8_queries=scfg.int8_queries and quantized)
 
     def _dispatch_program(self, plan, n_buckets: int, scfg: SearchConfig):
         """The search function for the plan's static configuration, made
         once and kept."""
-        key = (plan.backend, n_buckets, plan.k, plan.compute_dtype,
-               scfg.probe_mass, scfg.fetch_dtype)
+        key = (plan.backend, n_buckets, plan.k_eff, plan.compute_dtype,
+               scfg.probe_mass, scfg.fetch_dtype, plan.int8_queries)
         program = self._search_programs.get(key)
         if program is None:
             program = make_search_program(
-                self.built.classifier.model, k=plan.k, n_buckets=n_buckets,
+                self.built.classifier.model, k=plan.k_eff, n_buckets=n_buckets,
                 compute_dtype=plan.compute_dtype, backend=plan.backend,
                 probe_mass=scfg.probe_mass,
                 fetch_dtype=_DTYPES[scfg.fetch_dtype]
-                if scfg.fetch_dtype else None)
+                if scfg.fetch_dtype else None,
+                int8_queries=plan.int8_queries)
             self._search_programs[key] = program
         return program
 
@@ -235,13 +378,22 @@ class LearnedIndex:
         self.last_max_slots = int(max_slots)
         return dists, ids
 
-    @staticmethod
-    def _finalize(dists: torch.Tensor, ids: torch.Tensor):
-        """Empty places (id -1) keep the sentinel distance and become id 0;
-        then ids become 1-based."""
-        ids = torch.where(ids < 0, torch.zeros_like(ids), ids)
-        return (dists.float().cpu().numpy(),
-                ids.cpu().numpy().astype(np.int64) + 1)
+    def _finalize(self, dists: torch.Tensor, ids: torch.Tensor, plan, k: int,
+                  scfg: SearchConfig, queries_search, queries_search_host):
+        """Host post-processing: the exact rerank when the plan asks for
+        it, then empty places (id -1) keep the sentinel distance and become
+        id 0, and ids become 1-based. When the plan reranks, the quantized
+        distances never leave the card: the rerank recomputes every kept
+        candidate's distance."""
+        if plan.rerank:
+            dists, ids = self._rerank_host(
+                None, ids.cpu().numpy(), queries_search, k,
+                host_queries=queries_search_host,
+                rerank_dtype=scfg.rerank_dtype)
+        else:
+            dists, ids = dists.float().cpu().numpy(), ids.cpu().numpy()
+        ids = np.where(ids < 0, 0, ids)
+        return (np.asarray(dists, np.float32), ids.astype(np.int64) + 1)
 
     def search_single(self, queries_nav, queries_search=None, k: int = 10,
                       search_config: Optional[SearchConfig] = None):
@@ -256,3 +408,155 @@ class LearnedIndex:
                       seed=cfg.seed,
                       max_points_per_centroid=cfg.kmeans_max_points_per_centroid,
                       generator=self._generator())
+
+    # ------------------------------------------------------------ checkpoint
+    @staticmethod
+    def _corpus_fingerprint(corpus) -> dict:
+        """Cheap identity of a host rerank corpus: shape + a hash of three
+        sampled rows. Enough to catch attaching the wrong corpus without
+        reading all of it."""
+        n, d = int(corpus.shape[0]), int(corpus.shape[1])
+        h = hashlib.sha1()
+        for i in (0, n // 2, n - 1):
+            h.update(np.ascontiguousarray(
+                np.asarray(corpus[i], np.float32)).tobytes())
+        return {"n": n, "d": d, "rows_sha1": h.hexdigest()}
+
+    def attach_host_corpus(self, corpus, normalized: bool = False) -> None:
+        """Attach (or re-attach) the host-resident full-precision corpus
+        used for the exact rerank of quantized search results. Validated
+        against the checkpoint's fingerprint when one was restored."""
+        meta = self._rerank_meta
+        if meta is not None:
+            fp = self._corpus_fingerprint(corpus)
+            if fp != meta.get("fingerprint", fp):
+                raise ValueError(
+                    "host corpus does not match the checkpointed rerank "
+                    f"fingerprint: got {fp}, expected {meta['fingerprint']}")
+            normalized = bool(meta.get("normalized", normalized))
+        self._host_corpus = (corpus, normalized)
+
+    def save(self, path: str, include_corpus: bool = False) -> None:
+        """Checkpoint the built index (centroids, router, bucket store) as
+        ``state.npz`` + ``meta.json`` under `path`; `load` restores it.
+
+        A quantized index carries a host rerank corpus; its contract
+        (fingerprint, and the source path when the corpus is a memmap) is
+        always recorded so that `load` can reattach it or warn.
+        ``include_corpus=True`` also copies the corpus into the checkpoint
+        (``corpus.npy``) for a self-contained restore."""
+        if self.built is None:
+            raise ValueError("Nothing to save, call `build` first.")
+        path = Path(path).absolute()
+        path.mkdir(parents=True, exist_ok=True)
+        built, store = self.built, self.built.store
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        state = {
+            "pred_categories": host(built.pred_categories),
+            "store.data_sorted": host(store.data_sorted),
+            "store.ids_sorted": host(store.ids_sorted),
+            "store.offsets": host(store.offsets),
+            "store.counts": host(store.counts),
+        }
+        if built.centroids is not None:
+            state["centroids"] = host(built.centroids)
+        if store.scales is not None:
+            state["store.scales"] = host(store.scales)
+        for name, t in built.classifier.model.state_dict().items():
+            state[f"params.{name}"] = host(t)
+        meta = {
+            "config": built.config.to_dict(),
+            "input_dim": built.classifier.input_dim,
+            "n_classes": built.classifier.n_classes,
+            "model_type": built.classifier.model_type,
+            "store_n": store.n,
+            "store_pad_rows": store.pad_rows,
+            "store_row_align": store.row_align,
+            "store_quant_bits": store.quant_bits,
+            "version": CHECKPOINT_VERSION,
+        }
+        if self._host_corpus is not None:
+            corpus, normalized = self._host_corpus
+            src = getattr(corpus, "filename", None)
+            meta["rerank"] = {
+                "normalized": bool(normalized),
+                "fingerprint": self._corpus_fingerprint(corpus),
+                "corpus_path": str(src) if src else None,
+            }
+        np.savez(path / "state.npz", **state)
+        if include_corpus and self._host_corpus is not None:
+            np.save(path / "corpus.npy", np.asarray(self._host_corpus[0]))
+        with open(path / "meta.json", "w") as f:
+            json.dump(meta, f)
+
+    @staticmethod
+    def _restore_rerank(index: "LearnedIndex", meta: dict, path: Path) -> None:
+        """Reattach the host rerank corpus of a quantized checkpoint, or
+        warn loudly that restored searches will run on the codes only.
+        Tries, in order: ``corpus.npy`` inside the checkpoint (written by
+        ``save(include_corpus=True)``), then the recorded source path of a
+        memmap corpus. Fingerprint-validated either way."""
+        rer = meta.get("rerank")
+        if not rer:
+            return
+        index._rerank_meta = rer
+        candidates = [path / "corpus.npy"]
+        if rer.get("corpus_path"):
+            candidates.append(Path(rer["corpus_path"]))
+        for cand in candidates:
+            if not cand.exists():
+                continue
+            try:
+                corpus = np.load(cand, mmap_mode="r")
+                index.attach_host_corpus(corpus)
+                log.info("rerank corpus reattached from %s", cand)
+                return
+            except (ValueError, OSError) as e:
+                log.warning("rerank corpus at %s rejected: %s", cand, e)
+        log.warning(
+            "QUANTIZED index restored WITHOUT its rerank corpus: searches "
+            "will run on the quantized codes only. Call "
+            "attach_host_corpus(corpus) to restore the exact rerank "
+            "(expected corpus: %s).", rer.get("fingerprint"))
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "LearnedIndex":
+        """Restore a saved index onto `device`."""
+        path = Path(path).absolute()
+        with open(path / "meta.json") as f:
+            meta = json.load(f)
+        cfg = IndexConfig(**meta["config"])
+        index = cls(cfg, device=device)
+        dev = index.device
+        with np.load(path / "state.npz", allow_pickle=False) as z:
+            state = {name: z[name] for name in z.files}
+
+        def t(name, dtype=None):
+            return torch.as_tensor(state[name], dtype=dtype, device=dev)
+
+        classifier = BucketClassifier(
+            meta["input_dim"], meta["n_classes"], lr=cfg.lr,
+            model_type=meta["model_type"], seed=cfg.seed, device=dev)
+        classifier.model.load_state_dict(
+            {name[len("params."):]: t(name) for name in state
+             if name.startswith("params.")})
+        store = BucketStore(
+            data_sorted=t("store.data_sorted"),
+            ids_sorted=t("store.ids_sorted", torch.int32),
+            offsets=t("store.offsets", torch.int32),
+            counts=t("store.counts", torch.int32),
+            n=int(meta["store_n"]), pad_rows=int(meta["store_pad_rows"]),
+            row_align=int(meta.get("store_row_align", 1)),
+            scales=(t("store.scales", torch.float32)
+                    if "store.scales" in state else None),
+            quant_bits=int(meta.get("store_quant_bits", 8)))
+        index.built = BuiltIndex(
+            centroids=t("centroids") if "centroids" in state else None,
+            classifier=classifier, store=store,
+            pred_categories=t("pred_categories", torch.int32), config=cfg,
+            max_bucket=bucket_stats(store)[0])
+        cls._restore_rerank(index, meta, path)
+        return index

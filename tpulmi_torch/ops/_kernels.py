@@ -3,8 +3,8 @@ ctypes.
 
 Each source is compiled at first use into ``tpulmi_torch/_build/`` (listed
 in .gitignore) as a shared library with a plain C interface, named by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. Nothing here runs at import time.
+of the source, the headers beside it and the flags, so an edited source is
+rebuilt and an unchanged one is reused. Nothing here runs at import time.
 """
 
 import ctypes
@@ -31,6 +31,11 @@ SIGNATURES = {
                                _P], _I),
         "probe_topk_block_slots": ([], _I),
     },
+    "probe_topk_quant": {
+        "probe_topk_quant_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL,
+                                     _I, _I, _I, _P], _I),
+        "probe_topk_quant_block_slots": ([], _I),
+    },
 }
 
 _lock = threading.Lock()
@@ -54,8 +59,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 
 

@@ -59,12 +59,14 @@ def routing_logits(model, queries_nav: torch.Tensor, *, need_mass: bool):
 
 def make_search_program(model, *, k: int, n_buckets: int,
                         compute_dtype=torch.bfloat16, backend: str = "cuda",
-                        probe_mass=None,
-                        fetch_dtype=None):
+                        probe_mass=None, fetch_dtype=None,
+                        int8_queries: bool = False):
     """The search as one function (queries_nav, queries_search, store) ->
     (dists, ids, max_slots) over `model`: top-P routing (softmax is monotone,
     so the logits rank), normalization of the search queries, and the
-    probe with its merge."""
+    probe with its merge. `k` is the number of candidates fetched (the
+    plan's k plus the rerank depth when the result is reranked);
+    `int8_queries` applies to a quantized store only."""
     truncating = probe_mass is not None
 
     @torch.no_grad()
@@ -77,7 +79,7 @@ def make_search_program(model, *, k: int, n_buckets: int,
         qs = l2_normalize(queries_search.float())
         d, i, max_slots = probe_search(
             probes, qs, store, k=k, compute_dtype=compute_dtype,
-            backend=backend)
+            backend=backend, int8_queries=int8_queries)
         if fetch_dtype is not None:
             d = d.to(fetch_dtype)
         return d, i, max_slots

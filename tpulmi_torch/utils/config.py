@@ -73,9 +73,11 @@ class SearchConfig:
     # package. pallas_extract is only checked: all three modes compute the
     # same function and run the same CUDA kernel. pallas_qc
     # and pallas_mc were TPU tile sizes; the CUDA kernel fixes its own tile
-    # (64 slots x 64 rows). pallas_worklist, pallas_pool, pallas_pair and
-    # int8_queries select kernel variants that are not ported yet and are
-    # refused when set.
+    # (64 slots x 64 rows). int8_queries (quantized stores only, ignored on
+    # a full-precision one) quantizes the queries per row and runs the
+    # int8 x int8 kernel of csrc/probe_topk_quant.cu. pallas_worklist,
+    # pallas_pool and pallas_pair select kernel variants that are not ported
+    # yet and are refused when set.
     pallas_qc: int = 512
     pallas_mc: int = 1024
     pallas_extract: str = "group"
@@ -84,7 +86,11 @@ class SearchConfig:
     pallas_pool: bool = False
     pallas_pair: bool = False
 
-    # Quantized stores and their host rerank (not ported yet).
+    # Quantized stores (LearnedIndex.quantize) with a host corpus attached:
+    # fetch k + rerank_extra candidates and rerank them exactly on the host.
+    # rerank_extra=None resolves to 30 for a packed int4 store, else 10.
+    # rerank_dtype="float16" gathers from a cached float16 copy of the
+    # corpus.
     rerank: bool = True
     rerank_extra: Optional[int] = None
     rerank_dtype: str = "float32"

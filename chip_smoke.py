@@ -8,12 +8,19 @@ timing, one search's time by stage and by device kernel. ``--kernels-only``
 stops after phase 2 (a short check of a changed kernel) and prints no
 result line.
 
-1. build   - compile every CUDA kernel of tpulmi_torch/csrc with nvcc;
+1. build   - compile every CUDA kernel library of tpulmi_torch/csrc with
+             nvcc, all at once;
 2. kernels - each kernel against its plain PyTorch version on the card, on
              random bfloat16, float16 and float32 stores and on their int8
              and packed-int4 quantizations with float and int8 queries (the
              main path's shapes and a narrow one, skewed bucket sizes,
-             buckets smaller than k, dumped slots);
+             buckets smaller than k, dumped slots); then every further
+             configuration of the kernel (the 128-row tile, the worklist's
+             item and merge kernels, the rerank pool, and their
+             combinations) against its plain version and, to the bit,
+             against the one-CTA-per-block kernel, on a store with one
+             bucket of more than 20 times the mean, an empty probed bucket,
+             dumped slots, a tight and an undersized worklist;
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
              synthetic corpus with 122 buckets, then LearnedIndex.search of
              10k queries at 1, 2, 3, 4 and 7 probes, recall@10 against an
@@ -24,9 +31,19 @@ result line.
              exact host rerank (recall@10, time, the rerank's share, the
              launch count of each kernel variant), a probe sweep with the
              rerank, and one save / load round trip of the int4 index;
-5. timing  - each kernel, its plain version and one library call for the
+5. serving - LearnedIndex.search_stream over 8 batches of 10k host queries
+             at 2 probes, depth 2: with the default config, with the
+             worklist, with the 128-row tile, and on the int8 store with
+             the host rerank, with the rerank pool, and with every option
+             at once; every batch equal to LearnedIndex.search's result,
+             recall@10, the launch count of every kernel, the steady time
+             per batch beside search's (`--profile`: the device's busy
+             share of a stream);
+6. timing  - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
-             the least time the card could take for that work.
+             the least time the card could take for that work; then the
+             one-CTA-per-block kernel against the worklist and the 128-row
+             tile on a skewed store.
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit as nvidia-smi reports them, and
@@ -50,7 +67,10 @@ DIST_TOL = 1e-4   # bf16 inputs, f32 sums taken in another order
 # contraction on both sides, so kernel and plain version agree to rounding
 INT8Q_TOL = 1e-5
 KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
-                  "probe_topk_quant": "tpulmi_torch/csrc/probe_topk_quant.cu"}
+                  "probe_topk_quant": "tpulmi_torch/csrc/probe_topk_quant.cu",
+                  "probe_common": "tpulmi_torch/csrc/probe_common.cuh",
+                  "merge_items": "tpulmi_torch/csrc/merge_items.cu"}
+N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -100,7 +120,7 @@ def phase_build():
     from tpulmi_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    paths = _kernels.build(_kernels.SIGNATURES)
+    paths = _kernels.build(_kernels.LIBRARIES)
     log(f"[build] {len(paths)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, info in _kernels.build_info.items():
@@ -288,6 +308,230 @@ def phase_kernels(dev):
                               nq * p, tol=INT8Q_TOL)
                 note(f"probe_topk_int8q_int{bits}", err, d, k, p, nq,
                      "int8 queries")
+    return errs
+
+
+def compare_pool(kern, plain, parts, rescale, own_dist, layout, n_slots, k,
+                 tol=DIST_TOL):
+    """`compare` for results with a rerank pool (k_out > k columns). The
+    first k columns as `compare` holds them against the plain version's.
+    The extras against the definition applied to the kernel's own prefix:
+    `parts` are the plain worklist's parts for the same inputs, whose keys
+    are the plain per-class best rows; the k_out - k best of them that are
+    not in the kernel's top-k must be the kernel's extras: distances
+    within tol, empty places alike, ids alike where distances are apart
+    but for a class whose two best rows lie within a rounding of each
+    other (at least 99.9%). (The plain version's own extras may differ in
+    a row where rank k and k + 1 lie within a rounding: another row in the
+    prefix takes another class out of the pool.) Also: the whole row
+    ascends, every id has its own distance, none comes twice. `rescale`
+    applies the int8 queries' scales to lists of raw scores."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import pool_extras, pool_pairs
+
+    (kd, ki), (pd, pi) = kern, plain
+    k_out = kd.shape[1]
+    err = compare((kd[:, :k], ki[:, :k]), (pd[:, :k], pi[:, :k]), own_dist,
+                  layout, n_slots, tol)
+    want = pool_extras(kd[:, :k], ki[:, :k], *pool_pairs(parts.keys), k_out)
+    if rescale is not None:
+        want = rescale(want)
+    live = layout.slot_of_row < n_slots
+    moved = int(((kd - pd).abs()[live] > tol).any(1).sum())
+    kd, ki = kd[live], ki[live]
+    wd, wi = want[0][live][:, k:], want[1][live][:, k:]
+    err = max(err, float((kd[:, k:] - wd).abs().max()) if kd.numel() else 0.0)
+    if not err <= tol:
+        raise AssertionError(f"pool distances differ by {err}")
+    if not torch.equal(ki[:, k:] < 0, wi < 0):
+        raise AssertionError("kernel and plain pools disagree on empty places")
+    if not bool((kd[ki < 0] == 10000.0).all()):
+        raise AssertionError("an empty pool place does not hold the sentinel")
+    if not bool((kd[:, 1:] >= kd[:, :-1]).all()):
+        raise AssertionError("a pooled row does not ascend")
+    own = own_dist(layout.qidx[live].long(), torch.clamp(ki, min=0).long())
+    if not bool(((own - kd).abs() <= DIST_TOL)[ki >= 0].all()):
+        raise AssertionError("pool ids do not carry their distances")
+    srt = torch.sort(ki, dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError("a pooled row holds an id twice")
+    gap = torch.full_like(wd, float("inf"))
+    step = wd[:, 1:] - wd[:, :-1]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], step)
+    gap[:, 1:] = torch.minimum(gap[:, 1:], step)
+    apart = gap > tol
+    apart[:, -1] = False
+    if apart.any() and float((ki[:, k:] == wi)[apart].float().mean()) < 0.999:
+        raise AssertionError("pool ids differ where distances are apart")
+    if moved:
+        log(f"[kernels]   ({moved} of {int(live.sum())} rows differ from the "
+            f"plain version's own extras: ranks k and k+1 within a rounding)")
+    return err
+
+
+def store_kinds(q, qf, data, layout, kinds):
+    """For each kind of store and query in `kinds`: (name of its kernel,
+    wrapper, plain version, arguments before k, arguments after k, the
+    distances of returned ids from the inputs, tolerance, what turns lists
+    of the kernel's raw scores into distances, or None)."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import (apply_query_scale, probe_topk,
+                                             probe_topk_int8q,
+                                             probe_topk_int8q_plain,
+                                             probe_topk_plain,
+                                             probe_topk_quant,
+                                             probe_topk_quant_plain)
+    from tpulmi_torch.ops.quantize import (quantize_rows,
+                                           quantize_rows_int4)
+
+    out = []
+    for kind in kinds:
+        if kind == "full":
+            out.append(("probe_topk", probe_topk, probe_topk_plain,
+                        (q, layout.qidx, data, layout.blocks), (),
+                        own_full(q, data), DIST_TOL, None))
+            continue
+        bits = int(kind[-1])
+        codes, scales = (quantize_rows_int4 if bits == 4
+                         else quantize_rows)(data.float())
+        tail = (layout.qidx, codes, scales, layout.blocks)
+        if kind.startswith("int8q"):
+            qc, qs = quantize_rows(qf)
+            out.append((f"probe_topk_int8q_int{bits}", probe_topk_int8q,
+                        probe_topk_int8q_plain, (qc, qs, *tail), (bits,),
+                        own_quant(qc, codes, scales, bits, qs), INT8Q_TOL,
+                        lambda out, qs=qs: apply_query_scale(
+                            out, qs, layout.qidx)))
+        else:
+            out.append((f"probe_topk_quant_int{bits}", probe_topk_quant,
+                        probe_topk_quant_plain, (q, *tail), (bits,),
+                        own_quant(q, codes, scales, bits), DIST_TOL, None))
+    return out
+
+
+def worklist_total(layout, counts, span):
+    """The closed form of the worklist's length: over probed buckets,
+    ceil(slots / 64) * max(ceil(rows / span), 1)."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import BLOCK_SLOTS
+
+    slots = layout.slot_counts
+    steps = torch.clamp(-(-counts.long() // span), min=1)
+    return int((-(-slots // BLOCK_SLOTS) * steps * (slots > 0)).sum())
+
+
+def phase_variants(dev, errs):
+    """The further configurations of the probe kernel, each against its
+    plain version and, to the bit, against the one-CTA-per-block kernel."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import (group_slots, merge_items,
+                                             merge_items_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    sizes = (torch.rand(N_CAT, generator=rng) ** 3 * 9000).long() + 1
+    sizes[5], sizes[9] = 3, 0
+    sizes[0] = 25 * int(sizes.float().mean())      # one very long bucket
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (d, k, k_out, probes, queries, dtype, store kinds)
+    cases = [(768, 10, 20, 2, N_QUERIES, bf16,
+              ("full", "quant8", "quant4", "int8q8", "int8q4")),
+             (128, 40, 128, 3, 2000, f32, ("full", "quant8")),
+             # lists of 128, 128-row tile and pool: the most shared memory
+             (128, 100, 128, 2, 1000, f16, ("full", "int8q4"))]
+
+    def note(name, err, what):
+        errs[name] = max(errs.get(name, 0.0), err)
+        log(f"[kernels] {name} {what}: max |err| {err:.3g}")
+
+    for d, k, k_out, p, nq, dtype, kinds in cases:
+        data, offsets, counts = random_store(d, sizes.tolist(), dev, gen,
+                                             dtype)
+        qf = torch.randn((nq, d), generator=gen, device=dev)
+        qf = qf / qf.norm(dim=1, keepdim=True)
+        q = qf.to(dtype)
+        probes = torch.argsort(torch.rand((nq, N_CAT), generator=gen,
+                                          device=dev), dim=1)[:, :p]
+        probes[:, 0] = torch.where(
+            torch.rand(nq, generator=gen, device=dev) < 0.3, 0,
+            probes[:, 0])                  # the long bucket is probed a lot
+        probes[:50, 1] = 9                 # and the empty one by a few
+        drop = torch.rand((nq, p), generator=gen, device=dev) < 0.2
+        drop[:, 0] = False
+        probes = torch.where(drop, N_CAT, probes)
+        layout = group_slots(probes.int(), offsets, counts)
+        live = layout.slot_of_row < nq * p
+        mc = 1024
+
+        def same(a, b, what):
+            torch.cuda.synchronize()
+            if not (torch.equal(a[0][live], b[0][live])
+                    and torch.equal(a[1][live], b[1][live])):
+                raise AssertionError(f"{what}: not equal to the bit")
+
+        for name, fn, plain, args, tail, own, tol, rescale in store_kinds(
+                q, qf, data, layout, kinds):
+            what = f"{name} d={d} k={k} probes={p} queries={nq}"
+            dense = fn(*args, k, *tail)
+            # the 128-row tile
+            pair = fn(*args, k, *tail, pair=True)
+            same(pair, dense, f"pair, {what}")
+            note("probe_pair", compare(pair, plain(*args, k, *tail, pair=True),
+                                       own, layout, nq * p, tol), what)
+            # the worklist: item kernel, then merge kernel
+            wants = {paired: worklist_total(layout, counts,
+                                            mc * (2 if paired else 1))
+                     for paired in (False, True)}
+            for paired, want in wants.items():
+                opts = dict(item_rows=mc, pair=paired)
+                parts = fn(*args, k, *tail, wl_pad=want + 1000, merge=False,
+                           **opts)
+                if int(parts.total) != want:
+                    raise AssertionError(
+                        f"worklist total {int(parts.total)} != {want}")
+                merged = merge_items(layout.blocks, parts, k)
+                same(merged, merge_items_plain(layout.blocks, parts, k),
+                     f"merge kernel against its plain version, {what}")
+                if not name.startswith("probe_topk_int8q"):
+                    # (int8 queries: the parts hold raw scores, the scale
+                    # comes after the merge; the whole calls below cover it)
+                    same(merged, dense, f"worklist (pair={paired}), {what}")
+                tight = fn(*args, k, *tail, wl_pad=want, **opts)
+                same(tight, dense, f"tight worklist (pair={paired}), {what}")
+                *_, total = fn(*args, k, *tail, wl_pad=want // 2, **opts)
+                if int(total) != want or int(tight[2]) != want:
+                    raise AssertionError("an undersized or tight worklist "
+                                         "reports another total")
+            wl_plain = plain(*args, k, *tail, wl_pad=want, **opts)
+            if int(wl_plain[2]) != want:
+                raise AssertionError("the plain worklist counts another total")
+            note("probe_worklist", compare(tight[:2], wl_plain[:2], own,
+                                           layout, nq * p, tol),
+                 f"{what} items={want}")
+            errs.setdefault("merge_items", 0.0)
+            # the rerank pool, alone and with the other two
+            pooled = fn(*args, k, *tail, k_out=k_out)
+            same((pooled[0][:, :k], pooled[1][:, :k]), dense,
+                 f"pool prefix, {what}")
+            note("probe_pool", compare_pool(
+                pooled, plain(*args, k, *tail, k_out=k_out),
+                plain(*args, k, *tail, k_out=k_out, merge=False,
+                      wl_pad=wants[False], item_rows=mc), rescale, own,
+                layout, nq * p, k, tol), f"{what} k_out={k_out}")
+            for opts in (dict(pair=True), dict(wl_pad=wants[False] + 1000,
+                                               item_rows=mc),
+                         dict(wl_pad=wants[True], item_rows=mc, pair=True)):
+                same(fn(*args, k, *tail, k_out=k_out, **opts)[:2], pooled,
+                     f"pool with {opts}, {what}")
+            parts = fn(*args, k, *tail, k_out=k_out,
+                       wl_pad=wants[False] + 1000, item_rows=mc, merge=False)
+            same(merge_items(layout.blocks, parts, k, k_out),
+                 merge_items_plain(layout.blocks, parts, k, k_out),
+                 f"merge kernel with pool against its plain version, {what}")
+    log("[kernels] the 128-row tile, the worklist (also tight and with the "
+        "128-row tile) and the pool's combinations equal the "
+        "one-CTA-per-block kernel to the bit; the merge kernel equals its "
+        "plain version to the bit")
     return errs
 
 
@@ -494,6 +738,137 @@ def phase_quantized(index, ds, dev, gt, f32_recall):
     return launches, stores
 
 
+def device_busy_ms(fn):
+    """(wall ms, device-busy ms, device events by time) of fn() under
+    torch.profiler; fn ends synchronized."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels and copies): a host op's device time
+    # is the sum of its own kernels', so counting both would count twice
+    events = sorted(((dev_us(e), e.count, e.key)
+                     for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")
+                     and not e.key.startswith("Activity Buffer")),
+                    reverse=True)
+    return wall * 1e3, sum(e[0] for e in events) / 1e3, events
+
+
+def phase_serving(index, stores, ds, dev, gt, profile):
+    """The serving path at full width: search_stream over N_BATCHES batches
+    of 10k host queries at 2 probes, for each kernel configuration; every
+    batch must equal `search`'s result. Returns the launch counts of the
+    streams (the reference searches are not counted)."""
+    import numpy as np
+    import torch
+    from tpulmi_torch import SearchConfig
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+
+    shifts = [997 * i for i in range(N_BATCHES)]
+    batches = [(np.roll(ds["queries_nav"], -s, axis=0),
+                np.roll(ds["queries_search"], -s, axis=0)) for s in shifts]
+    full, int8 = index.built.store, stores[8]
+    every = dict(pallas_pool=True, pallas_worklist=True, pallas_pair=True,
+                 int8_queries=True)
+    # (label, store, options, kernels that the stream must launch)
+    configs = [
+        ("default", full, {}, ("probe_topk",)),
+        ("worklist", full, dict(pallas_worklist=True),
+         ("probe_topk", "probe_worklist", "merge_items")),
+        ("pair", full, dict(pallas_pair=True), ("probe_topk", "probe_pair")),
+        ("int8 store, host rerank", int8, {}, ("probe_topk_quant_int8",)),
+        ("int8 store, host rerank, pool", int8, dict(pallas_pool=True),
+         ("probe_topk_quant_int8", "probe_pool")),
+        ("int8 store, host rerank, pool + worklist + pair, int8 queries",
+         int8, every, ("probe_topk_int8q_int8", "probe_pool",
+                       "probe_worklist", "merge_items", "probe_pair"))]
+    totals = {}
+    for label, store, opts, must in configs:
+        index.built.store = store
+        index._search_programs = {}
+        index._host_corpus = ((ds["data_search"], True)
+                              if store.is_quantized else None)
+        scfg = SearchConfig(k=10, n_buckets=2, **opts)
+        kw = dict(n_buckets=2, k=10, search_config=scfg)
+        want, search_s = [], []
+        for qn, qs in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want.append(index.search(qn, qs, **kw))
+            search_s.append(time.perf_counter() - t)
+        reset_launch_counts()
+        got, stamps = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for out in index.search_stream(batches, depth=STREAM_DEPTH, **kw):
+            stamps.append(time.perf_counter())
+            got.append(out)
+        counts = launch_counts()
+        if len(got) != N_BATCHES:
+            raise AssertionError(f"{label}: {len(got)} results")
+        recalls = []
+        for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
+            if gd.shape != (N_QUERIES, 10) or not np.isfinite(gd).all():
+                raise AssertionError(f"{label}: bad result {gd.shape}")
+            if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
+                raise AssertionError(
+                    f"{label}: batch {i} of the stream differs from search "
+                    f"({int((gi != wi).sum())} ids, max |d| "
+                    f"{float(np.abs(gd - wd).max())})")
+            recalls.append(recall_at_k(
+                gi - 1, np.roll(gt, -shifts[i], axis=0), 10))
+        for name in must:
+            if not counts[name] > 0:
+                raise AssertionError(f"{label}: the stream launched no "
+                                     f"{name}")
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        if not min(recalls) >= RECALL_GATE:
+            raise AssertionError(f"{label}: recall@10 {min(recalls)}")
+        # steady: after the stream's first batches, which also allocate
+        # its pinned buffers
+        first = STREAM_DEPTH + 1
+        steady = (stamps[-1] - stamps[first]) / (N_BATCHES - 1 - first)
+        search_steady = float(np.median(search_s[1:]))
+        log(f"[serving] {label}: {N_BATCHES} batches of {N_QUERIES} equal "
+            f"to search; recall@10 {np.mean(recalls):.4f}; search "
+            f"{search_steady * 1e3:.3f} ms/batch = "
+            f"{N_QUERIES / search_steady:.0f} QPS; stream steady "
+            f"{steady * 1e3:.3f} ms/batch = {N_QUERIES / steady:.0f} QPS "
+            f"(whole stream {(stamps[-1] - t0) * 1e3:.1f} ms, first result "
+            f"after {(stamps[0] - t0) * 1e3:.1f} ms); launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+        if profile and label in ("default", "int8 store, host rerank"):
+            def run():
+                list(index.search_stream(batches, depth=STREAM_DEPTH, **kw))
+                torch.cuda.synchronize()
+            run()
+            wall, busy, events = device_busy_ms(run)
+            log(f"[profile] stream, {label}: wall {wall:.1f} ms, device busy "
+                f"{busy:.1f} ms ({busy / wall:.1%}); by device time (ms, "
+                f"calls):")
+            for us, count, key in events[:8]:
+                if us > 0:
+                    log(f"[profile]   {us / 1e3:.4f} {count} {key[:90]}")
+    # leave the index as phase_main built it
+    index.built.store = full
+    index._search_programs = {}
+    index._host_corpus = None
+    log(f"[serving] launches over the streams: {totals}")
+    return totals
+
+
 def oracle(ds, dev, k=10, bf16_inputs=False):
     """Exact top-k ids (0-based), off the main path: float32 matmul and
     topk on the card. `bf16_inputs` rounds both operands to bfloat16 first
@@ -524,7 +899,9 @@ def phase_timing(index, stores, ds, dev, name):
     Returns the numbers of each variant by name."""
     import torch
     from tpulmi_torch.ops.distance import l2_normalize
-    from tpulmi_torch.ops.probe_topk import (bucket_runs, group_slots,
+    from tpulmi_torch.ops.probe_topk import (BLOCK_SLOTS, bucket_runs,
+                                             build_worklist, group_slots,
+                                             merge_items, merge_items_plain,
                                              probe_topk, probe_topk_int8q,
                                              probe_topk_int8q_plain,
                                              probe_topk_plain,
@@ -560,20 +937,29 @@ def phase_timing(index, stores, ds, dev, name):
               + n_q * p * k * 8)
     peak_flops, peak_bw = peaks(name)
 
-    def bound(row_bytes, query_bytes, rate):
-        nbytes = probed_rows * row_bytes + query_bytes + around
-        t_ops, t_bytes = flops / rate * 1e3, nbytes / peak_bw * 1e3
+    def bound(row_bytes, query_bytes, rate, more_bytes=0):
+        return bound_of(probed_rows * row_bytes + query_bytes + around
+                        + more_bytes, flops, rate)
+
+    def bound_of(nbytes, ops, rate):
+        t_ops, t_bytes = ops / rate * 1e3, nbytes / peak_bw * 1e3
         return dict(bound_ms=max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    note=f"{flops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
+                    note=f"{ops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
                          f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms")
 
-    def measure(label, kernel, plain, library, own, tol, bnd):
-        err = compare(kernel(), plain(), own, layout, n_q * p, tol=tol)
+    def measure(label, kernel, plain, library, own, tol, bnd, check=None):
+        """`check`, when given, holds kernel against plain instead of
+        `compare`; `library` None: no one call computes the function."""
+        err = (check() if check else
+               compare(kernel()[:2], plain()[:2], own, layout, n_q * p,
+                       tol=tol))
         out = dict(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
-                   library_ms=cuda_ms(library, 3), max_abs_err=err, **bnd)
+                   library_ms=cuda_ms(library, 3) if library else None,
+                   max_abs_err=err, **bnd)
+        lib = (f"{out['library_ms']:.3f} ms" if library else "none")
         log(f"[timing] {label} at probes={p}: {out['ms']:.4f} ms; plain "
-            f"{out['plain_ms']:.3f} ms; library {out['library_ms']:.3f} ms; "
+            f"{out['plain_ms']:.3f} ms; library {lib}; "
             f"bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
             f"({out.pop('note')}); max |err| {err:.3g}")
         return out
@@ -604,6 +990,61 @@ def phase_timing(index, stores, ds, dev, name):
     results["probe_topk"]["max_abs_err"] = max(
         results["probe_topk"]["max_abs_err"], f32_err)
 
+    # the 128-row tile: K1's function, K1's bound
+    results["probe_pair"] = measure(
+        "probe_topk with the 128-row tile (bf16)",
+        lambda: probe_topk(*args, pair=True),
+        lambda: probe_topk_plain(*args, pair=True), library,
+        own_full(q, data), DIST_TOL, bound(d * 2, n_q * d * 2, peak_flops))
+
+    # the worklist at pallas_mc = 1024 rows an item: the item kernel, the
+    # merge kernel, and the whole call beside K1
+    n_items = worklist_total(layout, store.counts, 1024)
+    wl = dict(wl_pad=max(-(-int(n_items * 1.15) // 1024) * 1024, 1024),
+              item_rows=1024)
+    n_blocks = int(layout.blocks.shape[0])
+    part_bytes = n_items * BLOCK_SLOTS * k * 8
+    lists = build_worklist(layout.blocks, wl["wl_pad"], 1024)
+    list_bytes = sum(t.numel() * 4 for t in lists[:2])
+    build_ms = cuda_ms(lambda: build_worklist(layout.blocks, wl["wl_pad"],
+                                              1024), 20)
+    results["probe_worklist"] = measure(
+        f"worklist item kernel (bf16, {n_items} items in a list of "
+        f"{wl['wl_pad']}; {build_ms:.4f} ms of it builds the list)",
+        lambda: probe_topk(*args, merge=False, **wl),
+        lambda: probe_topk_plain(*args, merge=False, **wl), library,
+        own_full(q, data), DIST_TOL,
+        bound(d * 2, n_q * d * 2, peak_flops, part_bytes + list_bytes),
+        check=lambda: compare(probe_topk(*args, **wl)[:2],
+                              probe_topk_plain(*args, **wl)[:2],
+                              own_full(q, data), layout, n_q * p))
+    parts = probe_topk(*args, merge=False, **wl)
+
+    def merge_equal():
+        a = merge_items(layout.blocks, parts, k)
+        b = merge_items_plain(layout.blocks, parts, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError("merge kernel and plain version differ")
+        return 0.0
+
+    results["merge_items"] = measure(
+        "merge kernel of the worklist",
+        lambda: merge_items(layout.blocks, parts, k),
+        lambda: merge_items_plain(layout.blocks, parts, k), None, None, 0.0,
+        # the partial lists read, the blocks' lists written, 20 bytes of
+        # block and item arrays a block; no arithmetic
+        bound_of(part_bytes + n_blocks * (BLOCK_SLOTS * k * 8 + 20), 0.0,
+                 peak_flops), check=merge_equal)
+    whole = [cuda_ms(lambda: probe_topk(*args, **wl), 20),
+             cuda_ms(lambda: probe_topk(*args), 20),
+             cuda_ms(lambda: probe_topk(*args, pair=True, **wl), 20),
+             cuda_ms(lambda: probe_topk(*args, pair=True), 20)]
+    log(f"[timing] whole probe call at probes={p} (ms): worklist "
+        f"{whole[0]:.4f}, one CTA per block {whole[1]:.4f}; with the "
+        f"128-row tile: worklist {whole[2]:.4f}, one CTA per block "
+        f"{whole[3]:.4f}")
+
     for bits, qstore in stores.items():
         codes, scales = qstore.data_sorted, qstore.scales
         sc = scales / qstore.q_levels
@@ -626,6 +1067,35 @@ def phase_timing(index, stores, ds, dev, name):
             lambda: probe_topk_quant_plain(*qargs), library_quant,
             own_quant(q, codes, scales, bits), DIST_TOL,
             bound(row_bytes, n_q * d * 2, peak_flops))
+
+        if bits == 8:
+            # the rerank pool: an exact list of k and k_out - k extras,
+            # beside what it replaces, a list of k_out
+            k_out = 2 * k
+
+            def library_wide():
+                for (start, cnt, _), qr in zip(runs, qrows):
+                    x = bucket_codes(start, cnt).to(torch.bfloat16)
+                    sims = (q[qr] @ x.T).float() * sc[start:start + cnt]
+                    torch.topk(sims, min(k_out, cnt), dim=1)
+
+            results["probe_pool"] = measure(
+                f"probe_topk_quant with the pool (int8 store, k={k}, "
+                f"k_out={k_out})",
+                lambda: probe_topk_quant(*qargs, k_out=k_out),
+                lambda: probe_topk_quant_plain(*qargs, k_out=k_out),
+                library_wide, None, DIST_TOL,
+                bound(row_bytes, n_q * d * 2, peak_flops,
+                      n_q * p * (k_out - k) * 8),
+                check=lambda: compare_pool(
+                    probe_topk_quant(*qargs, k_out=k_out),
+                    probe_topk_quant_plain(*qargs, k_out=k_out),
+                    probe_topk_quant_plain(*qargs, k_out=k_out, merge=False,
+                                           **wl), None,
+                    own_quant(q, codes, scales, bits), layout, n_q * p, k))
+            wide = (q, layout.qidx, codes, scales, layout.blocks, k_out, bits)
+            log(f"[timing] the list of k_out={k_out} that the pool replaces: "
+                f"{cuda_ms(lambda: probe_topk_quant(*wide), 20):.4f} ms")
 
         iargs = (q_codes, q_scales, layout.qidx, codes, scales, layout.blocks,
                  k, bits)
@@ -650,6 +1120,46 @@ def phase_timing(index, stores, ds, dev, name):
     return results
 
 
+def phase_timing_skewed(dev):
+    """One CTA per block against the worklist and the 128-row tile where
+    the worklist should matter: a bf16 store of the main path's width with
+    one bucket of 25 times the mean, probed in proportion to bucket size."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import group_slots, probe_topk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rng = torch.Generator().manual_seed(SEED + 2)
+    sizes = (torch.rand(N_CAT, generator=rng) * 4000).long() + 400
+    mean = float(sizes.float().mean())
+    sizes[0] = int(25 * mean)
+    data, offsets, counts = random_store(D_SEARCH, sizes.tolist(), dev, gen,
+                                         torch.bfloat16)
+    q = torch.randn((N_QUERIES, D_SEARCH), generator=gen, device=dev)
+    q = (q / q.norm(dim=1, keepdim=True)).bfloat16()
+    probes = torch.multinomial(sizes.float().expand(N_QUERIES, -1), 2,
+                               generator=rng).int().to(dev)
+    layout = group_slots(probes, offsets, counts)
+    args = (q, layout.qidx, data, layout.blocks, 10)
+    n_items = worklist_total(layout, counts, 1024)
+    wl = dict(wl_pad=-(-int(n_items * 1.15) // 1024) * 1024, item_rows=1024)
+    dense = probe_topk(*args)
+    for opts in (wl, dict(pair=True), dict(pair=True, **wl)):
+        out = probe_topk(*args, **opts)
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], dense[0]) and torch.equal(out[1],
+                                                              dense[1])):
+            raise AssertionError(f"skewed store: {opts} differs from the "
+                                 f"one-CTA-per-block kernel")
+    ms = [cuda_ms(lambda o=o: probe_topk(*args, **o), 10)
+          for o in ({}, wl, dict(pair=True), dict(pair=True, **wl))]
+    log(f"[timing] skewed store (bucket 0: {int(sizes[0])} rows, the others' "
+        f"mean {mean:.0f}; "
+        f"{int(layout.slot_counts[0])} of {2 * N_QUERIES} slots probe it; "
+        f"{n_items} items), bf16, whole probe call (ms): one CTA per block "
+        f"{ms[0]:.4f}, worklist {ms[1]:.4f}, 128-row tile {ms[2]:.4f}, "
+        f"worklist with the 128-row tile {ms[3]:.4f}")
+
+
 def phase_stages(index, ds, dev, p=2, reps=5):
     """Where one search's time goes: each stage of LearnedIndex.search at
     `p` probes run on its own, synchronized, host clock; the median of
@@ -657,7 +1167,6 @@ def phase_stages(index, ds, dev, p=2, reps=5):
     kernel and the device's busy share of the wall time."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from tpulmi_torch.ops.distance import l2_normalize
     from tpulmi_torch.ops.probe_topk import (group_slots, merge_slots,
                                              probe_topk)
@@ -694,7 +1203,8 @@ def phase_stages(index, ds, dev, p=2, reps=5):
             fd, fi = stage("merge", lambda: merge_slots(
                 *out, lay, q.shape[0], p, k, store.ids_sorted))
             stage("finalize", lambda: index._finalize(
-                fd, fi, plan, k, scfg, qs, qs_np))
+                *index._fetch_result((fd, fi, lay.slot_counts.max()),
+                                     plan)[:2], plan, k, scfg, qs, qs_np))
             stage("search", lambda: index.search(qn_np, qs_np, n_buckets=p,
                                                  k=k))
     med = {n: float(np.median(v[1:])) * 1e3 for n, v in st.items()}
@@ -703,33 +1213,18 @@ def phase_stages(index, ds, dev, p=2, reps=5):
         + ", ".join(f"{n} {v:.3f}" for n, v in med.items())
         + f"; stages sum {parts:.3f}")
 
-    index.search(qn_np, qs_np, n_buckets=p, k=k)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    def one_search():
         index.search(qn_np, qs_np, n_buckets=p, k=k)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only (kernels and copies): a host op's device time
-    # is the sum of its own kernels', so counting both would count twice
-    events = sorted((e for e in prof.key_averages()
-                     if str(e.device_type).endswith("CUDA")
-                     and not e.key.startswith("Activity Buffer")),
-                    key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in events) / 1e3
-    log(f"[profile] one search at probes={p}: wall {wall * 1e3:.3f} ms, "
-        f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.1%}); by device"
+    one_search()
+    wall, busy, events = device_busy_ms(one_search)
+    log(f"[profile] one search at probes={p}: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms ({busy / wall:.1%}); by device"
         f" time (ms, calls):")
-    for e in events[:12]:
-        if dev_us(e) > 0:
-            log(f"[profile]   {dev_us(e) / 1e3:.4f} {e.count} "
-                f"{e.key[:90]}")
+    for us, count, key in events[:12]:
+        if us > 0:
+            log(f"[profile]   {us / 1e3:.4f} {count} {key[:90]}")
 
 
 def main(args) -> int:
@@ -747,23 +1242,34 @@ def main(args) -> int:
         f"cuda {torch.version.cuda}")
 
     phase_build()
-    kernel_errs = phase_kernels(dev)
+    kernel_errs = phase_variants(dev, phase_kernels(dev))
     if "--kernels-only" in args:
         log("[kernels] --kernels-only: stopping after the kernel checks")
         return 0
     index, ds, main_launches, gt, f32_recall = phase_main(dev)
     quant_launches, stores = phase_quantized(index, ds, dev, gt, f32_recall)
+    serving_launches = phase_serving(index, stores, ds, dev, gt,
+                                     "--profile" in args)
     timing = phase_timing(index, stores, ds, dev, name)
+    phase_timing_skewed(dev)
     if "--profile" in args:
         phase_stages(index, ds, dev)
 
-    # name -> (source, the TPU kernel it replaces, launches on its path)
-    launches = {**quant_launches, "probe_topk": main_launches}
+    # name -> (source, the TPU kernel it replaces); launches are those of
+    # the path that each kernel serves: main, quantized or serving
+    launches = {**quant_launches, "probe_topk": main_launches,
+                **{n: serving_launches[n] for n in (
+                    "probe_worklist", "merge_items", "probe_pool",
+                    "probe_pair")}}
     replaces = {"probe_topk": ("probe_topk", 218),
                 "probe_topk_quant_int8": ("probe_topk_quant", 268),
                 "probe_topk_quant_int4": ("probe_topk_quant", 268),
                 "probe_topk_int8q_int8": ("probe_topk_quant", 288),
-                "probe_topk_int8q_int4": ("probe_topk_quant", 288)}
+                "probe_topk_int8q_int4": ("probe_topk_quant", 288),
+                "probe_worklist": ("probe_common", 184),
+                "merge_items": ("merge_items", 184),
+                "probe_pool": ("probe_common", 222),
+                "probe_pair": ("probe_common", 231)}
     kernels = []
     for kname, (source, line) in replaces.items():
         t = timing[kname]

@@ -25,6 +25,19 @@ def test_configs_round_trip(name):
     assert getattr(jcfg, name)(**t.to_dict()) == j
 
 
+def test_search_config_with_kernel_options_round_trips():
+    """The worklist, pair and pool options set: still 1:1 with the JAX
+    package's SearchConfig, both ways."""
+    opts = dict(k=7, n_buckets=3, pallas_worklist=True, pallas_pair=True,
+                pallas_pool=True, pallas_mc=512, pallas_extract="group2",
+                int8_queries=True, rerank_extra=30)
+    t, j = tcfg.SearchConfig(**opts), jcfg.SearchConfig(**opts)
+    assert t.to_dict() == j.to_dict()
+    assert tcfg.SearchConfig(**j.to_dict()) == t
+    assert jcfg.SearchConfig(**t.to_dict()) == j
+    assert (t.pallas_worklist, t.pallas_pair, t.pallas_pool) == (True,) * 3
+
+
 def test_n_buckets_from_percentage():
     for bp in ([1], [4], [6], [1, 2, 3, 4, 5, 6], [0, 50, 100]):
         for n_cat in (8, 122, 488):

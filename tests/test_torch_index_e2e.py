@@ -185,13 +185,21 @@ def test_auto_backend_follows_the_store(compute_dtype, k):
 
 def test_unported_options_are_refused(synthetic_small, port_index):
     ds = synthetic_small
-    for opt in (dict(pallas_worklist=True), dict(pallas_pair=True),
-                dict(pallas_pool=True), dict(prune_after=1)):
-        with pytest.raises(NotImplementedError, match=next(iter(opt))):
-            port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4],
-                              search_config=SearchConfig(**opt))
-    # int8 queries are ported: ignored on a full-precision store
+    with pytest.raises(NotImplementedError, match="prune_after"):
+        port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4],
+                          search_config=SearchConfig(prune_after=1))
     d, i = port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4])
+    # the worklist, the 128-row tile and the pool are ported: each is
+    # accepted and changes no result (the pool applies to a reranked
+    # search only)
+    for opt in (dict(pallas_worklist=True, pallas_mc=128),
+                dict(pallas_pair=True), dict(pallas_pool=True)):
+        do, io = port_index.search(
+            ds["queries_nav"][:4], ds["queries_search"][:4],
+            search_config=SearchConfig(**opt))
+        np.testing.assert_array_equal(io, i)
+        np.testing.assert_allclose(do, d, atol=1e-6)
+    # int8 queries are ported: ignored on a full-precision store
     d8, i8 = port_index.search(ds["queries_nav"][:4],
                                ds["queries_search"][:4],
                                search_config=SearchConfig(int8_queries=True))

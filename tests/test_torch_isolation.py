@@ -43,6 +43,11 @@ with tempfile.TemporaryDirectory() as tmp:
 d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=2,
                    search_config=SearchConfig(int8_queries=True))
 assert d.shape == ids.shape == (20, 10) and ids.min() >= 1
+scfg = SearchConfig(pallas_worklist=True, pallas_mc=128, pallas_pair=True,
+                    pallas_pool=True)
+batches = [(ds["queries_nav"], ds["queries_search"])] * 3
+got = list(li.search_stream(batches, n_buckets=2, search_config=scfg))
+assert len(got) == 3 and all((g[1] == got[0][1]).all() for g in got)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpulmi")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -60,14 +65,34 @@ def test_runs_without_jax_or_tpulmi():
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|jaxlib|flax|optax|tpulmi)\b"
     r"|from\s+(jax|jaxlib|flax|optax|tpulmi)(\.|\s))", re.M)
+# a CUDA source includes nothing of either package
+_FORBIDDEN_INCLUDE = re.compile(r"#\s*include\s*[<\"][^>\"]*(jax|tpulmi/)",
+                                re.I)
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
-    for p in [*(ROOT / "tpulmi_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+    for p in [*(ROOT / "tpulmi_torch").rglob("*.py"),
+              *(ROOT / "tpulmi_torch" / "csrc").glob("*.cu*"),
+              ROOT / "chip_smoke.py"]))
 def test_source_imports_no_jax(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path
+    assert not _FORBIDDEN_INCLUDE.search(text), path
+
+
+def test_new_sources_are_covered():
+    """The serving module, the merge kernel and every library's source are
+    among the files held to the rule above."""
+    from tpulmi_torch.ops import _kernels
+
+    names = {p.name for p in (ROOT / "tpulmi_torch").rglob("*.py")}
+    assert {"serving.py", "index.py", "probe_topk.py"} <= names
+    sources = {p.name for p in (ROOT / "tpulmi_torch" / "csrc").glob("*.cu*")}
+    assert {f"{src}.cu" for src, _ in _kernels.LIBRARIES.values()} <= sources
+    assert "merge_items.cu" in sources and "probe_common.cuh" in sources
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert "def phase_serving" in smoke and "search_stream" in smoke
 
 
 def test_default_device_without_card_raises(monkeypatch):

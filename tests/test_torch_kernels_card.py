@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from tpulmi_torch.buckets import build_bucket_store
-from tpulmi_torch.ops.probe_topk import (group_slots, launch_counts,
-                                         probe_topk, probe_topk_int8q,
+from tpulmi_torch.ops.probe_topk import (apply_query_scale, group_slots,
+                                         launch_counts, pool_extras,
+                                         pool_pairs, probe_topk,
+                                         probe_topk_int8q,
                                          probe_topk_int8q_plain,
                                          probe_topk_plain, probe_topk_quant,
                                          probe_topk_quant_plain)
@@ -109,6 +111,130 @@ def test_quantized_kernels(rng, card, bits, d):
         before[f"probe_topk_int8q_int{bits}"] + 2)
 
 
+def _variants(full, q, lay, store_kind):
+    """(wrapper, plain version, their arguments up to k, tolerance) for a
+    store kind: bf16 / float32 vectors, int8 / int4 codes with bf16
+    queries, int8 codes with int8 queries."""
+    if store_kind in ("bf16", "f32"):
+        dtype = torch.bfloat16 if store_kind == "bf16" else torch.float32
+        return (probe_topk, probe_topk_plain,
+                (q.to(dtype), lay.qidx, full.data_sorted.to(dtype),
+                 lay.blocks), (), 1e-4)
+    bits = 4 if store_kind == "int4" else 8
+    store = quantize_store(full, bits=bits)
+    tail = (lay.qidx, store.data_sorted, store.scales, lay.blocks)
+    if store_kind == "int8q":
+        qc, qs = quantize_rows(q)
+        return (probe_topk_int8q, probe_topk_int8q_plain, (qc, qs, *tail),
+                (bits,), 1e-5)
+    return (probe_topk_quant, probe_topk_quant_plain,
+            (q.bfloat16(), *tail), (bits,), 1e-4)
+
+
+STORE_KINDS = ["bf16", "f32", "int8", "int4", "int8q"]
+
+
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_pair_tile_equals_dense(rng, card, kind):
+    """The 128-row tile changes no result: equal to the 64-row tile to the
+    bit, on buckets of odd and of sub-tile size, for every store type."""
+    full, q, lay, n_slots = _setup(rng, 256, card)
+    fn, plain, args, tail, tol = _variants(full, q, lay, kind)
+    before = launch_counts()["probe_pair"]
+    for k in (10, 100):
+        dense = fn(*args, k, *tail)
+        pair = fn(*args, k, *tail, pair=True)
+        torch.cuda.synchronize()
+        live = lay.slot_of_row < n_slots
+        assert torch.equal(pair[0][live], dense[0][live])
+        assert torch.equal(pair[1][live], dense[1][live])
+        _check(pair, plain(*args, k, *tail), lay, n_slots, tol)
+    assert launch_counts()["probe_pair"] == before + 2
+
+
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_worklist_kernels_equal_dense(rng, card, kind):
+    """The item kernel and the merge kernel: the one-CTA-per-block kernel's
+    result to the bit, for every store type, item span, tile height and a
+    tight pad; the plain worklist's total; an undersized pad reports the
+    true total."""
+    full, q, lay, n_slots = _setup(rng, 256, card)
+    fn, plain, args, tail, tol = _variants(full, q, lay, kind)
+    live = lay.slot_of_row < n_slots
+    before = launch_counts()
+    runs = 0
+    for k in (10, 40):
+        dense = fn(*args, k, *tail)
+        for item_rows, pair in ((128, False), (1024, False), (256, True)):
+            opts = dict(item_rows=item_rows, pair=pair)
+            *_, want = plain(*args, k, *tail, wl_pad=8192, **opts)
+            for pad in (8192, int(want)):
+                wd, wi, total = fn(*args, k, *tail, wl_pad=pad, **opts)
+                torch.cuda.synchronize()
+                runs += 1
+                assert int(total) == int(want)
+                assert torch.equal(wd[live], dense[0][live])
+                assert torch.equal(wi[live], dense[1][live])
+            *_, total = fn(*args, k, *tail, wl_pad=int(want) // 2, **opts)
+            runs += 1
+            assert int(total) == int(want)
+        _check((wd, wi), plain(*args, k, *tail, wl_pad=8192, **opts)[:2],
+               lay, n_slots, tol)
+    after = launch_counts()
+    assert after["probe_worklist"] == before["probe_worklist"] + runs
+    assert after["merge_items"] == before["merge_items"] + runs
+
+
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_pool_kernel(rng, card, kind):
+    """k_out > k: the exact prefix as without a pool (to the bit); the
+    extras as the definition gives them for the kernel's own prefix and
+    the plain version's per-class best rows (distances to the tolerance;
+    ids where distances are apart, but for the few classes whose two best
+    rows lie within a rounding of each other); no id twice; worklist and
+    128-row tile equal the dense pool to the bit."""
+    full, q, lay, n_slots = _setup(rng, 256, card)
+    fn, plain, args, tail, tol = _variants(full, q, lay, kind)
+    live = lay.slot_of_row < n_slots
+    before = launch_counts()["probe_pool"]
+    for k, k_out in ((10, 20), (10, 40), (40, 128)):
+        exact = fn(*args, k, *tail)
+        kd, ki = fn(*args, k, *tail, k_out=k_out)
+        pd, pi = plain(*args, k, *tail, k_out=k_out)
+        torch.cuda.synchronize()
+        assert kd.shape[1] == k_out
+        assert torch.equal(kd[live][:, :k], exact[0][live])
+        assert torch.equal(ki[live][:, :k], exact[1][live])
+        # the extras: the definition applied to the kernel's own prefix and
+        # the plain per-class best rows (the keys of the plain worklist)
+        parts = plain(*args, k, *tail, k_out=k_out, wl_pad=8192,
+                      item_rows=128, merge=False)
+        want = pool_extras(kd[:, :k], ki[:, :k], *pool_pairs(parts.keys),
+                           k_out)
+        if kind == "int8q":
+            want = apply_query_scale(want, args[1], lay.qidx)
+        kd_, ki_, pd_, pi_ = (t[live].cpu()[:, k:]
+                              for t in (kd, ki, want[0], want[1]))
+        torch.testing.assert_close(kd_, pd_, atol=tol, rtol=0)
+        assert torch.equal(ki_ < 0, pi_ < 0)
+        assert bool((kd[live][:, 1:] >= kd[live][:, :-1]).all())
+        assert bool((kd_[ki_ < 0] == 10000.0).all())
+        apart = torch.from_numpy(_apart(pd_.numpy(), tol))
+        apart[:, -1] = False
+        assert (ki_ == pi_)[apart].float().mean() >= 0.999
+        ki_ = ki[live].cpu()
+        srt = torch.sort(ki_, dim=1).values
+        assert not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+                         ).any())
+        for opts in (dict(pair=True), dict(wl_pad=8192, item_rows=128),
+                     dict(wl_pad=8192, item_rows=256, pair=True)):
+            od, oi, *_ = fn(*args, k, *tail, k_out=k_out, **opts)
+            torch.cuda.synchronize()
+            assert torch.equal(od[live], kd[live])
+            assert torch.equal(oi[live], ki[live])
+    assert launch_counts()["probe_pool"] == before + 3 * 4
+
+
 def test_kernels_refuse_what_they_do_not_take(rng, card):
     """On CUDA tensors a wrapper launches or raises; it never falls back."""
     full, q, lay, _ = _setup(rng, 40, card)       # 40 % 16 != 0
@@ -123,4 +249,10 @@ def test_kernels_refuse_what_they_do_not_take(rng, card):
     with pytest.raises(ValueError, match="several devices"):
         probe_topk_quant(q.bfloat16().cpu(), lay.qidx, store.data_sorted,
                          store.scales, lay.blocks, 10, 8)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        probe_topk(q.bfloat16(), lay.qidx, full.data_sorted.bfloat16(),
+                   lay.blocks, 10, wl_pad=64, item_rows=96)
+    with pytest.raises(ValueError, match="k_out"):
+        probe_topk(q.bfloat16(), lay.qidx, full.data_sorted.bfloat16(),
+                   lay.blocks, 10, k_out=129)
     assert launch_counts() == before

@@ -20,6 +20,39 @@
 //
 // The list insert and its tie rule (strict <, entries <= stay ahead, so
 // equal distances keep the lower store row) are the same for all.
+//
+// Three further configurations of the same kernel, each chosen at the launch
+// (they replace the `pair`, `pool` and flat-worklist configurations of
+// tpulmi/ops/pallas_topk.py::_kernel_core / _kernel_flat):
+//
+//   - the tile height NB (template parameter): 64 store rows a tile, or 128
+//     (the "paired" tile: half as many passes over the staged query rows and
+//     half as many barriers for every store row). The result does not depend
+//     on it: a product element is summed over the features in one order
+//     whatever the tile, and candidates are inserted in row order;
+//   - the worklist (`items` not null): a CTA is one work item, a (block,
+//     chunk) pair, and scans only rows [chunk * span, (chunk + 1) * span) of
+//     its block's bucket. It writes each slot's sorted partial list to a
+//     scratch row of its own; merge_items.cu merges a block's items in chunk
+//     order. A long bucket becomes many CTAs instead of one long one;
+//   - the rerank pool (k_out > k): beside the exact k-list, every slot keeps
+//     for each of the POOL residue classes (row - bucket start) mod POOL the
+//     best row it has seen, as one 64-bit key (distance, row) that orders
+//     like the pair: one compare and one store per column, no serial insert.
+//     Rows [k, k_out) of the output are the k_out - k smallest keys whose row
+//     is not in the exact top-k, ascending. With a worklist the CTA's pool is
+//     folded into the block's pool in global memory with a 64-bit atomicMin:
+//     the minimum does not depend on the order of the items, so the result is
+//     the same on every run, and no per-item pool has to be written and read
+//     again.
+//
+// What bounds them. The 128-row tile and the pool change no byte or
+// operation that must be done: K1's bound (each probed bucket read once,
+// 2 d slots rows operations). The worklist adds the items' partial lists,
+// written once and read once by the merge kernel (items * 64 * k * 8 bytes).
+// None comes near its bound yet, for K1's reasons (synchronous staging, WMMA
+// from shared memory, a bucket re-read per block); the pool's 64 KB also
+// leave one CTA on an SM where three ran.
 
 #pragma once
 
@@ -34,10 +67,9 @@ namespace probe {
 using namespace nvcuda;
 
 constexpr int QB = 64;          // slots per CTA (the wrapper aligns to this)
-constexpr int NB = 64;          // store rows per tile
+constexpr int POOL = 128;       // residue classes of the rerank pool
 constexpr int ROW_BYTES = 256;  // bytes of one staged row slice
 constexpr int LDS_BYTES = ROW_BYTES + 16;  // padded row stride of the slices
-constexpr int LDT = NB + 4;     // row stride of the product tile, in words
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -49,9 +81,29 @@ constexpr int SRC_INT8 = 8;  // int8 codes, d bytes a row
 constexpr int SRC_INT4 = 4;  // packed int4 codes, d/2 bytes a row: byte j
                              // holds dim j (low nibble) and dim j + d/2
 
-__host__ __device__ constexpr size_t smem_bytes(int kpl) {
-  return size_t(QB + NB) * LDS_BYTES + size_t(QB) * LDT * 4 +
-         size_t(QB) * 32 * kpl * 8 + size_t(QB) * 8 + size_t(NB) * 4;
+using PoolKey = unsigned long long;
+constexpr PoolKey EMPTY_KEY = ~PoolKey(0);
+
+// Shared memory of one CTA: the staged slices of QB query and nb store rows,
+// the product tile (row stride nb + 4 words), the lists of 32 kpl entries a
+// slot, thresholds and query rows, nb column scales, and the pool's keys.
+__host__ __device__ constexpr size_t smem_bytes(int kpl, int nb, bool pool) {
+  return size_t(QB + nb) * LDS_BYTES + size_t(QB) * (nb + 4) * 4 +
+         size_t(QB) * 32 * kpl * 8 + size_t(QB) * 8 + size_t(nb) * 4 +
+         (pool ? size_t(QB) * POOL * sizeof(PoolKey) : 0);
+}
+
+// (distance, row) as one key: keys compare as the pairs do, distance first
+// (any sign), then the lower row.
+__device__ __forceinline__ PoolKey make_key(float dist, int row) {
+  unsigned u = __float_as_uint(dist);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (PoolKey(u) << 32) | unsigned(row);
+}
+__device__ __forceinline__ float key_dist(PoolKey key) {
+  unsigned u = unsigned(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
 }
 
 // Shared-memory layout of a staged row slice of element type T: vectors of
@@ -70,15 +122,17 @@ struct Stage<signed char> {
 
 // The QB x NB product tile of the staged slices.
 // bf16 / fp16: tensor cores, WMMA 16x16x16 with float32 sums, 8 warps in a
-// 4 x 2 grid.
-template <typename T>
+// 4 x 2 grid; a warp owns 16 rows and NB / 2 columns.
+template <typename T, int NB>
 struct MmaTile {
   static constexpr int LDS = LDS_BYTES / sizeof(T);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  static constexpr int LDT = NB + 4;
+  static constexpr int NF = NB / 32;   // 16-column fragments per warp
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
 
   __device__ void zero() {
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
   }
   __device__ void add(const T *qs, const T *xs, int kw) {
     const int warp = threadIdx.x >> 5, wr = warp >> 1, wc = warp & 1;
@@ -86,10 +140,11 @@ struct MmaTile {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
       wmma::load_matrix_sync(a, qs + wr * 16 * LDS + kk, LDS);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NF; ++j) {
         // x stored row-major (rows, features) is x^T in column-major
         wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-        wmma::load_matrix_sync(b, xs + (wc * 32 + j * 16) * LDS + kk, LDS);
+        wmma::load_matrix_sync(b, xs + (wc * (NB / 2) + j * 16) * LDS + kk,
+                               LDS);
         wmma::mma_sync(acc[j], a, b, acc[j]);
       }
     }
@@ -97,9 +152,10 @@ struct MmaTile {
   __device__ void store(float *tile) {
     const int warp = threadIdx.x >> 5, wr = warp >> 1, wc = warp & 1;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(tile + wr * 16 * LDT + wc * 32 + j * 16, acc[j],
-                              LDT, wmma::mem_row_major);
+    for (int j = 0; j < NF; ++j)
+      wmma::store_matrix_sync(
+          tile + wr * 16 * LDT + wc * (NB / 2) + j * 16, acc[j], LDT,
+          wmma::mem_row_major);
   }
   static __device__ __forceinline__ float value(const float *trow, int c) {
     return trow[c];
@@ -107,30 +163,34 @@ struct MmaTile {
 };
 
 // float32: CUDA cores, float32 products. Thread (ty, tx) of a 16 x 16 grid
-// owns rows 4 ty .. 4 ty + 3 and columns tx + 16 j, j < 4.
+// owns rows 4 ty .. 4 ty + 3 and columns tx + 16 j, j < NB / 16.
+template <int NB>
 struct FmaTile {
   static constexpr int LDS = LDS_BYTES / sizeof(float);
-  float acc[4][4];
+  static constexpr int LDT = NB + 4;
+  static constexpr int NC = NB / 16;   // columns per thread
+  float acc[4][NC];
 
   __device__ void zero() {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
   }
   __device__ void add(const float *qs, const float *xs, int kw) {
     const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
     for (int kk = 0; kk < kw; kk += 4) {
-      float4 a[4], b[4];
+      float4 a[4], b[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < 4; ++i)
         a[i] = *reinterpret_cast<const float4 *>(qs + (ty * 4 + i) * LDS + kk);
-        b[i] = *reinterpret_cast<const float4 *>(xs + (tx + 16 * i) * LDS + kk);
-      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        b[j] = *reinterpret_cast<const float4 *>(xs + (tx + 16 * j) * LDS + kk);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < NC; ++j)
           acc[i][j] += a[i].x * b[j].x + a[i].y * b[j].y + a[i].z * b[j].z +
                        a[i].w * b[j].w;
     }
@@ -140,7 +200,7 @@ struct FmaTile {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NC; ++j)
         tile[(ty * 4 + i) * LDT + tx + 16 * j] = acc[i][j];
   }
   static __device__ __forceinline__ float value(const float *trow, int c) {
@@ -152,13 +212,16 @@ struct FmaTile {
 // warp grid. The tile holds the int32 sums; `value` casts one to float32.
 // Feature kk of a staged row lies at byte 2 kk (16 features per 32-byte
 // cell, see Stage<signed char>).
+template <int NB>
 struct IMmaTile {
   static constexpr int LDS = LDS_BYTES;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2];
+  static constexpr int LDT = NB + 4;
+  static constexpr int NF = NB / 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[NF];
 
   __device__ void zero() {
-    wmma::fill_fragment(acc[0], 0);
-    wmma::fill_fragment(acc[1], 0);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0);
   }
   __device__ void add(const signed char *qs, const signed char *xs, int kw) {
     const int warp = threadIdx.x >> 5, wr = warp >> 1, wc = warp & 1;
@@ -166,9 +229,10 @@ struct IMmaTile {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
       wmma::load_matrix_sync(a, qs + wr * 16 * LDS + 2 * kk, LDS);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NF; ++j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
-        wmma::load_matrix_sync(b, xs + (wc * 32 + j * 16) * LDS + 2 * kk, LDS);
+        wmma::load_matrix_sync(
+            b, xs + (wc * (NB / 2) + j * 16) * LDS + 2 * kk, LDS);
         wmma::mma_sync(acc[j], a, b, acc[j]);
       }
     }
@@ -177,18 +241,21 @@ struct IMmaTile {
     const int warp = threadIdx.x >> 5, wr = warp >> 1, wc = warp & 1;
     int *itile = reinterpret_cast<int *>(tile);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(itile + wr * 16 * LDT + wc * 32 + j * 16, acc[j],
-                              LDT, wmma::mem_row_major);
+    for (int j = 0; j < NF; ++j)
+      wmma::store_matrix_sync(
+          itile + wr * 16 * LDT + wc * (NB / 2) + j * 16, acc[j], LDT,
+          wmma::mem_row_major);
   }
   static __device__ __forceinline__ float value(const float *trow, int c) {
     return float(reinterpret_cast<const int *>(trow)[c]);
   }
 };
 
-template <typename T> struct TileOf { using type = MmaTile<T>; };
-template <> struct TileOf<float> { using type = FmaTile; };
-template <> struct TileOf<signed char> { using type = IMmaTile; };
+template <typename T, int NB> struct TileOf { using type = MmaTile<T, NB>; };
+template <int NB> struct TileOf<float, NB> { using type = FmaTile<NB>; };
+template <int NB> struct TileOf<signed char, NB> {
+  using type = IMmaTile<NB>;
+};
 
 // An integer code in the staged type T, as the bits that are stored
 // (`raw`); every code is exact in each of the types.
@@ -258,12 +325,12 @@ __device__ __forceinline__ uint4 load_store_vec(const void *data, size_t row,
   }
 }
 
-// Insert the candidates of `mask` (lanes holding distance v, store row
-// base + lane) into the warp's sorted list, in lane order; th is the list's
-// k-th best and is kept up to date.
+// Insert the candidates of `mask` (lanes holding distance v and store row
+// vid) into the warp's sorted list, in lane order; th is the list's k-th
+// best and is kept up to date.
 template <int KPL>
 __device__ __forceinline__ void insert_candidates(unsigned mask, float v,
-                                                  int base, float (&L)[KPL],
+                                                  int vid, float (&L)[KPL],
                                                   int (&I)[KPL], float &th,
                                                   int k) {
   const int lane = threadIdx.x & 31;
@@ -271,7 +338,7 @@ __device__ __forceinline__ void insert_candidates(unsigned mask, float v,
   while (mask) {
     const int j = __ffs(mask) - 1;
     const float cv = __shfl_sync(FULL, v, j);
-    const int cid = base + j;
+    const int cid = __shfl_sync(FULL, vid, j);
     // entries <= cv stay ahead of it: equal distances keep the earlier row
     int pos = 0;
 #pragma unroll
@@ -299,20 +366,72 @@ __device__ __forceinline__ void insert_candidates(unsigned mask, float v,
   }
 }
 
+// Rows [k, k_out) of one slot, written by its warp: the k_out - k smallest
+// keys of the slot's POOL pool keys whose row is not among the slot's exact
+// top-k (`topk`, k store rows ascending by distance, -1 past the last),
+// ascending; (10000, -1) where fewer are left. Lane l holds classes l + 32 g.
+__device__ __forceinline__ void write_extras(const PoolKey *pool,
+                                             const int *topk, int k, int k_out,
+                                             float *od, int *oi) {
+  constexpr int G = POOL / 32;
+  const int lane = threadIdx.x & 31;
+  PoolKey key[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) key[g] = pool[lane + 32 * g];
+  for (int t = 0; t < k; ++t) {
+    const int id = topk[t];
+    if (id < 0) break;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (key[g] != EMPTY_KEY && int(unsigned(key[g])) == id)
+        key[g] = EMPTY_KEY;
+  }
+  for (int e = k; e < k_out; ++e) {
+    PoolKey m = key[0];
+#pragma unroll
+    for (int g = 1; g < G; ++g) m = key[g] < m ? key[g] : m;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const PoolKey o = __shfl_xor_sync(FULL, m, off);
+      m = o < m ? o : m;
+    }
+    if (lane == 0) {
+      od[e] = m == EMPTY_KEY ? SENTINEL : key_dist(m);
+      oi[e] = m == EMPTY_KEY ? -1 : int(unsigned(m));
+    }
+    // rows are distinct, so at most one key equals m
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (key[g] == m) key[g] = EMPTY_KEY;
+  }
+}
+
+struct ProbeArgs {
+  const void *q;           // (Q, d) of T
+  const int *qidx;         // (blocks*QB,) query of each slot row
+  const void *data;        // (n_rows, d) of SRC
+  const float *scales;     // (n_rows,) or null
+  const int *blocks;       // (blocks, 3): first store row, rows, live slots
+  const int *items;        // (ctas, 2): block (-1: none) and chunk of each
+                           // work item, or null: CTA b is block b
+  float *out_d;            // (blocks*QB, k_out); with items (ctas*QB, k)
+  int *out_i;
+  PoolKey *pool;             // (blocks*QB, POOL) keys, with items and a pool
+  int d;
+  long long n_rows;
+  int k, k_out;            // k_out > k: keep the pool
+  int span;                // store rows of one work item
+  float levels;
+};
+
 // T: type of the queries and of the staged slices. SRC: how the store's
 // rows lie in memory. scales / levels are read only when SRC != SRC_SAME.
-template <typename T, int SRC, int KPL>
-__global__ void __launch_bounds__(THREADS)
-probe_kernel(const T *__restrict__ q,              // (Q, d)
-             const int *__restrict__ qidx,         // (blocks*QB,)
-             const void *__restrict__ data,        // (n_rows, d) of SRC
-             const float *__restrict__ scales,     // (n_rows,) or null
-             const int *__restrict__ blocks,       // (blocks, 3)
-             float *__restrict__ out_d,            // (blocks*QB, k)
-             int *__restrict__ out_i,              // (blocks*QB, k)
-             int d, long long n_rows, int k, float levels) {
-  using Tile = typename TileOf<T>::type;
+template <typename T, int SRC, int KPL, int NB>
+__global__ void __launch_bounds__(THREADS) probe_kernel(const ProbeArgs a) {
+  using Tile = typename TileOf<T, NB>::type;
   constexpr int KW = 32 * KPL;                  // list entries per slot
+  constexpr int NG = NB / 32;                   // columns per lane and tile
+  constexpr int LDT = Tile::LDT;
   constexpr int EPV = Stage<T>::EPV;            // features per staged vector
   constexpr int CELL = Stage<T>::CELL;          // bytes between staged vectors
   constexpr int VPR = ROW_BYTES / CELL;         // staged vectors per row
@@ -327,12 +446,27 @@ probe_kernel(const T *__restrict__ q,              // (Q, d)
   float *thr = reinterpret_cast<float *>(list_i + QB * KW);
   int *qrow = reinterpret_cast<int *>(thr + QB);
   float *sc = reinterpret_cast<float *>(qrow + QB);   // (NB,) column scales
+  PoolKey *pool_s = reinterpret_cast<PoolKey *>(sc + NB);  // (QB, POOL) keys
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t blk = blockIdx.x;
-  const long long dstart = blocks[blk * 3 + 0];
-  const int dcnt = blocks[blk * 3 + 1];
-  const int nq = max(0, min(blocks[blk * 3 + 2], QB));
+  const T *q = static_cast<const T *>(a.q);
+  const int d = a.d, k = a.k;
+  const long long n_rows = a.n_rows;
+  const bool flat = a.items != nullptr;
+  const bool pooled = a.k_out > k;
+  long long blk = blockIdx.x;
+  int chunk = 0;
+  if (flat) {
+    blk = a.items[2 * blockIdx.x];
+    chunk = a.items[2 * blockIdx.x + 1];
+    if (blk < 0) return;   // padding past the worklist's end
+  }
+  const long long dstart = a.blocks[blk * 3 + 0];
+  const int dcnt = a.blocks[blk * 3 + 1];
+  const int nq = max(0, min(a.blocks[blk * 3 + 2], QB));
+  // the rows of the bucket that this CTA scans
+  const int t_lo = flat ? chunk * a.span : 0;
+  const int t_hi = flat ? min(dcnt, t_lo + a.span) : dcnt;
 
   for (int i = tid; i < QB * KW; i += THREADS) {
     list_d[i] = SENTINEL;
@@ -340,19 +474,21 @@ probe_kernel(const T *__restrict__ q,              // (Q, d)
   }
   for (int i = tid; i < QB; i += THREADS) {
     thr[i] = SENTINEL;
-    qrow[i] = qidx[blk * QB + i];
+    qrow[i] = a.qidx[blk * QB + i];
   }
+  if (pooled)
+    for (int i = tid; i < QB * POOL; i += THREADS) pool_s[i] = EMPTY_KEY;
   __syncthreads();
 
-  for (int t0 = 0; nq > 0 && t0 < dcnt; t0 += NB) {
+  for (int t0 = t_lo; nq > 0 && t0 < t_hi; t0 += NB) {
     const long long row0 = dstart + t0;
-    const int ncol = min(NB, dcnt - t0);
+    const int ncol = min(NB, t_hi - t0);
     if (SCALED) {
       // read after the barrier that follows the product, written before
       // the barriers inside it
       for (int c = tid; c < NB; c += THREADS)
         sc[c] = (c < ncol && row0 + c < n_rows)
-                    ? __fdiv_rn(scales[row0 + c], levels) : 0.0f;
+                    ? __fdiv_rn(a.scales[row0 + c], a.levels) : 0.0f;
     }
     Tile acc;
     acc.zero();
@@ -369,7 +505,7 @@ probe_kernel(const T *__restrict__ q,              // (Q, d)
         const int r = v / VPR, vi = v % VPR, c = vi * EPV;
         uint4 val = make_uint4(0, 0, 0, 0);
         if (r < ncol && c < kw && row0 + r < n_rows)
-          val = load_store_vec<T, SRC>(data, size_t(row0 + r), d, kc + c);
+          val = load_store_vec<T, SRC>(a.data, size_t(row0 + r), d, kc + c);
         *reinterpret_cast<uint4 *>(xs + r * LDS_BYTES + vi * CELL) = val;
       }
       __syncthreads();
@@ -383,19 +519,27 @@ probe_kernel(const T *__restrict__ q,              // (Q, d)
     const float inf = __int_as_float(0x7f800000);
     for (int r = warp; r < nq; r += WARPS) {
       const float *trow = tile + r * LDT;
-      float v0 = inf, v1 = inf;
-      if (lane < ncol) {
-        const float s = Tile::value(trow, lane);
-        v0 = SCALED ? __fsub_rn(1.0f, __fmul_rn(s, sc[lane])) : 1.0f - s;
-      }
-      if (lane + 32 < ncol) {
-        const float s = Tile::value(trow, lane + 32);
-        v1 = SCALED ? __fsub_rn(1.0f, __fmul_rn(s, sc[lane + 32])) : 1.0f - s;
-      }
+      float v[NG];
       float th = thr[r];
-      const unsigned m0 = __ballot_sync(FULL, v0 < th);
-      const unsigned m1 = __ballot_sync(FULL, v1 < th);
-      if ((m0 | m1) == 0) continue;
+      unsigned any = 0;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int c = lane + 32 * g;
+        v[g] = inf;
+        if (c < ncol) {
+          const float s = Tile::value(trow, c);
+          v[g] = SCALED ? __fsub_rn(1.0f, __fmul_rn(s, sc[c])) : 1.0f - s;
+          if (pooled) {
+            // rows come in ascending order and only a smaller key is
+            // stored, so equal distances keep the lower row
+            const PoolKey key = make_key(v[g], int(row0) + c);
+            PoolKey *slot = pool_s + r * POOL + ((t0 + c) & (POOL - 1));
+            if (key < *slot) *slot = key;
+          }
+        }
+        any |= __ballot_sync(FULL, v[g] < th);
+      }
+      if (any == 0) continue;
       float L[KPL];
       int I[KPL];
 #pragma unroll
@@ -403,9 +547,10 @@ probe_kernel(const T *__restrict__ q,              // (Q, d)
         L[s] = list_d[r * KW + lane * KPL + s];
         I[s] = list_i[r * KW + lane * KPL + s];
       }
-      insert_candidates<KPL>(m0, v0, int(row0), L, I, th, k);
-      insert_candidates<KPL>(__ballot_sync(FULL, v1 < th), v1, int(row0) + 32,
-                             L, I, th, k);
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        insert_candidates<KPL>(__ballot_sync(FULL, v[g] < th), v[g],
+                               int(row0) + lane + 32 * g, L, I, th, k);
 #pragma unroll
       for (int s = 0; s < KPL; ++s) {
         list_d[r * KW + lane * KPL + s] = L[s];
@@ -416,45 +561,58 @@ probe_kernel(const T *__restrict__ q,              // (Q, d)
     __syncthreads();
   }
 
+  // with items: the item's partial lists; else the block's final rows
+  const size_t orow = size_t(flat ? blockIdx.x : blk) * QB;
+  const int ko = flat ? k : a.k_out;
   for (int i = tid; i < QB * k; i += THREADS) {
     const int r = i / k, p = i % k;
-    out_d[blk * QB * k + i] = list_d[r * KW + p];
-    out_i[blk * QB * k + i] = list_i[r * KW + p];
+    a.out_d[(orow + r) * ko + p] = list_d[r * KW + p];
+    a.out_i[(orow + r) * ko + p] = list_i[r * KW + p];
+  }
+  if (!pooled) return;
+  if (flat) {
+    PoolKey *pool_g = a.pool + size_t(blk) * QB * POOL;
+    for (int i = tid; i < QB * POOL; i += THREADS)
+      if (pool_s[i] != EMPTY_KEY) atomicMin(pool_g + i, pool_s[i]);
+  } else {
+    for (int r = warp; r < QB; r += WARPS)
+      write_extras(pool_s + r * POOL, list_i + r * KW, k, a.k_out,
+                   a.out_d + (orow + r) * ko, a.out_i + (orow + r) * ko);
   }
 }
 
-template <typename T, int SRC, int KPL>
-int launch(const void *q, const void *qidx, const void *data,
-           const void *scales, const void *blocks, void *out_d, void *out_i,
-           int n_blocks, int d, long long n_rows, int k, float levels,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(KPL);
+template <typename T, int SRC, int KPL, int NB>
+int launch(const ProbeArgs &a, int n_ctas, cudaStream_t stream) {
+  const size_t smem = smem_bytes(KPL, NB, a.k_out > a.k);
   cudaError_t err = cudaFuncSetAttribute(
-      probe_kernel<T, SRC, KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      probe_kernel<T, SRC, KPL, NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  probe_kernel<T, SRC, KPL><<<n_blocks, THREADS, smem, stream>>>(
-      static_cast<const T *>(q), static_cast<const int *>(qidx), data,
-      static_cast<const float *>(scales), static_cast<const int *>(blocks),
-      static_cast<float *>(out_d), static_cast<int *>(out_i), d, n_rows, k,
-      levels);
+  probe_kernel<T, SRC, KPL, NB><<<n_ctas, THREADS, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
+// Entries per lane of the list that holds k: 32 KPL >= k.
+__host__ __device__ constexpr int kpl_of(int k) {
+  return k <= 32 ? 1 : (k <= 64 ? 2 : 4);
+}
+
 // The list holds 32 KPL entries a slot; the smallest that holds k is used.
-template <typename T, int SRC>
-int launch_k(const void *q, const void *qidx, const void *data,
-             const void *scales, const void *blocks, void *out_d, void *out_i,
-             int n_blocks, int d, long long n_rows, int k, float levels,
-             cudaStream_t s) {
-  if (k <= 32)
-    return launch<T, SRC, 1>(q, qidx, data, scales, blocks, out_d, out_i,
-                             n_blocks, d, n_rows, k, levels, s);
-  if (k <= 64)
-    return launch<T, SRC, 2>(q, qidx, data, scales, blocks, out_d, out_i,
-                             n_blocks, d, n_rows, k, levels, s);
-  return launch<T, SRC, 4>(q, qidx, data, scales, blocks, out_d, out_i,
-                           n_blocks, d, n_rows, k, levels, s);
+template <typename T, int SRC, int NB>
+int launch_k(const ProbeArgs &a, int n_ctas, cudaStream_t s) {
+  switch (kpl_of(a.k)) {
+    case 1: return launch<T, SRC, 1, NB>(a, n_ctas, s);
+    case 2: return launch<T, SRC, 2, NB>(a, n_ctas, s);
+    default: return launch<T, SRC, 4, NB>(a, n_ctas, s);
+  }
+}
+
+// What every entry point checks of the sizes it is given.
+inline bool sizes_ok(const ProbeArgs &a) {
+  return a.k >= 1 && a.k <= 128 && a.k_out >= a.k && a.k_out <= POOL &&
+         (a.items == nullptr ||
+          (a.span > 0 && a.span % POOL == 0 &&
+           (a.k_out == a.k || a.pool != nullptr)));
 }
 
 }  // namespace probe

@@ -31,7 +31,10 @@
 //
 // The kernel itself is csrc/probe_common.cuh::probe_kernel, shared with the
 // quantized-store variants of probe_topk_quant.cu; this file instantiates it
-// for stores that hold vectors of the queries' type.
+// for stores that hold vectors of the queries' type. It is compiled twice:
+// as it is (tiles of 64 store rows) and with -DPROBE_NB=128 (the paired tile,
+// which replaces the `pair` grid of the TPU kernel). Either library also runs
+// the worklist (`items`) and the rerank pool (`k_out > k`), see the header.
 //
 // Limits. k <= 128 (as the TPU kernel's 128-lane scratch), d % 8 == 0 (16-byte
 // row loads). The TPU kernel's row_align % mc == 0 and d % 128 == 0 were
@@ -49,34 +52,50 @@
 
 #include "probe_common.cuh"
 
+#ifndef PROBE_NB
+#define PROBE_NB 64
+#endif
+
 extern "C" {
 
 // Slots per block: the wrapper lays slots out in blocks of this size.
 int probe_topk_block_slots() { return probe::QB; }
 
-// Launch on `stream`; `dtype` is the type of q and data: 0 bfloat16,
-// 1 float16, 2 float32. Returns the CUDA error code of the launch (0 = ok).
+// Store rows per tile of this library, and the shared memory one CTA takes
+// for lists of k entries, with or without the pool.
+int probe_topk_tile_rows() { return PROBE_NB; }
+long long probe_topk_smem_bytes(int k, int pool) {
+  return (long long)probe::smem_bytes(probe::kpl_of(k), PROBE_NB, pool != 0);
+}
+
+// Launch `n_ctas` CTAs on `stream`: one per block of `blocks`, or, with
+// `items` (n_ctas, 2), one per work item of `span` store rows, which writes
+// partial lists (n_ctas * QB, k) to out_d / out_i and folds its pool into
+// `pool`. `k_out` > k asks for the pool (k_out = k: none). `dtype` is the
+// type of q and data: 0 bfloat16, 1 float16, 2 float32. Returns the CUDA
+// error code of the launch (0 = ok).
 int probe_topk_launch(const void *q, const void *qidx, const void *data,
-                      const void *blocks, void *out_d, void *out_i,
-                      int n_blocks, int d, long long n_rows, int k, int dtype,
+                      const void *blocks, const void *items, void *out_d,
+                      void *out_i, void *pool, int n_ctas, int d,
+                      long long n_rows, int k, int k_out, int span, int dtype,
                       void *stream) {
   using namespace probe;
-  if (n_blocks <= 0) return 0;
-  if (k < 1 || k > 128 || d < 8 || d % 8 != 0)
-    return int(cudaErrorInvalidValue);
+  if (n_ctas <= 0) return 0;
+  const ProbeArgs a{q, static_cast<const int *>(qidx), data, nullptr,
+                    static_cast<const int *>(blocks),
+                    static_cast<const int *>(items),
+                    static_cast<float *>(out_d), static_cast<int *>(out_i),
+                    static_cast<PoolKey *>(pool), d, n_rows, k, k_out, span,
+                    1.0f};
+  if (!sizes_ok(a) || d < 8 || d % 8 != 0) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_k<__nv_bfloat16, SRC_SAME>(q, qidx, data, nullptr, blocks,
-                                               out_d, out_i, n_blocks, d,
-                                               n_rows, k, 1.0f, s);
+      return launch_k<__nv_bfloat16, SRC_SAME, PROBE_NB>(a, n_ctas, s);
     case 1:
-      return launch_k<__half, SRC_SAME>(q, qidx, data, nullptr, blocks, out_d,
-                                        out_i, n_blocks, d, n_rows, k, 1.0f,
-                                        s);
+      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, s);
     case 2:
-      return launch_k<float, SRC_SAME>(q, qidx, data, nullptr, blocks, out_d,
-                                       out_i, n_blocks, d, n_rows, k, 1.0f, s);
+      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, s);
     default:
       return int(cudaErrorInvalidValue);
   }

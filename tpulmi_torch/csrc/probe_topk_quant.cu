@@ -43,23 +43,29 @@
 // cells of a staged slice are padded to 32 bytes, so an int8 slice holds 128
 // features like a bfloat16 one. wgmma (s8 for int8 queries) fed by TMA is
 // the next step.
+//
+// Like probe_topk.cu this file is compiled twice, for tiles of 64 store rows
+// and, with -DPROBE_NB=128, for the paired tile; both run the worklist and
+// the rerank pool of the header.
 
 #include "probe_common.cuh"
+
+#ifndef PROBE_NB
+#define PROBE_NB 64
+#endif
 
 namespace {
 
 using namespace probe;
 
 template <typename T>
-int launch_src(const void *q, const void *qidx, const void *codes,
-               const void *scales, const void *blocks, void *out_d,
-               void *out_i, int n_blocks, int d, long long n_rows, int k,
-               int bits, cudaStream_t s) {
-  if (bits == 8)
-    return launch_k<T, SRC_INT8>(q, qidx, codes, scales, blocks, out_d, out_i,
-                                 n_blocks, d, n_rows, k, 127.0f, s);
-  return launch_k<T, SRC_INT4>(q, qidx, codes, scales, blocks, out_d, out_i,
-                               n_blocks, d, n_rows, k, 7.0f, s);
+int launch_src(ProbeArgs a, int n_ctas, int bits, cudaStream_t s) {
+  if (bits == 8) {
+    a.levels = 127.0f;
+    return launch_k<T, SRC_INT8, PROBE_NB>(a, n_ctas, s);
+  }
+  a.levels = 7.0f;
+  return launch_k<T, SRC_INT4, PROBE_NB>(a, n_ctas, s);
 }
 
 }  // namespace
@@ -69,35 +75,40 @@ extern "C" {
 // Slots per block: the wrapper lays slots out in blocks of this size.
 int probe_topk_quant_block_slots() { return probe::QB; }
 
-// Launch on `stream`. `qdtype` is the type of q: 0 bfloat16, 1 float16,
+int probe_topk_quant_tile_rows() { return PROBE_NB; }
+long long probe_topk_quant_smem_bytes(int k, int pool) {
+  return (long long)probe::smem_bytes(probe::kpl_of(k), PROBE_NB, pool != 0);
+}
+
+// Launch on `stream`; `n_ctas`, `items`, `pool`, `k_out` and `span` as in
+// probe_topk_launch. `qdtype` is the type of q: 0 bfloat16, 1 float16,
 // 2 float32, 3 int8 codes (int8 x int8). `bits` is the store's code width:
 // 8 (codes is (n_rows, d) int8) or 4 (codes is (n_rows, d/2) packed bytes).
 // `d` is the logical width. Returns the CUDA error code (0 = ok).
 int probe_topk_quant_launch(const void *q, const void *qidx,
                             const void *codes, const void *scales,
-                            const void *blocks, void *out_d, void *out_i,
-                            int n_blocks, int d, long long n_rows, int k,
-                            int qdtype, int bits, void *stream) {
-  if (n_blocks <= 0) return 0;
-  if (k < 1 || k > 128 || (bits != 8 && bits != 4) || d < 16 ||
+                            const void *blocks, const void *items,
+                            void *out_d, void *out_i, void *pool, int n_ctas,
+                            int d, long long n_rows, int k, int k_out,
+                            int span, int qdtype, int bits, void *stream) {
+  if (n_ctas <= 0) return 0;
+  const ProbeArgs a{q, static_cast<const int *>(qidx), codes,
+                    static_cast<const float *>(scales),
+                    static_cast<const int *>(blocks),
+                    static_cast<const int *>(items),
+                    static_cast<float *>(out_d), static_cast<int *>(out_i),
+                    static_cast<PoolKey *>(pool), d, n_rows, k, k_out, span,
+                    1.0f};
+  if (!sizes_ok(a) || (bits != 8 && bits != 4) || d < 16 ||
       d % (bits == 4 ? 32 : 16) != 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (qdtype) {
-    case 0:
-      return launch_src<__nv_bfloat16>(q, qidx, codes, scales, blocks, out_d,
-                                       out_i, n_blocks, d, n_rows, k, bits, s);
-    case 1:
-      return launch_src<__half>(q, qidx, codes, scales, blocks, out_d, out_i,
-                                n_blocks, d, n_rows, k, bits, s);
-    case 2:
-      return launch_src<float>(q, qidx, codes, scales, blocks, out_d, out_i,
-                               n_blocks, d, n_rows, k, bits, s);
-    case 3:
-      return launch_src<signed char>(q, qidx, codes, scales, blocks, out_d,
-                                     out_i, n_blocks, d, n_rows, k, bits, s);
-    default:
-      return int(cudaErrorInvalidValue);
+    case 0: return launch_src<__nv_bfloat16>(a, n_ctas, bits, s);
+    case 1: return launch_src<__half>(a, n_ctas, bits, s);
+    case 2: return launch_src<float>(a, n_ctas, bits, s);
+    case 3: return launch_src<signed char>(a, n_ctas, bits, s);
+    default: return int(cudaErrorInvalidValue);
   }
 }
 

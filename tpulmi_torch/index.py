@@ -10,6 +10,9 @@
   codes with per-row scales. With a host-resident full-precision corpus
   attached, `search` fetches a few more candidates than k and reranks them
   exactly on the host, which takes the quantization error out of the result.
+- ``search_stream(batches, ...)``: the serving loop: `search`'s results per
+  batch, in order, with the next batches' copies and kernels queued on the
+  card while a batch's results are fetched and reranked.
 - ``save`` / ``load``: ``state.npz`` (numpy, no pickle) and ``meta.json``;
   the rerank corpus is recorded by fingerprint and reattached or asked for.
 
@@ -21,10 +24,12 @@ are 1-based (SISAP convention); everything internal is 0-based.
 import hashlib
 import json
 import time
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +38,11 @@ from tpulmi_torch.buckets import (BucketStore, bucket_stats,
                                   build_bucket_store)
 from tpulmi_torch.models.train import BucketClassifier
 from tpulmi_torch.ops.distance import SENTINEL_DIST, l2_normalize
+from tpulmi_torch.ops import probe_topk as probe
 from tpulmi_torch.ops.kmeans import kmeans
-from tpulmi_torch.search import make_search_program
+from tpulmi_torch.search import (make_search_program, route_probes,
+                                 routing_logits)
+from tpulmi_torch.serving import QueryStager
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
 from tpulmi_torch.utils.logging import get_logger
 from tpulmi_torch.utils.profiling import resolve_device, sync
@@ -80,6 +88,12 @@ class LearnedIndex:
         self.built: Optional[BuiltIndex] = None
         self._search_programs = {}   # static config -> search function
         self.last_max_slots = None   # slots routed to the busiest bucket
+        # (Q, n_buckets) -> worklist length of the probe kernel; -1 = the
+        # worklist is off for this shape (its scratch would be too large)
+        self._wl_pads = {}
+        # (Q, n_buckets) shapes that `search` has answered: `search_stream`
+        # dispatches only these ahead
+        self._warm_shapes = set()
         # (host corpus, normalized) for the exact rerank of a quantized store
         self._host_corpus = None
         self._rerank_meta = None     # a restored checkpoint's rerank contract
@@ -307,30 +321,36 @@ class LearnedIndex:
 
         n_buckets = min(n_buckets, self.built.store.n_categories)
         plan = self._plan_search(queries_nav, n_buckets, k, scfg)
-        program = self._dispatch_program(plan, n_buckets, scfg)
-        out = program(queries_nav, queries_search, self.built.store)
-        dists, ids = self._absorb_result(plan, out)
+        while True:
+            program = self._dispatch_program(plan, n_buckets, scfg)
+            out = program(queries_nav, queries_search, self.built.store)
+            status = self._absorb_result(plan, n_buckets,
+                                         self._fetch_result(out, plan))
+            if status != "retry":
+                break
+        dists, ids = status
         return self._finalize(dists, ids, plan, k, scfg, queries_search,
                               queries_search_host)
 
     def _plan_search(self, queries_nav, n_buckets: int, k: int,
                      scfg: SearchConfig) -> SimpleNamespace:
-        """Resolve the static decisions of one probe search: backend,
-        compute dtype, rerank depth. Options of kernel variants not ported
-        yet are refused."""
-        unported = [name for name in ("pallas_worklist", "pallas_pool",
-                                      "pallas_pair")
-                    if getattr(scfg, name)]
+        """Resolve the static decisions of one probe search into a mutable
+        plan shared by `search` (with its overflow re-run) and
+        `search_stream` (which dispatches ahead of the fetch): backend,
+        compute dtype, rerank depth, and the probe kernel's configuration
+        (rerank pool, tile height, worklist length)."""
         if scfg.prune_after > 0:
-            unported.append("prune_after")
-        if unported:
             raise NotImplementedError(
-                f"SearchConfig options not ported to tpulmi_torch yet: "
-                f"{unported}")
+                "SearchConfig options not ported to tpulmi_torch yet: "
+                "['prune_after']")
         if scfg.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {scfg.compute_dtype!r}")
         if scfg.pallas_extract not in _EXTRACT_MODES:
             raise ValueError(f"unknown pallas_extract {scfg.pallas_extract!r}")
+        if scfg.pallas_pool and scfg.pallas_extract == "scalar":
+            raise ValueError(
+                "the rerank pool (pallas_pool) needs a harvesting "
+                "pallas_extract ('group'/'group2'), as in the JAX package")
         compute_dtype = _DTYPES[scfg.compute_dtype]
         backend = scfg.backend
         if backend == "auto":
@@ -347,16 +367,74 @@ class LearnedIndex:
         rerank = (scfg.rerank and quantized
                   and self._host_corpus is not None)
         k_eff = k + self._resolve_rerank_extra(scfg) if rerank else k
-        return SimpleNamespace(q=int(queries_nav.shape[0]), backend=backend,
-                               compute_dtype=compute_dtype, k=k,
-                               rerank=rerank, k_eff=k_eff,
-                               int8_queries=scfg.int8_queries and quantized)
+        # rerank pool: the kernel keeps an exact top-k, the pool supplies
+        # the rerank extras
+        pool_k = k if (scfg.pallas_pool and rerank and k_eff > k) else 0
+        pair = probe.resolve_tiling(scfg.pallas_pair, k=pool_k or k_eff,
+                                    pool=bool(pool_k), device=self.device)
+        q = int(queries_nav.shape[0])
+        plan = SimpleNamespace(
+            q=q, backend=backend, compute_dtype=compute_dtype, k=k,
+            rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair, wl_pad=0,
+            item_rows=scfg.pallas_mc,
+            int8_queries=scfg.int8_queries and quantized)
+        # the worklist: sized from this batch's routing at a shape's first
+        # use (one more routing pass and a host read), then cached
+        if scfg.pallas_worklist:
+            wl_pad = self._wl_pads.get((q, n_buckets))
+            if wl_pad is None:
+                wl_pad = self._estimate_wl_pad(queries_nav, n_buckets, scfg,
+                                               plan)
+                self._wl_pads[(q, n_buckets)] = wl_pad or -1
+            plan.wl_pad = max(wl_pad, 0)
+        return plan
+
+    def _wl_pad_for(self, total: int, plan, n_buckets: int) -> int:
+        """The worklist length for `total` items: 15% headroom for the
+        routing of later batches, in steps of 1024; 0, the one-CTA-per-block
+        launch, when the items' scratch would pass
+        `probe.WL_SCRATCH_BYTES_MAX`."""
+        pad = max(-(-int(total * 1.15) // 1024) * 1024, 1024)
+        n_blocks = -(-(plan.q * n_buckets) // probe.BLOCK_SLOTS) + (
+            self.built.store.n_categories)
+        need = probe.worklist_scratch_bytes(pad, plan.pool_k or plan.k_eff,
+                                            n_blocks, bool(plan.pool_k))
+        if need > probe.WL_SCRATCH_BYTES_MAX:
+            log.info("the worklist would need %d items and %d bytes of "
+                     "scratch (> %d); keeping one CTA per block for this "
+                     "shape", pad, need, probe.WL_SCRATCH_BYTES_MAX)
+            return 0
+        return pad
+
+    @torch.no_grad()
+    def _estimate_wl_pad(self, queries_nav, n_buckets: int,
+                         scfg: SearchConfig, plan) -> int:
+        """Size the worklist from this batch's routing:
+        W = sum over probed buckets of ceil(slots / 64) * max(ceil(rows /
+        span), 1), the closed form of `probe.build_worklist`, with span =
+        pallas_mc rows (twice that with the 128-row tile). One more routing
+        pass and a host read, once per (Q, n_buckets) shape."""
+        store = self.built.store
+        n_cat = store.n_categories
+        logits, mass = routing_logits(self.built.classifier.model,
+                                      queries_nav,
+                                      need_mass=scfg.probe_mass is not None)
+        probes = route_probes(logits, n_buckets, probe_mass=scfg.probe_mass,
+                              dump_id=n_cat, mass_logits=mass)
+        pb = probes.reshape(-1).cpu().numpy()
+        slots = np.bincount(pb[pb < n_cat], minlength=n_cat)
+        span = plan.item_rows * (2 if plan.pair else 1)
+        steps = np.maximum(-(-store.counts.cpu().numpy() // span), 1)
+        total = int(np.sum(-(-slots // probe.BLOCK_SLOTS) * steps
+                           * (slots > 0)))
+        return self._wl_pad_for(total, plan, n_buckets)
 
     def _dispatch_program(self, plan, n_buckets: int, scfg: SearchConfig):
         """The search function for the plan's static configuration, made
         once and kept."""
         key = (plan.backend, n_buckets, plan.k_eff, plan.compute_dtype,
-               scfg.probe_mass, scfg.fetch_dtype, plan.int8_queries)
+               scfg.probe_mass, scfg.fetch_dtype, plan.int8_queries,
+               plan.pool_k, plan.pair, plan.wl_pad, plan.item_rows)
         program = self._search_programs.get(key)
         if program is None:
             program = make_search_program(
@@ -365,35 +443,160 @@ class LearnedIndex:
                 probe_mass=scfg.probe_mass,
                 fetch_dtype=_DTYPES[scfg.fetch_dtype]
                 if scfg.fetch_dtype else None,
-                int8_queries=plan.int8_queries)
+                int8_queries=plan.int8_queries, pool_k=plan.pool_k,
+                pair=plan.pair, wl_pad=plan.wl_pad, item_rows=plan.item_rows)
             self._search_programs[key] = program
         return program
 
-    def _absorb_result(self, plan, out):
-        """Unpack a search result. The slot layout is sized for the worst
-        case (every slot in its own block tail), so unlike the JAX
-        package's queries-per-bucket pad it cannot overflow and there is
-        no re-run; the busiest bucket's slot count is kept for callers."""
-        dists, ids, max_slots = out
-        self.last_max_slots = int(max_slots)
+    def _fetch_result(self, out, plan):
+        """A program's result on the host: (dists, ids, max_slots[, the
+        worklist's item total]); waits for the card. When the plan reranks,
+        the quantized distances stay on the card (dists is None): the
+        rerank recomputes every kept candidate's distance."""
+        dists, ids, *counts = out
+        return (None if plan.rerank else dists.cpu().float().numpy(),
+                ids.cpu().numpy(), *(int(c) for c in counts))
+
+    def _absorb_result(self, plan, n_buckets: int, got):
+        """Hold a fetched result against its plan. Returns (dists, ids),
+        or "retry" after growing an overflowed worklist (whose trailing
+        items were dropped) for a re-run. The slot layout itself is sized
+        for the worst case and cannot overflow; the busiest bucket's slot
+        count is kept for callers."""
+        dists, ids, max_slots, *wl_total = got
+        if plan.wl_pad and wl_total[0] > plan.wl_pad:
+            plan.wl_pad = self._wl_pad_for(wl_total[0], plan, n_buckets)
+            self._wl_pads[(plan.q, n_buckets)] = plan.wl_pad or -1
+            return "retry"
+        self.last_max_slots = max_slots
+        self._warm_shapes.add((plan.q, n_buckets))
         return dists, ids
 
-    def _finalize(self, dists: torch.Tensor, ids: torch.Tensor, plan, k: int,
-                  scfg: SearchConfig, queries_search, queries_search_host):
-        """Host post-processing: the exact rerank when the plan asks for
-        it, then empty places (id -1) keep the sentinel distance and become
-        id 0, and ids become 1-based. When the plan reranks, the quantized
-        distances never leave the card: the rerank recomputes every kept
-        candidate's distance."""
+    def _finalize(self, dists, ids, plan, k: int, scfg: SearchConfig,
+                  queries_search, queries_search_host):
+        """Host post-processing of a fetched result (numpy arrays), shared
+        by `search` and `search_stream`: the exact rerank when the plan
+        asks for it (`dists` is then None), then empty places (id -1) keep
+        the sentinel distance and become id 0, and ids become 1-based."""
         if plan.rerank:
             dists, ids = self._rerank_host(
-                None, ids.cpu().numpy(), queries_search, k,
+                None, ids, queries_search, k,
                 host_queries=queries_search_host,
                 rerank_dtype=scfg.rerank_dtype)
-        else:
-            dists, ids = dists.float().cpu().numpy(), ids.cpu().numpy()
         ids = np.where(ids < 0, 0, ids)
         return (np.asarray(dists, np.float32), ids.astype(np.int64) + 1)
+
+    def search_stream(self, batches: Iterable, *, n_buckets: int = 10,
+                      k: int = 10,
+                      search_config: Optional[SearchConfig] = None,
+                      depth: int = 2, overlap_finalize: bool = True):
+        """The serving loop: a generator that yields `search`'s exact
+        (dists, 1-based anns) for every batch of `batches`, in order, with
+        up to ``depth`` batches dispatched to the card ahead of the fetch.
+
+        ``batches`` yields ``(queries_nav, queries_search)`` or
+        ``(queries_nav, queries_search, queries_search_host)`` (the third
+        as in `search`). `search` waits for each of its stages: the copy of
+        the queries, the kernels, the copy back, the host rerank. Here, on
+        a CUDA device, a batch's host arrays are staged in pinned buffers
+        and copied on a stream of their own, its kernels are queued behind
+        that copy, and its results go to pinned buffers with an event; the
+        next batch is queued before the last one's event is waited for, so
+        copies, kernels and host work overlap. On a CPU device the same
+        generator runs each dispatch inline.
+
+        The first batch of a (Q, n_buckets) shape, and any batch above
+        ``batch_queries``, drains the pipeline and goes through `search`
+        (which builds the kernels and sizes the worklist). A worklist that
+        overflows in flight redoes that one batch through `search` on the
+        caller's thread. ``overlap_finalize`` runs `_finalize`, and with it
+        the exact rerank, on one worker thread, so batch i's rerank runs
+        beside batch i+1's fetch; the single worker keeps the order."""
+        if self.built is None:
+            raise ValueError("Index is not built, call `build` first.")
+        scfg = search_config or SearchConfig(k=k, n_buckets=n_buckets)
+        nb = min(n_buckets, self.built.store.n_categories)
+        store = self.built.store
+        pending = deque()   # dispatched batches, at most `depth`
+        results = deque()   # finalize futures in order, at most 2
+        executor = ThreadPoolExecutor(max_workers=1) if overlap_finalize \
+            else None
+        stager = (QueryStager(self.device, depth + 1)
+                  if self.device.type == "cuda" else None)
+
+        def unpack(batch):
+            qn, qs, qh = batch if len(batch) == 3 else (*batch, None)
+            if qs is None:
+                qs = qn
+            if qh is None and isinstance(qs, np.ndarray):
+                qh = qs
+            return qn, qs, qh
+
+        def done(value):
+            f = Future()
+            f.set_result(value)
+            return f
+
+        def sync_one():
+            """Fetch and absorb the oldest batch in flight; hand its host
+            post-processing to the worker. Returns a future."""
+            qn, qs, qh, fetch, plan = pending.popleft()
+            status = self._absorb_result(plan, nb, fetch())
+            if status == "retry":
+                # the plan and its cache have grown: redo this one batch
+                # here (a re-dispatch must not race the dispatch loop)
+                return done(self.search(qn, qs, n_buckets=nb, k=k,
+                                        search_config=scfg,
+                                        queries_search_host=qh))
+            args = (*status, plan, k, scfg, qs, qh)
+            if executor is not None:
+                return executor.submit(self._finalize, *args)
+            return done(self._finalize(*args))
+
+        try:
+            for batch in batches:
+                qn, qs, qh = unpack(batch)
+                q = int(np.shape(qn)[0])
+                if ((scfg.batch_queries and q > scfg.batch_queries)
+                        or (q, nb) not in self._warm_shapes
+                        or (scfg.pallas_worklist
+                            and (q, nb) not in self._wl_pads)):
+                    # drain so that results stay in order, then answer
+                    # this batch through `search`
+                    while pending:
+                        results.append(sync_one())
+                    while results:
+                        yield results.popleft().result()
+                    yield self.search(qn, qs, n_buckets=nb, k=k,
+                                      search_config=scfg,
+                                      queries_search_host=qh)
+                    continue
+                if stager is not None:
+                    qn_dev, qs_dev, slot = stager.upload(qn, qs)
+                else:
+                    qn_dev, qs_dev = self._tensor(qn), self._tensor(qs)
+                plan = self._plan_search(qn_dev, nb, k, scfg)
+                program = self._dispatch_program(plan, nb, scfg)
+                out = program(qn_dev, qs_dev, store)
+                if stager is not None:
+                    fetch = stager.download(slot, out, skip_dists=plan.rerank)
+                else:
+                    fetch = (lambda out=out, plan=plan:
+                             self._fetch_result(out, plan))
+                pending.append((qn, qs, qh, fetch, plan))
+                if len(pending) >= depth:
+                    results.append(sync_one())
+                # keep one finalize in flight: yielding the older future
+                # lets the newest rerank run beside the next batch's fetch
+                while len(results) > 1:
+                    yield results.popleft().result()
+            while pending:
+                results.append(sync_one())
+            while results:
+                yield results.popleft().result()
+        finally:
+            if executor is not None:
+                executor.shutdown(wait=False)
 
     def search_single(self, queries_nav, queries_search=None, k: int = 10,
                       search_config: Optional[SearchConfig] = None):

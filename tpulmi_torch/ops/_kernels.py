@@ -1,10 +1,12 @@
 """Builds the CUDA sources in tpulmi_torch/csrc with nvcc and loads them with
 ctypes.
 
-Each source is compiled at first use into ``tpulmi_torch/_build/`` (listed
+Each library is compiled at first use into ``tpulmi_torch/_build/`` (listed
 in .gitignore) as a shared library with a plain C interface, named by a hash
 of the source, the headers beside it and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import time.
+rebuilt and an unchanged one is reused. A source may give several libraries
+that differ in a ``-D`` flag: the probe sources are built for tiles of 64
+store rows and, as ``*_pair``, of 128. Nothing here runs at import time.
 """
 
 import ctypes
@@ -23,18 +25,40 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# library name -> (source name, extra nvcc flags)
+LIBRARIES = {
+    "probe_topk": ("probe_topk", ()),
+    "probe_topk_pair": ("probe_topk", ("-DPROBE_NB=128",)),
+    "probe_topk_quant": ("probe_topk_quant", ()),
+    "probe_topk_quant_pair": ("probe_topk_quant", ("-DPROBE_NB=128",)),
+    "merge_items": ("merge_items", ()),
+}
+
 # C signatures of every entry point, by source name
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _probe_signatures(source: str, launch_args) -> dict:
+    return {f"{source}_launch": (launch_args, _I),
+            f"{source}_block_slots": ([], _I),
+            f"{source}_tile_rows": ([], _I),
+            f"{source}_smem_bytes": ([_I, _I], _LL)}
+
+
 SIGNATURES = {
-    "probe_topk": {
-        "probe_topk_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I,
-                               _P], _I),
-        "probe_topk_block_slots": ([], _I),
-    },
-    "probe_topk_quant": {
-        "probe_topk_quant_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL,
-                                     _I, _I, _I, _P], _I),
-        "probe_topk_quant_block_slots": ([], _I),
+    # q, qidx, data, blocks, items, out_d, out_i, pool, n_ctas, d, n_rows,
+    # k, k_out, span, dtype, stream
+    "probe_topk": _probe_signatures(
+        "probe_topk", [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _P]),
+    # q, qidx, codes, scales, blocks, items, out_d, out_i, pool, n_ctas, d,
+    # n_rows, k, k_out, span, qdtype, bits, stream
+    "probe_topk_quant": _probe_signatures(
+        "probe_topk_quant", [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _I, _I, _P]),
+    # blocks, block_items, part_d, part_i, pool, out_d, out_i, n_blocks,
+    # n_items, k, k_out, stream
+    "merge_items": {
+        "merge_items_launch": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
+        "merge_items_block_slots": ([], _I),
     },
 }
 
@@ -59,16 +83,17 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source, flags = LIBRARIES[name]
+    digest = hashlib.sha256((CSRC / f"{source}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile the named sources that are not built yet, one nvcc process
-    per source, all started together. Returns each library's path."""
+    """Compile the named libraries that are not built yet, one nvcc process
+    per library, all started together. Returns each library's path."""
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
@@ -79,15 +104,17 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        source, flags = LIBRARIES[n]
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+             str(CSRC / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         build_info[n] = {"seconds": time.perf_counter() - start, "log": out}
         if proc.returncode != 0:
-            failed.append(f"{n}.cu:\n{out}")
+            failed.append(f"{n}:\n{out}")
             continue
         os.replace(tmp, todo[n])
     if failed:
@@ -101,7 +128,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
-            for fn, (args, res) in SIGNATURES[name].items():
+            for fn, (args, res) in SIGNATURES[LIBRARIES[name][0]].items():
                 getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = res
             _libs[name] = lib

@@ -18,17 +18,55 @@ around the kernel is plain torch, as it is plain JAX there:
 3. `merge_slots`: scatter per-slot results to (query, rank), a stable
    rank-major merge (ties go to the earlier probe rank), and the
    store-row -> dataset-id gather.
+
+Every wrapper and every plain version takes the same four variant options,
+which select further configurations of the one kernel
+(csrc/probe_common.cuh) and replace the `pair`, `pool` and flat-worklist
+configurations of the TPU kernel:
+
+- ``pair``: tiles of 128 store rows instead of 64 (the ``*_pair``
+  libraries). The result does not depend on the tile height, so the plain
+  version ignores it (outside a worklist, where it doubles an item's rows).
+- ``k_out > k``, the rerank pool: columns [0, k) of a slot are its exact
+  top-k; columns [k, k_out) are rerank candidates, defined here as follows.
+  ``pool[c]`` is the row of smallest distance (ties to the lower row) among
+  the bucket's rows with ``(row - bucket start) % 128 == c``; the extras are
+  the ``k_out - k`` smallest pool entries whose row is not in the exact
+  top-k, ascending, ``(10000, -1)`` where fewer exist. The TPU kernel fills
+  its pool lanes only from the tiles it happens to harvest, so its extras
+  depend on its tile sizes and are not these row for row; both meet the
+  same contract (exact prefix, ascending row, ids carry their distances,
+  no id of the prefix repeated), which is all the exact rerank needs.
+- ``wl_pad > 0``, the flat worklist: one work item per live (slot block,
+  chunk of ``item_rows`` store rows) pair, block-major, built on the device
+  (`build_worklist`); each item is one CTA that writes partial lists, and a
+  second kernel (csrc/merge_items.cu) merges a block's items in chunk
+  order. The call then also returns the true item total; when it exceeds
+  ``wl_pad`` the trailing items were dropped, the result is invalid and the
+  caller runs again with a larger pad. With ``pair`` an item spans
+  ``2 * item_rows`` rows.
 """
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from tpulmi_torch.ops.distance import SENTINEL_DIST
 from tpulmi_torch.ops.quantize import int_dot, quantize_rows, unpack_int4
+from tpulmi_torch.utils.logging import get_logger
 
-BLOCK_SLOTS = 64   # slots per kernel block (QB in csrc/probe_topk.cu)
+log = get_logger("tpulmi_torch.probe")
+
+BLOCK_SLOTS = 64   # slots per kernel block (QB in csrc/probe_common.cuh)
 MAX_K = 128        # the kernel keeps at most 128 candidates per slot
+POOL_CLASSES = 128  # residue classes of the rerank pool (POOL in the header)
+# opt-in shared memory per block of an H100, the kernels' target; a CUDA
+# device is asked for its own value (`smem_budget`)
+SMEM_OPTIN_H100 = 232448
+# most device bytes the worklist's scratch may take (`worklist_scratch_bytes`);
+# past it the caller keeps the one-CTA-per-block launch
+WL_SCRATCH_BYTES_MAX = 2 << 30
 # input dtypes of the kernel, by the code its C entry point takes
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 INT8_QUERY_CODE = 3   # the quantized kernel's code for int8 query codes
@@ -58,7 +96,10 @@ def group_slots(probe_buckets: torch.Tensor, offsets: torch.Tensor,
     slots = probe_buckets.reshape(n_slots).to(torch.int64)
     order = torch.argsort(slots, stable=True)
     # dump slots carry id n_cat: count them in an extra bin and drop it
-    slot_counts = torch.bincount(slots, minlength=n_cat + 1)[:n_cat]
+    # (scatter_add_, not bincount: bincount reads its size back to the host)
+    slot_counts = torch.zeros(n_cat + 1, dtype=torch.int64, device=dev
+                              ).scatter_add_(0, slots, torch.ones_like(slots)
+                                             )[:n_cat]
     raw_off = _exclusive_cumsum(slot_counts)
     aligned_off = _exclusive_cumsum(-(-slot_counts // qb) * qb)
     s_align = -(-(n_slots + n_cat * qb) // qb) * qb
@@ -82,6 +123,77 @@ def group_slots(probe_buckets: torch.Tensor, offsets: torch.Tensor,
                           counts.to(dev)[blk_bucket].to(torch.int64), qlim],
                          dim=1).to(torch.int32).contiguous()
     return SlotLayout(qidx, slot_of_row, blocks, slot_counts)
+
+
+def list_lanes(k: int) -> int:
+    """List entries per lane (KPL in the header): 32 of them hold k."""
+    return 1 if k <= 32 else (2 if k <= 64 else 4)
+
+
+def smem_bytes(k: int, tile_rows: int, pool: bool) -> int:
+    """Shared memory of one probe CTA (probe_common.cuh::smem_bytes): the
+    staged query and store slices, the product tile, the lists, thresholds
+    and query rows, the column scales, and the pool's keys."""
+    return ((BLOCK_SLOTS + tile_rows) * 272 + BLOCK_SLOTS * (tile_rows + 4) * 4
+            + BLOCK_SLOTS * 32 * list_lanes(k) * 8 + BLOCK_SLOTS * 8
+            + tile_rows * 4
+            + (BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0))
+
+
+def smem_budget(device) -> int:
+    """Opt-in shared memory per block of `device`, as CUDA reports it; for a
+    CPU device (which launches nothing) the H100's."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SMEM_OPTIN_H100
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       SMEM_OPTIN_H100))
+
+
+_declined = set()
+
+
+def resolve_tiling(pair: bool, *, k: int, pool: bool, device) -> bool:
+    """Whether the 128-row tile can be launched for lists of `k` entries,
+    with or without the pool: its shared memory against the card's opt-in
+    limit. A request that does not fit is declined with one logged line
+    per (k, pool), and the 64-row tile serves it, instead of a refused
+    launch. The TPU kernel's other answer to a tight budget, halving the
+    query block (``pallas_qc``), has no counterpart: the block is fixed at
+    64 slots."""
+    if not pair:
+        return False
+    need, have = smem_bytes(k, 128, pool), smem_budget(device)
+    if need <= have:
+        return True
+    if (k, pool, have) not in _declined:
+        _declined.add((k, pool, have))
+        log.warning("pallas_pair declined: the 128-row tile needs %d bytes of "
+                    "shared memory per block (k=%d, pool=%s), the card allows "
+                    "%d; running the 64-row tile", need, k, pool, have)
+    return False
+
+
+def worklist_scratch_bytes(wl_pad: int, k: int, n_blocks: int,
+                           pool: bool) -> int:
+    """Device bytes the worklist adds: every item's partial lists and, with
+    a pool, one key per slot and class."""
+    return (wl_pad * BLOCK_SLOTS * k * 8
+            + (n_blocks * BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0))
+
+
+def _variant(k, k_out=0, pair=False, wl_pad=0, item_rows=1024):
+    """Check the variant options; returns (k_out, pool, rows of an item)."""
+    ko = k_out or k
+    if not k <= ko <= POOL_CLASSES:
+        raise ValueError(f"k_out={ko} must lie in [k={k}, {POOL_CLASSES}]")
+    if wl_pad < 0:
+        raise ValueError(f"wl_pad={wl_pad} must not be negative")
+    if wl_pad and (item_rows < 1 or item_rows % POOL_CLASSES != 0):
+        raise ValueError(f"a work item spans a multiple of {POOL_CLASSES} "
+                         f"store rows, got item_rows={item_rows}")
+    return ko, ko > k, item_rows * (2 if pair else 1)
 
 
 def _check(q, qidx, data, blocks, k, d_store=None):
@@ -118,43 +230,296 @@ def bucket_runs(blocks: torch.Tensor):
             for (start, cnt), rows in runs.items()]
 
 
-def _plain_topk(qidx, blocks, k, dist_of):
-    """Per probed bucket: `dist_of(query rows, first store row, rows)` gives
-    the (slots, rows) float32 distances; a stable sort keeps the k smallest,
-    ties to the lower store row, (10000, -1) past the bucket's size."""
-    n_rows = qidx.shape[0]
-    out_d = torch.full((n_rows, k), SENTINEL_DIST, dtype=torch.float32,
-                       device=qidx.device)
-    out_i = torch.full((n_rows, k), -1, dtype=torch.int32, device=qidx.device)
+def build_worklist(blocks: torch.Tensor, wl_pad: int, span: int):
+    """The flat worklist of `blocks`, on their device and without a host
+    read: one item per live block and chunk of `span` store rows,
+    block-major. A live block of an empty bucket keeps one item (its rows
+    get the sentinel); a block without live slots gets none. Returns
+    (items (wl_pad, 2) int32: block and chunk, block -1 past the total;
+    block_items (n_blocks, 2) int32: first item and item count of each
+    block; the true total, a 0-dim int64 tensor, which may exceed wl_pad:
+    the items past the pad are dropped)."""
+    dev = blocks.device
+    cnt, live = blocks[:, 1].long(), blocks[:, 2] > 0
+    n_items = torch.where(live, torch.clamp(-(-cnt // span), min=1),
+                          torch.zeros_like(cnt))
+    cum = torch.cumsum(n_items, 0)
+    first = cum - n_items
+    total = cum[-1]
+    i = torch.arange(wl_pad, device=dev)
+    blk = torch.clamp(torch.searchsorted(cum, i, right=True),
+                      max=blocks.shape[0] - 1)
+    items = torch.stack([torch.where(i < total, blk, torch.full_like(blk, -1)),
+                         i - first[blk]], dim=1).to(torch.int32).contiguous()
+    block_items = torch.stack([first, n_items], dim=1).to(
+        torch.int32).contiguous()
+    return items, block_items, total
+
+
+@dataclass
+class WorklistParts:
+    """What the worklist's item kernel leaves for the merge kernel."""
+    items: torch.Tensor        # (wl_pad, 2) int32, `build_worklist`
+    block_items: torch.Tensor  # (n_blocks, 2) int32
+    total: torch.Tensor        # 0-dim int64: the true item total
+    part_d: torch.Tensor       # (wl_pad*BLOCK_SLOTS, k) float32 sorted partial
+    part_i: torch.Tensor       # lists of every item, (10000, -1) when short
+    keys: Optional[torch.Tensor]  # (n_blocks*BLOCK_SLOTS, 128) int64 pool
+    #                               keys, all bits set = empty; None: no pool
+
+
+_SIGN = -(1 << 63)   # flips a key's top bit: unsigned order as signed order
+
+
+def pool_keys(dist: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(distance, row) pairs as the kernel's 64-bit keys (int64 bit
+    patterns): the float's bits made to order like the float, then the
+    row; unsigned key order is (distance, row) order."""
+    bits = dist.contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    u = torch.where(bits >= 1 << 31, ~bits & 0xffffffff, bits | (1 << 31))
+    return (u << 32) | (rows.to(torch.int64) & 0xffffffff)
+
+
+def pool_pairs(keys: torch.Tensor):
+    """The (distance float32, row int32) of keys; an empty key gives
+    (inf, -1)."""
+    u = (keys >> 32) & 0xffffffff
+    bits = torch.where(u >= 1 << 31, u & 0x7fffffff, ~u & 0xffffffff)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    dist = bits.to(torch.int32).view(torch.float32)
+    rows = (keys & 0xffffffff).to(torch.int32)   # wraps 0xffffffff to -1
+    empty = keys == -1
+    return (torch.where(empty, torch.full_like(dist, float("inf")), dist),
+            torch.where(empty, torch.full_like(rows, -1), rows))
+
+
+def _class_best(dist: torch.Tensor, first_row: int):
+    """Per slot and class c the smallest distance, and its row (ties to the
+    lower), over the columns j of `dist` with j % 128 == c; column j is
+    store row first_row + j. (inf, -1) for a class without columns."""
+    x = torch.nn.functional.pad(
+        dist, (0, -dist.shape[1] % POOL_CLASSES), value=float("inf")
+    ).view(dist.shape[0], -1, POOL_CLASSES)
+    best = x.amin(1)
+    # argmax of the equality: the first, so the lowest, such row
+    chunk = (x == best[:, None, :]).to(torch.int8).argmax(1)
+    rows = (chunk * POOL_CLASSES + first_row
+            + torch.arange(POOL_CLASSES, device=dist.device)).to(torch.int32)
+    return best, torch.where(torch.isinf(best), torch.full_like(rows, -1),
+                             rows)
+
+
+def pool_extras(out_d, out_i, pool_d, pool_i, k_out):
+    """Append columns [k, k_out) to the exact lists (out_d, out_i): the
+    smallest entries of the per-class pool (pool_d, pool_i), by (distance,
+    row), whose row is not in the exact top-k of `out_i`."""
+    k = out_d.shape[1]
+    taken = pool_i < 0
+    for t in range(k):
+        taken |= pool_i == out_i[:, t:t + 1]
+    d = torch.where(taken, torch.full_like(pool_d, float("inf")), pool_d)
+    # order by row first, so that the stable sort by distance breaks ties
+    # to the lower row
+    by_row = torch.argsort(pool_i, dim=1, stable=True)
+    d, i = torch.gather(d, 1, by_row), torch.gather(pool_i, 1, by_row)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k_out - k]
+    d, i = torch.gather(d, 1, order), torch.gather(i, 1, order)
+    empty = torch.isinf(d)
+    d = torch.where(empty, torch.full_like(d, SENTINEL_DIST), d)
+    i = torch.where(empty, torch.full_like(i, -1), i)
+    return torch.cat([out_d, d], 1), torch.cat([out_i, i], 1)
+
+
+def _empty_lists(rows: int, k: int, dev):
+    return (torch.full((rows, k), SENTINEL_DIST, dtype=torch.float32,
+                       device=dev),
+            torch.full((rows, k), -1, dtype=torch.int32, device=dev))
+
+
+def _topk_of(dist: torch.Tensor, k: int, first_row: int):
+    """The k smallest of each row of `dist`, ascending, ties to the lower
+    column (a stable sort), with their store rows."""
+    order = torch.sort(dist, dim=1, stable=True).indices[:, :k]
+    return torch.gather(dist, 1, order), (order + first_row).to(torch.int32)
+
+
+def _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span):
+    """The item kernel in plain torch: every kept item's partial lists
+    and, with a pool, the blocks' folded pool keys."""
+    dev = qidx.device
+    items, block_items, total = build_worklist(blocks, wl_pad, span)
+    part_d, part_i = _empty_lists(wl_pad * BLOCK_SLOTS, k, dev)
+    keys = (torch.full((qidx.shape[0], POOL_CLASSES), -1, dtype=torch.int64,
+                       device=dev) if pool else None)
+    blk = blocks.tolist()
+    for n, (j, c) in enumerate(items.tolist()):
+        if j < 0:
+            break
+        start, cnt, live = blk[j]
+        nq = min(max(live, 0), BLOCK_SLOTS)
+        lo, hi = c * span, min(cnt, (c + 1) * span)
+        if hi <= lo:
+            continue
+        slots = slice(j * BLOCK_SLOTS, j * BLOCK_SLOTS + nq)
+        dist = dist_of(qidx[slots].long(), start + lo, hi - lo)
+        kk = min(k, hi - lo)
+        out = slice(n * BLOCK_SLOTS, n * BLOCK_SLOTS + nq)
+        part_d[out, :kk], part_i[out, :kk] = _topk_of(dist, kk, start + lo)
+        if pool:
+            # lo is a multiple of the class count: classes line up
+            best, rows = _class_best(dist, start + lo)
+            new = torch.where(rows < 0, torch.full_like(keys[slots], -1),
+                              pool_keys(best, rows))
+            old = keys[slots]
+            keys[slots] = torch.where((new ^ _SIGN) < (old ^ _SIGN), new, old)
+    return WorklistParts(items, block_items, total, part_d, part_i, keys)
+
+
+def merge_items_plain(blocks: torch.Tensor, parts: WorklistParts, k: int,
+                      k_out: int = 0):
+    """The merge kernel (csrc/merge_items.cu) in plain torch: per block a
+    stable sort of its items' partial lists laid end to end in chunk order
+    (equal distances keep the earlier item and place, so the lower store
+    row), the first k; then, with ``k_out > k``, the extras from the
+    block's pool keys. Items past the scratch (dropped on overflow) are not
+    read. Returns (out_d, out_i) of shape (n_blocks*BLOCK_SLOTS, k_out or
+    k)."""
+    ko = k_out or k
+    n_blocks = int(blocks.shape[0])
+    n_items = parts.part_d.shape[0] // BLOCK_SLOTS
+    out_d, out_i = _empty_lists(n_blocks * BLOCK_SLOTS, k, blocks.device)
+    lives = blocks[:, 2].tolist()
+    for j, (first, cnt) in enumerate(parts.block_items.tolist()):
+        last = min(first + cnt, n_items)
+        nq = min(max(lives[j], 0), BLOCK_SLOTS)
+        if last <= first or nq == 0:
+            continue
+        rows = slice(first * BLOCK_SLOTS, last * BLOCK_SLOTS)
+        d = parts.part_d[rows].view(last - first, BLOCK_SLOTS, k)
+        i = parts.part_i[rows].view(last - first, BLOCK_SLOTS, k)
+        d = d.permute(1, 0, 2).reshape(BLOCK_SLOTS, -1)[:nq]
+        i = i.permute(1, 0, 2).reshape(BLOCK_SLOTS, -1)[:nq]
+        order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+        slots = slice(j * BLOCK_SLOTS, j * BLOCK_SLOTS + nq)
+        out_d[slots] = torch.gather(d, 1, order)
+        out_i[slots] = torch.gather(i, 1, order)
+    if ko > k:
+        out_d, out_i = pool_extras(out_d, out_i, *pool_pairs(parts.keys), ko)
+    return out_d, out_i
+
+
+def merge_items(blocks: torch.Tensor, parts: WorklistParts, k: int,
+                k_out: int = 0):
+    """Launch the merge kernel (csrc/merge_items.cu) on CUDA tensors; CPU
+    tensors take `merge_items_plain`. Same arguments and results."""
+    if blocks.device.type == "cpu":
+        return merge_items_plain(blocks, parts, k, k_out)
+    ko = k_out or k
+    if not (1 <= k <= MAX_K and k <= ko <= POOL_CLASSES):
+        raise ValueError(f"merge kernel takes 1 <= k <= k_out <= "
+                         f"{POOL_CLASSES}, got k={k}, k_out={ko}")
+    if ko > k and parts.keys is None:
+        raise ValueError("k_out > k needs the items' pool keys")
+    tensors = [blocks, parts.block_items, parts.part_d, parts.part_i]
+    tensors += [parts.keys] if parts.keys is not None else []
+    if not all(t.is_cuda and t.device == blocks.device and t.is_contiguous()
+               for t in tensors):
+        raise ValueError("merge kernel inputs must be contiguous tensors on "
+                         "one CUDA device")
+    from tpulmi_torch.ops import _kernels
+
+    lib = _kernels.load("merge_items")
+    if lib.merge_items_block_slots() != BLOCK_SLOTS:
+        raise RuntimeError("csrc/merge_items.cu block size differs from "
+                           "BLOCK_SLOTS")
+    dev = blocks.device
+    n_blocks = int(blocks.shape[0])
+    out_d = torch.empty((n_blocks * BLOCK_SLOTS, ko), dtype=torch.float32,
+                        device=dev)
+    out_i = torch.empty((n_blocks * BLOCK_SLOTS, ko), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        _raise_on(lib.merge_items_launch(
+            blocks.data_ptr(), parts.block_items.data_ptr(),
+            parts.part_d.data_ptr(), parts.part_i.data_ptr(),
+            parts.keys.data_ptr() if parts.keys is not None else None,
+            out_d.data_ptr(), out_i.data_ptr(), n_blocks,
+            parts.part_d.shape[0] // BLOCK_SLOTS, k, ko,
+            torch.cuda.current_stream(dev).cuda_stream), "merge_items")
+    _launches["merge_items"] += 1
+    return out_d, out_i
+
+
+def _plain_topk(qidx, blocks, k, dist_of, merge=True, **variant):
+    """The kernels' function in plain torch. `dist_of(query rows, first
+    store row, rows)` gives the (slots, rows) float32 distances of a row
+    range. Dense: per probed bucket the k smallest of each slot (stable
+    sort: ties to the lower store row), (10000, -1) where the bucket holds
+    fewer, and with a pool the per-class best rows and the extras. With a
+    worklist: `_plain_items`, then `merge_items_plain`; ``merge=False``
+    stops after the items and returns their `WorklistParts`."""
+    ko, pool, span = _variant(k, **variant)
+    wl_pad = variant.get("wl_pad", 0)
+    if wl_pad:
+        parts = _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span)
+        if not merge:
+            return parts
+        return (*merge_items_plain(blocks, parts, k, ko), parts.total)
+    n_rows, dev = qidx.shape[0], qidx.device
+    out_d, out_i = _empty_lists(n_rows, k, dev)
+    if pool:
+        pool_d = torch.full((n_rows, POOL_CLASSES), float("inf"),
+                            dtype=torch.float32, device=dev)
+        pool_i = torch.full((n_rows, POOL_CLASSES), -1, dtype=torch.int32,
+                            device=dev)
     for start, cnt, rows in bucket_runs(blocks):
         dist = dist_of(qidx[rows].long(), start, cnt)
         kk = min(k, cnt)
-        order = torch.sort(dist, dim=1, stable=True).indices[:, :kk]
-        out_d[rows, :kk] = torch.gather(dist, 1, order)
-        out_i[rows, :kk] = (order + start).to(torch.int32)
+        out_d[rows, :kk], out_i[rows, :kk] = _topk_of(dist, kk, start)
+        if pool:
+            pool_d[rows], pool_i[rows] = _class_best(dist, start)
+    if pool:
+        out_d, out_i = pool_extras(out_d, out_i, pool_d, pool_i, ko)
     return out_d, out_i
 
 
 def probe_topk_plain(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
-                     blocks: torch.Tensor, k: int):
+                     blocks: torch.Tensor, k: int, **variant):
     """The kernel's function in plain torch, one bucket at a time: for each
     live slot, the k smallest ``1 - q.x`` (inputs in their dtype, products in
     float32) over its bucket's rows, ascending, ties to the lower store row,
     with (10000, -1) past the bucket's size. Returns (out_d, out_i) of shape
-    (n_blocks*BLOCK_SLOTS, k)."""
+    (n_blocks*BLOCK_SLOTS, k_out or k), and the item total with a worklist
+    (`variant`: the options of the module docstring)."""
     _check(q, qidx, data, blocks, k)
 
     def dist_of(qrows, start, cnt):
         return 1.0 - q[qrows].float() @ data[start:start + cnt].float().T
 
-    return _plain_topk(qidx, blocks, k, dist_of)
+    return _plain_topk(qidx, blocks, k, dist_of, **variant)
 
 
-def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes):
-    """Run the launch entry point of csrc/`source`.cu on the current
-    stream: the inputs' pointers (the last one is `blocks`), the two
-    outputs allocated here, the sizes, then `codes` (the entry point's type
-    codes). Raises on what the kernel cannot take; there is no fallback."""
+# launches by kernel configuration, beside the wrappers' own counts: the
+# worklist's item kernel and its merge kernel, the 128-row tile, the pool
+_launches = {"probe_worklist": 0, "merge_items": 0, "probe_pair": 0,
+             "probe_pool": 0}
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
+            k_out=0, pair=False, wl_pad=0, item_rows=1024, merge=True):
+    """Run the launch entry point of csrc/`source`.cu (its 128-row library
+    with `pair`) on the current stream: the inputs' pointers (the last one
+    is `blocks`), the worklist, outputs and pool allocated here, the sizes,
+    then `codes` (the entry point's type codes). With a worklist the items'
+    partial lists go on through `merge_items` (``merge=False`` returns them
+    as they are, as `WorklistParts`). Raises on what the kernel cannot
+    take; there is no fallback."""
+    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows)
     dev = inputs[0].device
     if dev.type != "cuda":
         raise ValueError(f"probe kernel runs on CUDA tensors, not {dev}")
@@ -162,33 +527,59 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes):
         raise ValueError("probe kernel inputs must be contiguous")
     from tpulmi_torch.ops import _kernels
 
-    lib = _kernels.load(source)
-    if getattr(lib, f"{source}_block_slots")() != BLOCK_SLOTS:
-        raise RuntimeError("csrc/probe_common.cuh block size differs from "
-                           "BLOCK_SLOTS")
-    n_blocks = int(inputs[-1].shape[0])
-    out_d = torch.empty((n_blocks * BLOCK_SLOTS, k), dtype=torch.float32,
-                        device=dev)
-    out_i = torch.empty((n_blocks * BLOCK_SLOTS, k), dtype=torch.int32,
-                        device=dev)
+    lib = _kernels.load(source + ("_pair" if pair else ""))
+    tile_rows = 128 if pair else 64
+    if (getattr(lib, f"{source}_block_slots")() != BLOCK_SLOTS
+            or getattr(lib, f"{source}_tile_rows")() != tile_rows
+            or getattr(lib, f"{source}_smem_bytes")(k, int(pool))
+            != smem_bytes(k, tile_rows, pool)):
+        raise RuntimeError("csrc/probe_common.cuh and ops/probe_topk.py "
+                           "differ on block, tile or shared-memory sizes")
+    blocks = inputs[-1]
+    n_blocks = int(blocks.shape[0])
+    parts = None
+    if wl_pad:
+        # every pool key empty (all bits set); the items fold theirs in
+        parts = WorklistParts(
+            *build_worklist(blocks, wl_pad, span),
+            torch.empty((wl_pad * BLOCK_SLOTS, k), dtype=torch.float32,
+                        device=dev),
+            torch.empty((wl_pad * BLOCK_SLOTS, k), dtype=torch.int32,
+                        device=dev),
+            torch.full((n_blocks * BLOCK_SLOTS, POOL_CLASSES), -1,
+                       dtype=torch.int64, device=dev) if pool else None)
+        out_d, out_i = parts.part_d, parts.part_i
+    else:
+        out_d = torch.empty((n_blocks * BLOCK_SLOTS, ko), dtype=torch.float32,
+                            device=dev)
+        out_i = torch.empty((n_blocks * BLOCK_SLOTS, ko), dtype=torch.int32,
+                            device=dev)
     with torch.cuda.device(dev):
-        err = getattr(lib, f"{source}_launch")(
-            *(t.data_ptr() for t in inputs), out_d.data_ptr(),
-            out_i.data_ptr(), n_blocks, d, n_rows, k, *codes,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{source} launch failed with CUDA error {err}")
-    return out_d, out_i
+        _raise_on(getattr(lib, f"{source}_launch")(
+            *(t.data_ptr() for t in inputs),
+            parts.items.data_ptr() if parts else None, out_d.data_ptr(),
+            out_i.data_ptr(),
+            parts.keys.data_ptr() if parts and pool else None,
+            wl_pad or n_blocks, d, n_rows, k, ko, span if parts else 0,
+            *codes, torch.cuda.current_stream(dev).cuda_stream), source)
+    _launches["probe_worklist"] += int(parts is not None)
+    _launches["probe_pair"] += int(pair)
+    _launches["probe_pool"] += int(pool)
+    if parts is None:
+        return out_d, out_i
+    if not merge:
+        return parts
+    return (*merge_items(blocks, parts, k, ko), parts.total)
 
 
 def probe_topk(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
-               blocks: torch.Tensor, k: int):
+               blocks: torch.Tensor, k: int, **variant):
     """Launch the probe kernel (csrc/probe_topk.cu) on CUDA tensors; CPU
     tensors take `probe_topk_plain`. Same arguments and results as
     `probe_topk_plain`; queries and store share one dtype of
     `KERNEL_DTYPES` (float32 is multiplied in float32)."""
     if q.device.type == "cpu":
-        return probe_topk_plain(q, qidx, data, blocks, k)
+        return probe_topk_plain(q, qidx, data, blocks, k, **variant)
     _check(q, qidx, data, blocks, k)
     if q.dtype != data.dtype or q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"probe kernel takes queries and store of one dtype "
@@ -198,7 +589,7 @@ def probe_topk(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
     if d % 8 != 0:
         raise ValueError(f"probe kernel needs d % 8 == 0, got d={d}")
     out = _launch("probe_topk", (q, qidx, data, blocks), d,
-                  int(data.shape[0]), k, (KERNEL_DTYPES[q.dtype],))
+                  int(data.shape[0]), k, (KERNEL_DTYPES[q.dtype],), **variant)
     probe_topk.launches += 1
     return out
 
@@ -227,7 +618,8 @@ def _codes(codes, bits):
 
 def probe_topk_quant_plain(q: torch.Tensor, qidx: torch.Tensor,
                            codes: torch.Tensor, scales: torch.Tensor,
-                           blocks: torch.Tensor, k: int, bits: int = 8):
+                           blocks: torch.Tensor, k: int, bits: int = 8,
+                           **variant):
     """`probe_topk_plain` over a quantized store: per bucket the codes
     (unpacked when int4) are cast to the query dtype, multiplied with
     float32 sums, and each column is scaled by ``scales[row] / q_levels``
@@ -241,16 +633,22 @@ def probe_topk_quant_plain(q: torch.Tensor, qidx: torch.Tensor,
         sc = scales[start:start + cnt] / Q_LEVELS[bits]
         return 1.0 - (q[qrows].float() @ x.T) * sc[None, :]
 
-    return _plain_topk(qidx, blocks, k, dist_of)
+    return _plain_topk(qidx, blocks, k, dist_of, **variant)
 
 
-def _apply_query_scale(out_d, out_i, q_scales, qidx):
+def apply_query_scale(out, q_scales, qidx):
     """The int8 query's scale, left out of the ranking (positive and
     constant per slot), applied to the finished lists; empty places keep
-    the sentinel."""
+    the sentinel. `out`: (out_d, out_i) and, with a worklist, the item
+    total, which passes through; unmerged `WorklistParts` pass as they
+    are (their lists are still the kernel's raw scores)."""
+    if isinstance(out, WorklistParts):
+        return out
+    out_d, out_i = out[:2]
     qs = (q_scales / 127.0)[qidx.long()][:, None]
-    return torch.where(out_i >= 0, 1.0 - (1.0 - out_d) * qs,
-                       torch.full_like(out_d, SENTINEL_DIST)), out_i
+    scaled = torch.where(out_i >= 0, 1.0 - (1.0 - out_d) * qs,
+                         torch.full_like(out_d, SENTINEL_DIST))
+    return (scaled, out_i, *out[2:])
 
 
 def _check_int8q(q_codes, q_scales, qidx, codes, scales, blocks, k, bits):
@@ -267,7 +665,7 @@ def _check_int8q(q_codes, q_scales, qidx, codes, scales, blocks, k, bits):
 def probe_topk_int8q_plain(q_codes: torch.Tensor, q_scales: torch.Tensor,
                            qidx: torch.Tensor, codes: torch.Tensor,
                            scales: torch.Tensor, blocks: torch.Tensor, k: int,
-                           bits: int = 8):
+                           bits: int = 8, **variant):
     """int8 x int8 in plain torch: the exact integer dot as float32, times
     ``scales[row] / q_levels``, ranked without the query's scale; then
     ``d = 1 - (1 - d) * q_scale / 127`` on the finished lists."""
@@ -278,35 +676,36 @@ def probe_topk_int8q_plain(q_codes: torch.Tensor, q_scales: torch.Tensor,
         sc = scales[start:start + cnt] / Q_LEVELS[bits]
         return 1.0 - int_dot(q_codes[qrows], x) * sc[None, :]
 
-    out_d, out_i = _plain_topk(qidx, blocks, k, dist_of)
-    return _apply_query_scale(out_d, out_i, q_scales, qidx)
+    return apply_query_scale(
+        _plain_topk(qidx, blocks, k, dist_of, **variant), q_scales, qidx)
 
 
-def _launch_quant(q, qidx, codes, scales, blocks, k, bits, qcode):
+def _launch_quant(q, qidx, codes, scales, blocks, k, bits, qcode, variant):
     d = int(q.shape[1])
     need = 32 if bits == 4 else 16
     if d % need != 0:
         raise ValueError(f"int{bits} probe kernel needs d % {need} == 0 "
                          f"(16-byte row loads), got d={d}")
     return _launch("probe_topk_quant", (q, qidx, codes, scales, blocks), d,
-                   int(codes.shape[0]), k, (qcode, bits))
+                   int(codes.shape[0]), k, (qcode, bits), **variant)
 
 
 def probe_topk_quant(q: torch.Tensor, qidx: torch.Tensor, codes: torch.Tensor,
                      scales: torch.Tensor, blocks: torch.Tensor, k: int,
-                     bits: int = 8):
+                     bits: int = 8, **variant):
     """Launch the quantized-store probe kernel (csrc/probe_topk_quant.cu)
     on CUDA tensors; CPU tensors take `probe_topk_quant_plain`. Queries in
     a dtype of `KERNEL_DTYPES`, codes int8 ((rows, d), or (rows, d/2)
     packed when ``bits=4``), scales float32 (rows,)."""
     if q.device.type == "cpu":
-        return probe_topk_quant_plain(q, qidx, codes, scales, blocks, k, bits)
+        return probe_topk_quant_plain(q, qidx, codes, scales, blocks, k, bits,
+                                      **variant)
     _check_quant(q, qidx, codes, scales, blocks, k, bits)
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"quantized probe kernel takes queries of "
                          f"{list(KERNEL_DTYPES)}, got {q.dtype}")
     out = _launch_quant(q, qidx, codes, scales, blocks, k, bits,
-                        KERNEL_DTYPES[q.dtype])
+                        KERNEL_DTYPES[q.dtype], variant)
     probe_topk_quant.launches += 1
     probe_topk_quant.launches_by_bits[bits] += 1
     return out
@@ -319,20 +718,20 @@ probe_topk_quant.launches_by_bits = {8: 0, 4: 0}
 def probe_topk_int8q(q_codes: torch.Tensor, q_scales: torch.Tensor,
                      qidx: torch.Tensor, codes: torch.Tensor,
                      scales: torch.Tensor, blocks: torch.Tensor, k: int,
-                     bits: int = 8):
+                     bits: int = 8, **variant):
     """Launch the int8 x int8 probe kernel (csrc/probe_topk_quant.cu) on
     CUDA tensors and apply the queries' scales to its lists; CPU tensors
     take `probe_topk_int8q_plain`. `q_codes` (Q, d) int8 and `q_scales`
     (Q,) float32 are `quantize_rows` of the queries."""
     if q_codes.device.type == "cpu":
         return probe_topk_int8q_plain(q_codes, q_scales, qidx, codes, scales,
-                                      blocks, k, bits)
+                                      blocks, k, bits, **variant)
     _check_int8q(q_codes, q_scales, qidx, codes, scales, blocks, k, bits)
-    out_d, out_i = _launch_quant(q_codes, qidx, codes, scales, blocks, k,
-                                 bits, INT8_QUERY_CODE)
+    out = _launch_quant(q_codes, qidx, codes, scales, blocks, k, bits,
+                        INT8_QUERY_CODE, variant)
     probe_topk_int8q.launches += 1
     probe_topk_int8q.launches_by_bits[bits] += 1
-    return _apply_query_scale(out_d, out_i, q_scales, qidx)
+    return apply_query_scale(out, q_scales, qidx)
 
 
 probe_topk_int8q.launches = 0
@@ -340,13 +739,16 @@ probe_topk_int8q.launches_by_bits = {8: 0, 4: 0}
 
 
 def launch_counts() -> dict:
-    """Kernel launches so far, by kernel variant."""
+    """Kernel launches so far: the probe kernel by store and query type (in
+    any configuration), then by configuration: worklist launches of it,
+    launches of the items' merge kernel, of the 128-row tile, with a pool."""
     return {
         "probe_topk": probe_topk.launches,
         "probe_topk_quant_int8": probe_topk_quant.launches_by_bits[8],
         "probe_topk_quant_int4": probe_topk_quant.launches_by_bits[4],
         "probe_topk_int8q_int8": probe_topk_int8q.launches_by_bits[8],
         "probe_topk_int8q_int4": probe_topk_int8q.launches_by_bits[4],
+        **_launches,
     }
 
 
@@ -355,6 +757,8 @@ def reset_launch_counts() -> None:
     for fn in (probe_topk_quant, probe_topk_int8q):
         fn.launches = 0
         fn.launches_by_bits = {8: 0, 4: 0}
+    for name in _launches:
+        _launches[name] = 0
 
 
 def merge_slots(out_d: torch.Tensor, out_i: torch.Tensor,
@@ -381,35 +785,49 @@ def merge_slots(out_d: torch.Tensor, out_i: torch.Tensor,
 
 def probe_search(probe_buckets: torch.Tensor, queries: torch.Tensor, store,
                  *, k: int = 10, compute_dtype=torch.bfloat16,
-                 backend: str = "cuda", int8_queries: bool = False):
-    """Exact top-k of every query over its probed buckets. Returns
-    (dists (Q, k) float32 ascending, ids (Q, k) 0-based with -1 for empty
-    places, max slots routed to one bucket).
+                 backend: str = "cuda", int8_queries: bool = False,
+                 pool_k: int = 0, pair: bool = False, wl_pad: int = 0,
+                 item_rows: int = 1024):
+    """Top-k of every query over its probed buckets. Returns (dists (Q, k)
+    float32 ascending, ids (Q, k) 0-based with -1 for empty places, max
+    slots routed to one bucket) and, with ``wl_pad > 0``, the worklist's
+    true item total (results are invalid when it exceeds ``wl_pad``).
 
     ``backend="cuda"`` goes through the kernel wrappers (the kernels on
     CUDA tensors); ``"torch"`` calls their plain versions. A quantized
     store is scored from its codes and scales; ``int8_queries`` (quantized
     stores only, ignored otherwise) also quantizes the queries, once per
-    query, for the int8 x int8 kernel."""
+    query, for the int8 x int8 kernel. ``pool_k > 0`` (< k) keeps only the
+    first ``pool_k`` columns exact and draws the other ``k - pool_k`` from
+    the rerank pool; ``pair``, ``wl_pad`` and ``item_rows`` as in the
+    module docstring."""
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown probe backend {backend!r}")
     kernel = backend == "cuda"
     q, p = probe_buckets.shape
     layout = group_slots(probe_buckets, store.offsets, store.counts)
+    variant = dict(pair=pair, wl_pad=wl_pad, item_rows=item_rows)
+    k_exact = k
+    if pool_k:
+        if not 0 < pool_k < k:
+            raise ValueError(f"pool_k={pool_k} must lie in (0, k={k})")
+        k_exact, variant["k_out"] = pool_k, k
     if not store.is_quantized:
         fn = probe_topk if kernel else probe_topk_plain
-        out_d, out_i = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
-                          store.data_as(compute_dtype), layout.blocks, k)
+        out = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
+                 store.data_as(compute_dtype), layout.blocks, k_exact,
+                 **variant)
     elif int8_queries:
         fn = probe_topk_int8q if kernel else probe_topk_int8q_plain
         q_codes, q_scales = quantize_rows(queries)
-        out_d, out_i = fn(q_codes, q_scales, layout.qidx, store.data_sorted,
-                          store.scales, layout.blocks, k, store.quant_bits)
+        out = fn(q_codes, q_scales, layout.qidx, store.data_sorted,
+                 store.scales, layout.blocks, k_exact, store.quant_bits,
+                 **variant)
     else:
         fn = probe_topk_quant if kernel else probe_topk_quant_plain
-        out_d, out_i = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
-                          store.data_sorted, store.scales, layout.blocks, k,
-                          store.quant_bits)
-    final_d, final_i = merge_slots(out_d, out_i, layout, q, p, k,
+        out = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
+                 store.data_sorted, store.scales, layout.blocks, k_exact,
+                 store.quant_bits, **variant)
+    final_d, final_i = merge_slots(out[0], out[1], layout, q, p, k,
                                    store.ids_sorted)
-    return final_d, final_i, layout.slot_counts.max()
+    return (final_d, final_i, layout.slot_counts.max(), *out[2:])

@@ -60,13 +60,18 @@ def routing_logits(model, queries_nav: torch.Tensor, *, need_mass: bool):
 def make_search_program(model, *, k: int, n_buckets: int,
                         compute_dtype=torch.bfloat16, backend: str = "cuda",
                         probe_mass=None, fetch_dtype=None,
-                        int8_queries: bool = False):
+                        int8_queries: bool = False, pool_k: int = 0,
+                        pair: bool = False, wl_pad: int = 0,
+                        item_rows: int = 1024):
     """The search as one function (queries_nav, queries_search, store) ->
     (dists, ids, max_slots) over `model`: top-P routing (softmax is monotone,
     so the logits rank), normalization of the search queries, and the
     probe with its merge. `k` is the number of candidates fetched (the
     plan's k plus the rerank depth when the result is reranked);
-    `int8_queries` applies to a quantized store only."""
+    `int8_queries` applies to a quantized store only. `pool_k`, `pair`,
+    `wl_pad` and `item_rows` choose the probe kernel's configuration
+    (`ops/probe_topk.py`); with ``wl_pad > 0`` the worklist's true item
+    total is a fourth result."""
     truncating = probe_mass is not None
 
     @torch.no_grad()
@@ -77,11 +82,12 @@ def make_search_program(model, *, k: int, n_buckets: int,
                               dump_id=store.n_categories,
                               mass_logits=mass_logits)
         qs = l2_normalize(queries_search.float())
-        d, i, max_slots = probe_search(
+        d, *rest = probe_search(
             probes, qs, store, k=k, compute_dtype=compute_dtype,
-            backend=backend, int8_queries=int8_queries)
+            backend=backend, int8_queries=int8_queries, pool_k=pool_k,
+            pair=pair, wl_pad=wl_pad, item_rows=item_rows)
         if fetch_dtype is not None:
             d = d.to(fetch_dtype)
-        return d, i, max_slots
+        return (d, *rest)
 
     return search_program

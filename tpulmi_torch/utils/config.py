@@ -71,13 +71,23 @@ class SearchConfig:
     backend: str = "auto"
     # The pallas_* names are kept so that configs convert 1:1 with the JAX
     # package. pallas_extract is only checked: all three modes compute the
-    # same function and run the same CUDA kernel. pallas_qc
-    # and pallas_mc were TPU tile sizes; the CUDA kernel fixes its own tile
-    # (64 slots x 64 rows). int8_queries (quantized stores only, ignored on
-    # a full-precision one) quantizes the queries per row and runs the
-    # int8 x int8 kernel of csrc/probe_topk_quant.cu. pallas_worklist,
-    # pallas_pool and pallas_pair select kernel variants that are not ported
-    # yet and are refused when set.
+    # same function and run the same CUDA kernel (with pallas_pool,
+    # "scalar" is refused as the JAX package refuses it). pallas_qc was a
+    # TPU tile size and is unused: the CUDA kernel's block is 64 slots.
+    # pallas_mc is the store rows of one work item of the worklist (a
+    # multiple of 128; twice as many with pallas_pair) and means nothing
+    # without pallas_worklist. int8_queries (quantized stores only, ignored
+    # on a full-precision one) quantizes the queries per row and runs the
+    # int8 x int8 kernel of csrc/probe_topk_quant.cu.
+    # pallas_worklist: one CTA per live (64-slot block, pallas_mc-row chunk)
+    # pair and a second kernel that merges a block's chunks, instead of one
+    # CTA per block; sized per (batch size, probes) from the first batch's
+    # routing and re-run larger on overflow.
+    # pallas_pair: tiles of 128 store rows instead of 64; declined (logged)
+    # when the card's shared memory per block does not hold it.
+    # pallas_pool: only when the search reranks: the kernel keeps an exact
+    # top-k and draws the rerank_extra further candidates from a per-class
+    # pool instead of keeping a list of k + rerank_extra.
     pallas_qc: int = 512
     pallas_mc: int = 1024
     pallas_extract: str = "group"

@@ -13,14 +13,21 @@ result line.
 2. kernels - each kernel against its plain PyTorch version on the card, on
              random bfloat16, float16 and float32 stores and on their int8
              and packed-int4 quantizations with float and int8 queries (the
-             main path's shapes and a narrow one, skewed bucket sizes,
-             buckets smaller than k, dumped slots); then every further
+             main path's shapes, narrow ones that are no multiple of a
+             64-feature slice, and one too wide for the wgmma loop; skewed
+             bucket sizes, buckets smaller than k, dumped slots), with the
+             main loop that each case took (the main path's shape must take
+             the wgmma loop); equal rows inside a tile and across tile and
+             work-item edges, which must come back lower row first, on a
+             store whose last, ragged tile reaches past its end; then
+             every further
              configuration of the kernel (the 128-row tile, the worklist's
              item and merge kernels, the rerank pool, and their
              combinations) against its plain version and, to the bit,
              against the one-CTA-per-block kernel, on a store with one
              bucket of more than 20 times the mean, an empty probed bucket,
-             dumped slots, a tight and an undersized worklist;
+             dumped slots, a tight and an undersized worklist (two
+             launches are held together to the bit under one main loop);
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
              synthetic corpus with 122 buckets, then LearnedIndex.search of
              10k queries at 1, 2, 3, 4 and 7 probes, recall@10 against an
@@ -41,7 +48,9 @@ result line.
              share of a stream);
 6. timing  - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
-             the least time the card could take for that work; then the
+             the least time the card could take for that work and the
+             rates it reached; K1 and K2 also under the staged main loop,
+             in turns; then the
              one-CTA-per-block kernel against the worklist and the 128-row
              tile on a skewed store.
 
@@ -219,6 +228,18 @@ def own_quant(q, codes, scales, bits, q_scales=None):
     return own
 
 
+def ran_loop(launch):
+    """launch()'s result and the main loop that its one probe launch took
+    ("wgmma" or "staged")."""
+    from tpulmi_torch.ops.probe_topk import loop_launch_counts
+
+    before = loop_launch_counts()
+    out = launch()
+    after = loop_launch_counts()
+    (loop,) = [n for n in after if after[n] != before[n]]
+    return out, loop
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the card. Returns the max
     |err| of each kernel variant."""
@@ -249,8 +270,14 @@ def phase_kernels(dev):
              (768, 40, 7, 3000, bf16, ("quant", "int8q")),
              (128, 128, 2, 2000, bf16, ("full", "quant", "int8q")),
              (768, 128, 1, 1000, bf16, ("full", "quant", "int8q")),
+             # 16 < k <= 32: the longer of the lists held in registers
+             (256, 24, 2, 2000, bf16, ("full", "quant")),
              (128, 10, 7, 2000, bf16, ("full",)),
-             (96, 40, 7, 2000, bf16, ("quant", "int8q")),
+             (96, 40, 7, 2000, bf16, ("full", "quant", "int8q")),
+             # d = 40: no multiple of a 64-feature slice; d = 1536: the
+             # resident queries do not fit, so the staged loop serves it
+             (40, 10, 2, 2000, bf16, ("full",)),
+             (1536, 10, 2, 2000, bf16, ("full", "quant")),
              # compute_dtype=None (float32) and float16 searches
              (768, 10, 2, N_QUERIES, f32, ("full", "quant")),
              (128, 128, 2, 2000, f32, ("full",)),
@@ -258,10 +285,17 @@ def phase_kernels(dev):
              (768, 10, 2, 2000, f16, ("full", "quant"))]
     errs = {}
 
-    def note(name, err, d, k, p, nq, what):
+    def note(name, err, d, k, p, nq, what, loop):
         errs[name] = max(errs.get(name, 0.0), err)
         log(f"[kernels] {name} {what} d={d} k={k} probes={p} queries={nq}: "
-            f"max |err| {err:.3g}")
+            f"{loop} loop, max |err| {err:.3g}")
+        # the main path's shape must take the loop built for this card, and
+        # a width whose queries cannot be resident the staged one
+        want = {768: "wgmma", 1536: "staged"}.get(d)
+        if (k == 10 and "int8q" not in name and "float32" not in what
+                and want and loop != want):
+            raise AssertionError(f"{name} {what} d={d} k={k} ran the {loop} "
+                                 f"loop, not the {want} loop")
 
     for d, k, p, nq, dtype, variants in cases:
         data, offsets, counts = random_store(d, sizes.tolist(), dev, gen,
@@ -278,11 +312,11 @@ def phase_kernels(dev):
         layout = group_slots(probes.int(), offsets, counts)
         if "full" in variants:
             args = (q, layout.qidx, data, layout.blocks, k)
-            kern = probe_topk(*args)
+            kern, loop = ran_loop(lambda: probe_topk(*args))
             torch.cuda.synchronize()
             err = compare(kern, probe_topk_plain(*args), own_full(q, data),
                           layout, nq * p)
-            note("probe_topk", err, d, k, p, nq, str(dtype))
+            note("probe_topk", err, d, k, p, nq, str(dtype), loop)
         for bits in (8, 4):
             if not {"quant", "int8q"} & set(variants):
                 break
@@ -290,24 +324,108 @@ def phase_kernels(dev):
                              else quantize_rows)(data.float())
             if "quant" in variants:
                 args = (q, layout.qidx, codes, scales, layout.blocks, k, bits)
-                kern = probe_topk_quant(*args)
+                kern, loop = ran_loop(lambda: probe_topk_quant(*args))
                 torch.cuda.synchronize()
                 err = compare(kern, probe_topk_quant_plain(*args),
                               own_quant(q, codes, scales, bits), layout,
                               nq * p)
                 note(f"probe_topk_quant_int{bits}", err, d, k, p, nq,
-                     f"{dtype} queries")
+                     f"{dtype} queries", loop)
             if "int8q" in variants:
                 qc, qs = quantize_rows(qf)
                 args = (qc, qs, layout.qidx, codes, scales, layout.blocks, k,
                         bits)
-                kern = probe_topk_int8q(*args)
+                kern, loop = ran_loop(lambda: probe_topk_int8q(*args))
                 torch.cuda.synchronize()
                 err = compare(kern, probe_topk_int8q_plain(*args),
                               own_quant(qc, codes, scales, bits, qs), layout,
                               nq * p, tol=INT8Q_TOL)
                 note(f"probe_topk_int8q_int{bits}", err, d, k, p, nq,
-                     "int8 queries")
+                     "int8 queries", loop)
+    return phase_ties(dev, errs)
+
+
+def phase_ties(dev, errs):
+    """The tie rule and the store's edges. A store whose buckets hold pairs
+    of equal rows, inside one tile (bucket rows 10/11, 40/41) and across
+    the edges of 64- and 128-row tiles and of 128-row work items (63/64,
+    127/128); the queries are noisy copies of those rows, so the pairs lead
+    the lists. Equal rows give equal distances, and the lower store row
+    must come first. The last bucket ends with the store, in a ragged tile
+    (130 rows), so its last tile reaches past the store's end; another is
+    shorter than a tile. Each kernel and configuration against its plain
+    version (`compare`), then pair by pair."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import group_slots
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    counts = [300, 50, 129, 1000, 130]
+    twins = (10, 40, 63, 127)         # bucket rows j, j + 1 are equal
+    nq, p, k = 600, 2, 10
+    for d, dtype, kinds in ((768, torch.bfloat16, ("full", "quant8", "quant4")),
+                            (96, torch.float16, ("full", "quant8", "quant4")),
+                            (1536, torch.bfloat16, ("full", "quant8"))):
+        offsets = [0]
+        for c in counts:
+            offsets.append(offsets[-1] + c)
+        x = torch.randn((offsets[-1], d), generator=gen, device=dev)
+        lo = [o + j for o, c in zip(offsets, counts) for j in twins
+              if j + 1 < c]
+        lo = torch.tensor(lo, device=dev)
+        x[lo + 1] = x[lo]
+        x = x / x.norm(dim=1, keepdim=True)
+        data = x.to(dtype)
+        # queries near the twins, each probing its twin's bucket first
+        pick = lo[torch.randint(0, lo.numel(), (nq,), generator=gen,
+                                device=dev)]
+        qf = x[pick] + 0.05 * torch.randn((nq, d), generator=gen, device=dev)
+        qf = qf / qf.norm(dim=1, keepdim=True)
+        q = qf.to(dtype)
+        off_t = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        cnt_t = torch.tensor(counts, dtype=torch.int32, device=dev)
+        home = torch.searchsorted(off_t[1:].long().contiguous(), pick,
+                                  right=True)
+        probes = torch.stack([home, (home + 1) % len(counts)], 1).int()
+        layout = group_slots(probes, off_t, cnt_t)
+        live = layout.slot_of_row < nq * p
+        hi_of = torch.full((offsets[-1] + 1,), -1, device=dev)
+        hi_of[lo] = lo + 1
+        for name, fn, plain, args, tail, own, tol, _ in store_kinds(
+                q, qf, data, layout, kinds):
+            n_pairs = 0
+            for opts in ({}, dict(pair=True), dict(wl_pad=256, item_rows=128),
+                         dict(wl_pad=256, item_rows=128, pair=True)):
+                kern, loop = ran_loop(lambda: fn(*args, k, *tail, **opts))
+                torch.cuda.synchronize()
+                if opts.get("wl_pad", 0) and int(kern[2]) > opts["wl_pad"]:
+                    raise AssertionError("the ties' worklist is too short")
+                err = compare(kern[:2], plain(*args, k, *tail, **opts)[:2],
+                              own, layout, nq * p, tol)
+                ids = kern[1][live].long()
+                # wherever a twin's lower row stands before the last place,
+                # its higher row follows at once; a higher row never stands
+                # first or after another row
+                follows = hi_of[torch.clamp(ids[:, :-1], min=0)]
+                is_lo = (ids[:, :-1] >= 0) & (follows >= 0)
+                if not bool((ids[:, 1:] == follows)[is_lo].all()):
+                    raise AssertionError(f"{name} {opts}: an equal row of "
+                                         f"higher index does not follow")
+                is_hi = torch.isin(ids, lo + 1)
+                ahead = torch.cat([torch.full_like(ids[:, :1], -1),
+                                   ids[:, :-1]], 1)
+                if not bool((ahead == ids - 1)[is_hi].all()):
+                    raise AssertionError(f"{name} {opts}: an equal row of "
+                                         f"higher index comes first")
+                n_pairs = max(n_pairs, int(is_lo.sum()))
+                errs[name] = max(errs.get(name, 0.0), err)
+            if n_pairs < nq:
+                raise AssertionError(f"{name}: only {n_pairs} pairs of equal "
+                                     f"rows reached the lists")
+            log(f"[kernels] {name} d={d} {dtype}: equal rows in a tile and "
+                f"across tile and item edges, a ragged tile past the store's "
+                f"end: {loop} loop, lower row first in {n_pairs} pairs (dense, "
+                f"128-row tile, worklist, both); max |err| "
+                f"{errs[name]:.3g}")
     return errs
 
 
@@ -424,8 +542,9 @@ def phase_variants(dev, errs):
     """The further configurations of the probe kernel, each against its
     plain version and, to the bit, against the one-CTA-per-block kernel."""
     import torch
-    from tpulmi_torch.ops.probe_topk import (group_slots, merge_items,
-                                             merge_items_plain)
+    from tpulmi_torch.ops.probe_topk import (common_loop, group_slots,
+                                             merge_items, merge_items_plain,
+                                             probe_loop)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rng = torch.Generator().manual_seed(SEED + 1)
@@ -472,18 +591,37 @@ def phase_variants(dev, errs):
         for name, fn, plain, args, tail, own, tol, rescale in store_kinds(
                 q, qf, data, layout, kinds):
             what = f"{name} d={d} k={k} probes={p} queries={nq}"
-            dense = fn(*args, k, *tail)
+            # Two launches are equal to the bit only when they take the same
+            # main loop (the loops sum a product in different orders). The
+            # rule may give a 128-row tile or a pool another loop than the
+            # plain launch (their shared memory differs); each group below
+            # is then held together under the staged loop, which takes
+            # every launch, and the rule's own choice is held against the
+            # plain version at the tolerance.
+            qbytes = 1 if "int8q" in name else q.element_size()
+            bits = int(name[-1]) if name[-1] in "48" else 0
+            tiles = common_loop(qbytes, bits, d, [(k, False, 64),
+                                                  (k, False, 128)])
+            pools = common_loop(qbytes, bits, d, [
+                (k, pl, nb) for pl in (False, True) for nb in (64, 128)])
+            chosen = {(pl, nb): probe_loop(qbytes, bits, d, k, pl, nb)
+                      for pl in (False, True) for nb in (64, 128)}
+            log(f"[kernels] {what}: main loop of (pool, tile rows): "
+                f"{chosen}; held together under: tiles "
+                f"{tiles or 'the rule'}, pool {pools or 'the rule'}")
+            dense = fn(*args, k, *tail, loop=tiles)
             # the 128-row tile
-            pair = fn(*args, k, *tail, pair=True)
+            pair = fn(*args, k, *tail, pair=True, loop=tiles)
             same(pair, dense, f"pair, {what}")
-            note("probe_pair", compare(pair, plain(*args, k, *tail, pair=True),
+            note("probe_pair", compare(fn(*args, k, *tail, pair=True),
+                                       plain(*args, k, *tail, pair=True),
                                        own, layout, nq * p, tol), what)
             # the worklist: item kernel, then merge kernel
             wants = {paired: worklist_total(layout, counts,
                                             mc * (2 if paired else 1))
                      for paired in (False, True)}
             for paired, want in wants.items():
-                opts = dict(item_rows=mc, pair=paired)
+                opts = dict(item_rows=mc, pair=paired, loop=tiles)
                 parts = fn(*args, k, *tail, wl_pad=want + 1000, merge=False,
                            **opts)
                 if int(parts.total) != want:
@@ -505,24 +643,26 @@ def phase_variants(dev, errs):
             wl_plain = plain(*args, k, *tail, wl_pad=want, **opts)
             if int(wl_plain[2]) != want:
                 raise AssertionError("the plain worklist counts another total")
-            note("probe_worklist", compare(tight[:2], wl_plain[:2], own,
-                                           layout, nq * p, tol),
+            note("probe_worklist", compare(
+                fn(*args, k, *tail, wl_pad=want, item_rows=mc,
+                   pair=True)[:2], wl_plain[:2], own, layout, nq * p, tol),
                  f"{what} items={want}")
             errs.setdefault("merge_items", 0.0)
             # the rerank pool, alone and with the other two
-            pooled = fn(*args, k, *tail, k_out=k_out)
-            same((pooled[0][:, :k], pooled[1][:, :k]), dense,
-                 f"pool prefix, {what}")
+            pooled = fn(*args, k, *tail, k_out=k_out, loop=pools)
+            same((pooled[0][:, :k], pooled[1][:, :k]),
+                 fn(*args, k, *tail, loop=pools), f"pool prefix, {what}")
             note("probe_pool", compare_pool(
-                pooled, plain(*args, k, *tail, k_out=k_out),
+                fn(*args, k, *tail, k_out=k_out),
+                plain(*args, k, *tail, k_out=k_out),
                 plain(*args, k, *tail, k_out=k_out, merge=False,
                       wl_pad=wants[False], item_rows=mc), rescale, own,
                 layout, nq * p, k, tol), f"{what} k_out={k_out}")
             for opts in (dict(pair=True), dict(wl_pad=wants[False] + 1000,
                                                item_rows=mc),
                          dict(wl_pad=wants[True], item_rows=mc, pair=True)):
-                same(fn(*args, k, *tail, k_out=k_out, **opts)[:2], pooled,
-                     f"pool with {opts}, {what}")
+                same(fn(*args, k, *tail, k_out=k_out, loop=pools,
+                        **opts)[:2], pooled, f"pool with {opts}, {what}")
             parts = fn(*args, k, *tail, k_out=k_out,
                        wl_pad=wants[False] + 1000, item_rows=mc, merge=False)
             same(merge_items(layout.blocks, parts, k, k_out),
@@ -542,7 +682,8 @@ def phase_main(dev):
     from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
     from tpulmi_torch.data import synthetic_dataset
     from tpulmi_torch.evaluate import recall_at_k
-    from tpulmi_torch.ops.probe_topk import (launch_counts, probe_topk,
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             loop_launch_counts, probe_topk,
                                              reset_launch_counts)
 
     t0 = time.perf_counter()
@@ -574,6 +715,10 @@ def phase_main(dev):
                 raise AssertionError(f"search at {p} probes launched no "
                                      f"probe kernel")
         searches[p] = (runs, dists, ids)
+    loops = loop_launch_counts()
+    if loops["staged"] or not loops["wgmma"]:
+        raise AssertionError(f"the main path's searches did not all take "
+                             f"the wgmma loop: {loops}")
     # a float32 search (compute_dtype=None) goes through the kernel too
     before = probe_topk.launches
     torch.cuda.synchronize()
@@ -606,7 +751,9 @@ def phase_main(dev):
     if not recalls[2] >= RECALL_GATE:
         raise AssertionError(f"recall@10 {recalls[2]} at 2 probes is under "
                              f"the {RECALL_GATE} gate")
-    log(f"[main] probe_topk launches over build + searches: {launches}")
+    log(f"[main] probe_topk launches over build + searches: {launches}; by "
+        f"main loop (the float32 search takes the staged one): "
+        f"{loop_launch_counts()}")
     return index, ds, launches, gt, recall_at_k(f32_ids - 1, gt, 10)
 
 
@@ -943,25 +1090,38 @@ def phase_timing(index, stores, ds, dev, name):
 
     def bound_of(nbytes, ops, rate):
         t_ops, t_bytes = ops / rate * 1e3, nbytes / peak_bw * 1e3
-        return dict(bound_ms=max(t_ops, t_bytes),
+        return dict(bound_ms=max(t_ops, t_bytes), ops=ops, nbytes=nbytes,
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
                     note=f"{ops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
                          f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms")
 
-    def measure(label, kernel, plain, library, own, tol, bnd, check=None):
+    def measure(label, kernel, plain, library, own, tol, bnd, check=None,
+                staged=None):
         """`check`, when given, holds kernel against plain instead of
-        `compare`; `library` None: no one call computes the function."""
+        `compare`; `library` None: no one call computes the function;
+        `staged`: the same launch under the staged main loop, timed beside
+        the kernel (staged, kernel, kernel, staged)."""
         err = (check() if check else
                compare(kernel()[:2], plain()[:2], own, layout, n_q * p,
                        tol=tol))
-        out = dict(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
+        turns = [cuda_ms(fn, 20) for fn in
+                 ((staged, kernel, kernel, staged) if staged else (kernel,))]
+        ms = sum(turns[1:3]) / 2 if staged else turns[0]
+        out = dict(ms=ms, plain_ms=cuda_ms(plain, 3),
                    library_ms=cuda_ms(library, 3) if library else None,
                    max_abs_err=err, **bnd)
         lib = (f"{out['library_ms']:.3f} ms" if library else "none")
-        log(f"[timing] {label} at probes={p}: {out['ms']:.4f} ms; plain "
+        ops, nbytes = out.pop("ops"), out.pop("nbytes")
+        log(f"[timing] {label} at probes={p}: {ms:.4f} ms = "
+            f"{ops / ms / 1e9:.1f} TFLOP/s and {nbytes / ms / 1e6:.1f} GB/s "
+            f"of the bytes that must move; plain "
             f"{out['plain_ms']:.3f} ms; library {lib}; "
             f"bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
-            f"({out.pop('note')}); max |err| {err:.3g}")
+            f"({out.pop('note')}); max |err| {err:.3g}"
+            + (f"; the staged loop {(turns[0] + turns[3]) / 2:.4f} ms, "
+               f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x "
+               f"(turns {', '.join(f'{t:.4f}' for t in turns)})"
+               if staged else ""))
         return out
 
     results = {}
@@ -975,7 +1135,8 @@ def phase_timing(index, stores, ds, dev, name):
     results["probe_topk"] = measure(
         "probe_topk (bf16)", lambda: probe_topk(*args),
         lambda: probe_topk_plain(*args), library, own_full(q, data),
-        DIST_TOL, bound(d * 2, n_q * d * 2, peak_flops))
+        DIST_TOL, bound(d * 2, n_q * d * 2, peak_flops),
+        staged=lambda: probe_topk(*args, loop="staged"))
 
     # the same probe in float32 (compute_dtype=None): CUDA-core products
     qf = qs.contiguous()
@@ -1066,7 +1227,8 @@ def phase_timing(index, stores, ds, dev, name):
             lambda: probe_topk_quant(*qargs),
             lambda: probe_topk_quant_plain(*qargs), library_quant,
             own_quant(q, codes, scales, bits), DIST_TOL,
-            bound(row_bytes, n_q * d * 2, peak_flops))
+            bound(row_bytes, n_q * d * 2, peak_flops),
+            staged=lambda: probe_topk_quant(*qargs, loop="staged"))
 
         if bits == 8:
             # the rerank pool: an exact list of k and k_out - k extras,

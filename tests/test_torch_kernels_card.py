@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from tpulmi_torch.buckets import build_bucket_store
-from tpulmi_torch.ops.probe_topk import (apply_query_scale, group_slots,
-                                         launch_counts, pool_extras,
-                                         pool_pairs, probe_topk,
+from tpulmi_torch.ops.probe_topk import (apply_query_scale, common_loop,
+                                         group_slots, launch_counts,
+                                         loop_launch_counts, pool_extras,
+                                         pool_pairs, probe_loop, probe_topk,
                                          probe_topk_int8q,
                                          probe_topk_int8q_plain,
                                          probe_topk_plain, probe_topk_quant,
@@ -132,6 +133,16 @@ def _variants(full, q, lay, store_kind):
 
 
 STORE_KINDS = ["bf16", "f32", "int8", "int4", "int8q"]
+# (bytes of a query value, code width of the store) of each kind
+LAUNCH_KIND = {"bf16": (2, 0), "f32": (4, 0), "int8": (2, 8), "int4": (2, 4),
+               "int8q": (1, 8)}
+
+
+def _held_together(kind, d, launches):
+    """The `loop` option under which launches of (k, pool, tile rows) take
+    one main loop, so that they can be equal to the bit (the two loops sum
+    a product in different orders)."""
+    return common_loop(*LAUNCH_KIND[kind], d, launches)
 
 
 @pytest.mark.parametrize("kind", STORE_KINDS)
@@ -142,8 +153,9 @@ def test_pair_tile_equals_dense(rng, card, kind):
     fn, plain, args, tail, tol = _variants(full, q, lay, kind)
     before = launch_counts()["probe_pair"]
     for k in (10, 100):
-        dense = fn(*args, k, *tail)
-        pair = fn(*args, k, *tail, pair=True)
+        loop = _held_together(kind, 256, [(k, False, 64), (k, False, 128)])
+        dense = fn(*args, k, *tail, loop=loop)
+        pair = fn(*args, k, *tail, pair=True, loop=loop)
         torch.cuda.synchronize()
         live = lay.slot_of_row < n_slots
         assert torch.equal(pair[0][live], dense[0][live])
@@ -164,9 +176,10 @@ def test_worklist_kernels_equal_dense(rng, card, kind):
     before = launch_counts()
     runs = 0
     for k in (10, 40):
-        dense = fn(*args, k, *tail)
+        loop = _held_together(kind, 256, [(k, False, 64), (k, False, 128)])
+        dense = fn(*args, k, *tail, loop=loop)
         for item_rows, pair in ((128, False), (1024, False), (256, True)):
-            opts = dict(item_rows=item_rows, pair=pair)
+            opts = dict(item_rows=item_rows, pair=pair, loop=loop)
             *_, want = plain(*args, k, *tail, wl_pad=8192, **opts)
             for pad in (8192, int(want)):
                 wd, wi, total = fn(*args, k, *tail, wl_pad=pad, **opts)
@@ -198,8 +211,10 @@ def test_pool_kernel(rng, card, kind):
     live = lay.slot_of_row < n_slots
     before = launch_counts()["probe_pool"]
     for k, k_out in ((10, 20), (10, 40), (40, 128)):
-        exact = fn(*args, k, *tail)
-        kd, ki = fn(*args, k, *tail, k_out=k_out)
+        loop = _held_together(kind, 256, [(k, pl, nb) for pl in (False, True)
+                                          for nb in (64, 128)])
+        exact = fn(*args, k, *tail, loop=loop)
+        kd, ki = fn(*args, k, *tail, k_out=k_out, loop=loop)
         pd, pi = plain(*args, k, *tail, k_out=k_out)
         torch.cuda.synchronize()
         assert kd.shape[1] == k_out
@@ -228,11 +243,110 @@ def test_pool_kernel(rng, card, kind):
                          ).any())
         for opts in (dict(pair=True), dict(wl_pad=8192, item_rows=128),
                      dict(wl_pad=8192, item_rows=256, pair=True)):
-            od, oi, *_ = fn(*args, k, *tail, k_out=k_out, **opts)
+            od, oi, *_ = fn(*args, k, *tail, k_out=k_out, loop=loop, **opts)
             torch.cuda.synchronize()
             assert torch.equal(od[live], kd[live])
             assert torch.equal(oi[live], ki[live])
     assert launch_counts()["probe_pool"] == before + 3 * 4
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d", [768, 96, 1536])
+def test_both_main_loops(rng, card, kind, d):
+    """The loop that the rule chooses (wgmma at 768 and 96, where the last
+    64-feature slice is half empty; staged at 1536, whose queries cannot
+    be resident) and the staged loop asked for by name, each against the
+    plain version; asking for the wgmma loop where it does not fit raises."""
+    full, q, lay, n_slots = _setup(rng, d, card)
+    fn, plain, args, tail, tol = _variants(full, q, lay, kind)
+    want = "staged" if d == 1536 else "wgmma"
+    assert probe_loop(*LAUNCH_KIND[kind], d, 10, False, 64) == want
+    for k, opts in ((10, {}), (10, dict(pair=True)), (24, {}), (40, {}),
+                    (10, dict(loop="staged"))):
+        before = loop_launch_counts()
+        out = fn(*args, k, *tail, **opts)
+        after = loop_launch_counts()
+        ran = opts.get("loop") or probe_loop(
+            *LAUNCH_KIND[kind], d, k, False, 128 if opts.get("pair") else 64)
+        assert after[ran] == before[ran] + 1
+        _check(out, plain(*args, k, *tail), lay, n_slots, tol)
+    if want == "staged":
+        with pytest.raises(ValueError, match="wgmma loop"):
+            fn(*args, 10, *tail, loop="wgmma")
+
+
+def test_narrow_width_full_precision(rng, card):
+    """d = 40: less than one 64-feature slice, zero-filled by the loads."""
+    full, q, lay, n_slots = _setup(rng, 40, card)
+    fn, plain, args, tail, tol = _variants(full, q, lay, "bf16")
+    before = loop_launch_counts()["wgmma"]
+    _check(fn(*args, 10, *tail), plain(*args, 10, *tail), lay, n_slots, tol)
+    assert loop_launch_counts()["wgmma"] == before + 1
+
+
+TWINS = (10, 40, 63, 127)   # bucket rows j and j + 1 hold one vector
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "f32", "int8q"])
+@pytest.mark.parametrize("d", [768, 1536])
+def test_equal_rows_and_the_stores_end(rng, card, kind, d):
+    """Equal rows inside a tile and across the edges of tiles and work
+    items come back lower store row first, in either main loop and every
+    configuration; the last bucket ends with the store in a ragged tile
+    (130 rows), so its last tile reaches past the store's end."""
+    counts = [300, 50, 129, 1000, 130]
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    x = rng.normal(size=(offsets[-1], d)).astype(np.float32)
+    lo = np.array([o + j for o, c in zip(offsets, counts) for j in TWINS
+                   if j + 1 < c])
+    x[lo + 1] = x[lo]
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    pick = rng.choice(lo, size=400)
+    qv = x[pick] + 0.05 * rng.normal(size=(400, d)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    home = np.searchsorted(offsets[1:], pick, side="right")
+    probes = np.stack([home, (home + 1) % len(counts)], 1).astype(np.int32)
+    lay = group_slots(torch.from_numpy(probes).to(card),
+                      torch.from_numpy(offsets.astype(np.int32)).to(card),
+                      torch.tensor(counts, dtype=torch.int32, device=card))
+    n_slots = probes.size
+
+    class Full:
+        data_sorted = torch.from_numpy(x).to(card)
+    if kind in ("int8", "int4", "int8q"):
+        from tpulmi_torch.ops.quantize import quantize_rows_int4
+        bits = 4 if kind == "int4" else 8
+        codes, scales = (quantize_rows_int4 if bits == 4
+                         else quantize_rows)(Full.data_sorted)
+        tail_args = (lay.qidx, codes, scales, lay.blocks)
+        qt = torch.from_numpy(qv).to(card)
+        if kind == "int8q":
+            fn, plain, tol = probe_topk_int8q, probe_topk_int8q_plain, 1e-5
+            args, tail = (*quantize_rows(qt), *tail_args), (bits,)
+        else:
+            fn, plain, tol = probe_topk_quant, probe_topk_quant_plain, 1e-4
+            args, tail = (qt.bfloat16(), *tail_args), (bits,)
+    else:
+        fn, plain, args, tail, tol = _variants(
+            Full, torch.from_numpy(qv).to(card), lay, kind)
+    live = lay.slot_of_row < n_slots
+    hi_of = torch.full((int(offsets[-1]) + 1,), -1, device=card)
+    hi_of[torch.from_numpy(lo).to(card)] = torch.from_numpy(lo + 1).to(card)
+    for opts in ({}, dict(pair=True), dict(wl_pad=256, item_rows=128),
+                 dict(wl_pad=256, item_rows=128, pair=True),
+                 dict(loop="staged")):
+        out = fn(*args, 10, *tail, **opts)
+        torch.cuda.synchronize()
+        assert "wl_pad" not in opts or int(out[2]) <= opts["wl_pad"]
+        _check(out[:2], plain(*args, 10, *tail)[:2], lay, n_slots, tol)
+        ids = out[1][live].long()
+        follows = hi_of[torch.clamp(ids[:, :-1], min=0)]
+        is_lo = (ids[:, :-1] >= 0) & (follows >= 0)
+        assert int(is_lo.sum()) >= 400
+        assert bool((ids[:, 1:] == follows)[is_lo].all())
+        is_hi = torch.isin(ids, torch.from_numpy(lo + 1).to(card))
+        ahead = torch.cat([torch.full_like(ids[:, :1], -1), ids[:, :-1]], 1)
+        assert bool((ahead == ids - 1)[is_hi].all())
 
 
 def test_kernels_refuse_what_they_do_not_take(rng, card):

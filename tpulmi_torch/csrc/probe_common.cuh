@@ -2,9 +2,10 @@
 // probe_topk_quant.cu (int8 and packed-int4 stores, int8 queries).
 //
 // One CTA owns one block of QB slots of one bucket and loops over that
-// bucket's rows in tiles of NB rows. For each tile it stages the slots'
-// query rows (gathered through the slot -> query index) and the tile's store
-// rows through shared memory in slices of KC features, computes the QB x NB
+// bucket's rows in tiles of NB rows. For each tile the staged loop stages
+// the slots' query rows (gathered through the slot -> query index) and the
+// tile's store rows through shared memory in slices of KC features
+// (probe_wgmma.cuh says how the wgmma loop feeds them), computes the QB x NB
 // product tile, turns it into distances and inserts the columns that beat a
 // row's k-th best into that row's sorted list. The variants differ in three
 // places only:
@@ -50,9 +51,21 @@
 // operation that must be done: K1's bound (each probed bucket read once,
 // 2 d slots rows operations). The worklist adds the items' partial lists,
 // written once and read once by the merge kernel (items * 64 * k * 8 bytes).
-// None comes near its bound yet, for K1's reasons (synchronous staging, WMMA
-// from shared memory, a bucket re-read per block); the pool's 64 KB also
-// leave one CTA on an SM where three ran.
+//
+// Two main loops. `probe_kernel` below is the staged loop: plain loads into
+// shared memory, a barrier, WMMA or FMA from shared memory, a barrier, the
+// whole product tile through shared memory. It serves float32 queries
+// (FmaTile), int8 queries (IMmaTile) and the shapes that the other loop's
+// plan does not fit. For bfloat16 and float16 queries probe_wgmma.cuh holds
+// the loop built for this card (queries resident in shared memory, the store
+// through a TMA ring, wgmma, the threshold test in registers), which takes
+// away the staged loop's exposed latency, its re-staging of the queries and
+// its round trip of the tile; `loop_of` below is the rule that chooses, and
+// every configuration here (tile height, worklist, pool) runs in either. In
+// both a bucket is still read once per 64-slot block, from L2. Beside 96 KB
+// of resident queries (d = 768) the pool's 64 KB leave the wgmma loop rings
+// of 3 to 5 stages with the 64-row tile and none with the 128-row tile,
+// which there keeps the staged loop.
 
 #pragma once
 
@@ -368,18 +381,20 @@ __device__ __forceinline__ void insert_candidates(unsigned mask, float v,
 
 // Rows [k, k_out) of one slot, written by its warp: the k_out - k smallest
 // keys of the slot's POOL pool keys whose row is not among the slot's exact
-// top-k (`topk`, k store rows ascending by distance, -1 past the last),
+// top-k (`topk`, k store rows `stride` words apart, ascending by distance,
+// -1 past the last),
 // ascending; (10000, -1) where fewer are left. Lane l holds classes l + 32 g.
 __device__ __forceinline__ void write_extras(const PoolKey *pool,
                                              const int *topk, int k, int k_out,
-                                             float *od, int *oi) {
+                                             float *od, int *oi,
+                                             int stride = 1) {
   constexpr int G = POOL / 32;
   const int lane = threadIdx.x & 31;
   PoolKey key[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) key[g] = pool[lane + 32 * g];
   for (int t = 0; t < k; ++t) {
-    const int id = topk[t];
+    const int id = topk[t * stride];
     if (id < 0) break;
 #pragma unroll
     for (int g = 0; g < G; ++g)
@@ -597,9 +612,43 @@ __host__ __device__ constexpr int kpl_of(int k) {
   return k <= 32 ? 1 : (k <= 64 ? 2 : 4);
 }
 
+}  // namespace probe
+
+#include "probe_wgmma.cuh"
+
+namespace probe {
+
+// Which main loop a launch takes, a function of the queries' width in bytes,
+// the store's layout, d, k, the pool and the tile height alone (the wrapper,
+// tpulmi_torch/ops/probe_topk.py::probe_loop, holds the same rule): the
+// wgmma loop for 2-byte queries whenever its shared memory, which grows with
+// d for the resident queries, fits the opt-in limit of an H100; else the
+// staged loop of probe_kernel, which also serves float32 and int8 queries.
+constexpr int LOOP_STAGED = 0, LOOP_WGMMA = 1;
+inline int loop_of(int query_bytes, int src, int d, int k, bool pool, int nb) {
+  return query_bytes == 2 && hopper::stages(d, src, k, nb, pool) > 0
+             ? LOOP_WGMMA : LOOP_STAGED;
+}
+inline size_t loop_smem_bytes(int loop, int src, int d, int k, bool pool,
+                              int nb) {
+  return loop == LOOP_WGMMA
+             ? hopper::smem_bytes(d, src, k, nb, pool,
+                                  hopper::stages(d, src, k, nb, pool))
+             : smem_bytes(kpl_of(k), nb, pool);
+}
+
 // The list holds 32 KPL entries a slot; the smallest that holds k is used.
+// `loop`: LOOP_STAGED or LOOP_WGMMA to ask for that loop (the wgmma loop is
+// refused where the rule would not choose it), anything else for the rule.
 template <typename T, int SRC, int NB>
-int launch_k(const ProbeArgs &a, int n_ctas, cudaStream_t s) {
+int launch_k(const ProbeArgs &a, int n_ctas, int loop, cudaStream_t s) {
+  const int rule = loop_of(sizeof(T), SRC, a.d, a.k, a.k_out > a.k, NB);
+  if (loop == LOOP_WGMMA && rule != LOOP_WGMMA)
+    return int(cudaErrorInvalidValue);
+  if (loop != LOOP_STAGED && loop != LOOP_WGMMA) loop = rule;
+  if constexpr (sizeof(T) == 2) {
+    if (loop == LOOP_WGMMA) return hopper::launch<T, SRC, NB>(a, n_ctas, s);
+  }
   switch (kpl_of(a.k)) {
     case 1: return launch<T, SRC, 1, NB>(a, n_ctas, s);
     case 2: return launch<T, SRC, 2, NB>(a, n_ctas, s);

@@ -15,40 +15,55 @@
 // Design. One CTA owns one block of QB slots and loops over its bucket's
 // rows in tiles of NB rows, so a small bucket costs a short loop and an empty
 // block exits at once (the TPU's dense grid paid one empty step per missing
-// chunk instead). For each tile the CTA stages the slots' query rows
-// (gathered through the slot -> query index, so the wrapper never copies
-// queries into slot order) and the tile's store rows through shared memory in
-// 256-byte row slices, and computes the QB x NB product with float32
-// accumulation: bfloat16 and float16 inputs on the tensor cores (WMMA
-// 16x16x16, 8 warps in a 4 x 2 grid), float32 inputs on the CUDA cores in
-// float32 (the TPU kernel's compute_dtype=float32; tf32 would round the
-// inputs). The product goes to shared memory only. Each warp then walks its query
-// rows: one ballot per 32 columns finds the candidates that beat the row's
-// k-th best, and only those are inserted, one at a time and in column order,
-// into the row's sorted list (KPL entries per lane, shifted across lanes with
-// a shuffle). After a few tiles almost no column beats the threshold, so the
-// top-k costs one compare per distance.
+// chunk instead). The slots' query rows are gathered through the slot ->
+// query index, so the wrapper never copies queries into slot order. The
+// product of a tile is summed in float32 and kept out of device memory; each
+// slot row's candidates that beat its k-th best, found by a vote, are
+// inserted one at a time and in column order into the row's sorted list (KPL
+// entries per lane, shifted across lanes with a shuffle). After a few tiles
+// almost no column beats the threshold, so the top-k costs one compare per
+// distance.
 //
-// The kernel itself is csrc/probe_common.cuh::probe_kernel, shared with the
-// quantized-store variants of probe_topk_quant.cu; this file instantiates it
-// for stores that hold vectors of the queries' type. It is compiled twice:
-// as it is (tiles of 64 store rows) and with -DPROBE_NB=128 (the paired tile,
-// which replaces the `pair` grid of the TPU kernel). Either library also runs
-// the worklist (`items`) and the rerank pool (`k_out > k`), see the header.
+// Two main loops compute it (csrc/probe_common.cuh::loop_of chooses):
+//
+//   - bfloat16 and float16, the main path: probe_wgmma.cuh. The block's
+//     query rows stay in shared memory for the CTA's life in the layout wgmma
+//     reads; one thread streams the store through a ring of TMA tile loads
+//     that complete on mbarriers; a warpgroup multiplies with wgmma
+//     m64nNBk16 and tests the distances against the thresholds in the
+//     accumulator registers, so a tile that improves no list touches shared
+//     memory not at all;
+//   - float32 (the TPU kernel's compute_dtype=float32; tf32 would round the
+//     inputs), and any shape whose resident queries do not fit (d above
+//     about 1,000 at k <= 32): probe_common.cuh::probe_kernel, which stages
+//     query and store slices of 256 bytes a row through shared memory with
+//     plain loads and barriers and multiplies on the CUDA cores (float32) or
+//     with WMMA.
+//
+// This file instantiates both for stores that hold vectors of the queries'
+// type. It is compiled twice: as it is (tiles of 64 store rows) and with
+// -DPROBE_NB=128 (the paired tile, which replaces the `pair` grid of the TPU
+// kernel). Either library also runs the worklist (`items`) and the rerank
+// pool (`k_out > k`), see the header.
 //
 // Limits. k <= 128 (as the TPU kernel's 128-lane scratch), d % 8 == 0 (16-byte
-// row loads). The TPU kernel's row_align % mc == 0 and d % 128 == 0 were
-// tiling needs of the TPU and are dropped: rows are addressed directly and
-// the last tile and the last feature slice are masked.
+// row loads and the tensor map's row stride). The TPU kernel's
+// row_align % mc == 0 and d % 128 == 0 were tiling needs of the TPU and are
+// dropped: rows are addressed directly, the last tile is masked, and the
+// last feature slice is masked (staged loop) or zero-filled by the TMA unit.
 //
 // What bounds it. Each probed bucket must be read once (bytes) and
 // 2 d slots rows operations done on it; at the 300K x 768 main-path shape in
 // bfloat16 the two bounds are of the same order (in float32 the operations,
-// at the CUDA cores' rate, bound it). This first version is bound by neither:
-// its staged loads are synchronous (no cp.async/TMA pipeline), WMMA issues
-// from shared memory far below wgmma's rate, and a bucket is re-read (from
-// L2) once per 64-slot block. Latency is hidden only across the 1-3 CTAs an
-// SM holds. wgmma with TMA-fed shared-memory rings is the next step.
+// at the CUDA cores' rate, bound it). The wgmma loop removes what kept the
+// first version at a few percent of that: exposed load latency (the ring
+// keeps several stages in flight), the query rows staged again for every
+// store tile (they are resident), WMMA from shared memory, and the product
+// tile written and read back for every tile. What is left is that a bucket
+// is read once per 64-slot block, about three times at 2 probes: the floor
+// is what L2 delivers for those reads, not the bound above. One CTA then
+// fills an SM, so the blocks run in waves and the longest bucket sets the
+// tail; the worklist (`items`) evens that out.
 
 #include "probe_common.cuh"
 
@@ -61,24 +76,36 @@ extern "C" {
 // Slots per block: the wrapper lays slots out in blocks of this size.
 int probe_topk_block_slots() { return probe::QB; }
 
-// Store rows per tile of this library, and the shared memory one CTA takes
-// for lists of k entries, with or without the pool.
+// Store rows per tile of this library.
 int probe_topk_tile_rows() { return PROBE_NB; }
-long long probe_topk_smem_bytes(int k, int pool) {
-  return (long long)probe::smem_bytes(probe::kpl_of(k), PROBE_NB, pool != 0);
+namespace {
+int query_bytes(int dtype) { return dtype == 2 ? 4 : 2; }
+}  // namespace
+
+// The main loop that a launch of these sizes takes (0 staged, 1 wgmma), and
+// the shared memory one CTA of a loop takes.
+int probe_topk_loop(int dtype, int d, int k, int pool) {
+  return probe::loop_of(query_bytes(dtype), probe::SRC_SAME, d, k, pool != 0,
+                        PROBE_NB);
+}
+long long probe_topk_smem_bytes(int loop, int d, int k, int pool) {
+  return (long long)probe::loop_smem_bytes(loop, probe::SRC_SAME, d, k,
+                                           pool != 0, PROBE_NB);
 }
 
 // Launch `n_ctas` CTAs on `stream`: one per block of `blocks`, or, with
 // `items` (n_ctas, 2), one per work item of `span` store rows, which writes
 // partial lists (n_ctas * QB, k) to out_d / out_i and folds its pool into
 // `pool`. `k_out` > k asks for the pool (k_out = k: none). `dtype` is the
-// type of q and data: 0 bfloat16, 1 float16, 2 float32. Returns the CUDA
-// error code of the launch (0 = ok).
+// type of q and data: 0 bfloat16, 1 float16, 2 float32. `loop`: 0 or 1 asks
+// for that main loop (1 is refused where probe_topk_loop gives 0), anything
+// else leaves it to the rule. Returns the CUDA error code of the launch
+// (0 = ok).
 int probe_topk_launch(const void *q, const void *qidx, const void *data,
                       const void *blocks, const void *items, void *out_d,
                       void *out_i, void *pool, int n_ctas, int d,
                       long long n_rows, int k, int k_out, int span, int dtype,
-                      void *stream) {
+                      int loop, void *stream) {
   using namespace probe;
   if (n_ctas <= 0) return 0;
   const ProbeArgs a{q, static_cast<const int *>(qidx), data, nullptr,
@@ -91,11 +118,11 @@ int probe_topk_launch(const void *q, const void *qidx, const void *data,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_k<__nv_bfloat16, SRC_SAME, PROBE_NB>(a, n_ctas, s);
+      return launch_k<__nv_bfloat16, SRC_SAME, PROBE_NB>(a, n_ctas, loop, s);
     case 1:
-      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, s);
+      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, loop, s);
     case 2:
-      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, s);
+      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, loop, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -18,31 +18,44 @@
 //     final lists. With a packed int4 store the nibbles are unpacked to int8
 //     while staging.
 //
-// Design. The kernel is csrc/probe_common.cuh::probe_kernel, the CTA design
-// of probe_topk.cu (one CTA per 64-slot block looping over its bucket's
-// rows, ballot-gated insert into a sorted list held across a warp's lanes,
-// ties to the lower store row); this file instantiates it for the two code
-// layouts and the four query types. What the TPU kernel needed and this one
-// does not: scales fed as (mc/128, 128) tiles (a tile's 64 scales are staged
-// into shared memory once), mc % 1024 == 0, int32 shifts for the nibbles (a
-// packed byte is split where it is staged; byte j holds dim j in the low and
-// dim j + d/2 in the high nibble, so a staged vector of 4, 8 or 16
-// neighbouring features lies in one nibble of as many neighbouring bytes).
+// Design. The CTA design of probe_topk.cu (one CTA per 64-slot block looping
+// over its bucket's rows, vote-gated insert into a sorted list held across a
+// warp's lanes, ties to the lower store row), in its two main loops
+// (csrc/probe_common.cuh::loop_of chooses); this file instantiates them for
+// the two code layouts and the four query types:
+//
+//   - bfloat16 and float16 queries: probe_wgmma.cuh. The TMA ring carries the
+//     raw code bytes (64 or 32 a row and slice of 64 features); four
+//     converter warps turn each raw stage into an operand stage of the
+//     queries' type in wgmma's swizzled layout, beside the warpgroup that
+//     multiplies, so the conversion is off both the load and the product.
+//     The tile's column scales are read once per tile by each consumer warp;
+//   - float32 queries, int8 queries (IMmaTile, WMMA with int32 sums) and
+//     shapes whose resident queries do not fit: probe_common.cuh::
+//     probe_kernel, which converts the codes while it stages them.
+//
+// What the TPU kernel needed and neither loop does: scales fed as
+// (mc/128, 128) tiles, mc % 1024 == 0, int32 shifts for the nibbles. A packed
+// byte j holds dim j in the low and dim j + d/2 in the high nibble; the
+// staged loop splits it where it is staged (a vector of 4, 8 or 16
+// neighbouring features lies in one nibble of as many neighbouring bytes),
+// the wgmma loop takes both nibbles of 32 bytes as one slice and gathers the
+// resident queries in the same order.
 //
 // Limits. k <= 128; int8 codes need d % 16 == 0 (16-byte row loads of the
-// int8 queries), packed int4 d % 32 == 0 (so that d/2 keeps that alignment).
+// int8 queries, the tensor map's row stride), packed int4 d % 32 == 0 (so
+// that d/2 keeps that alignment).
 //
 // What bounds it. Each probed bucket's codes are read once (half or a
 // quarter of a bfloat16 store's bytes) and 2 d slots rows operations done on
 // them; at the 300K x 768 shape with bfloat16 queries the operations at the
 // bf16 tensor-core rate are the larger bound, with int8 queries the two are
-// of one order. This first version is bound by neither: like probe_topk.cu
-// its staged loads are synchronous, WMMA reads its operands from shared
-// memory, and a bucket is re-read (from L2) once per 64-slot block; the
-// conversion of the codes adds instructions to the staging loop. The int8
-// cells of a staged slice are padded to 32 bytes, so an int8 slice holds 128
-// features like a bfloat16 one. wgmma (s8 for int8 queries) fed by TMA is
-// the next step.
+// of one order. With bfloat16 or float16 queries the wgmma loop makes the
+// fewer bytes count: the ring moves a half or a quarter of the bytes per
+// tile, and what is left is the re-read of a bucket per 64-slot block (from
+// L2) and the converters' instruction rate. The int8 x int8 kernel keeps the
+// staged loop: its loads are synchronous and WMMA reads its operands from
+// shared memory; wgmma s8 is its next step.
 //
 // Like probe_topk.cu this file is compiled twice, for tiles of 64 store rows
 // and, with -DPROBE_NB=128, for the paired tile; both run the worklist and
@@ -59,14 +72,17 @@ namespace {
 using namespace probe;
 
 template <typename T>
-int launch_src(ProbeArgs a, int n_ctas, int bits, cudaStream_t s) {
+int launch_src(ProbeArgs a, int n_ctas, int bits, int loop, cudaStream_t s) {
   if (bits == 8) {
     a.levels = 127.0f;
-    return launch_k<T, SRC_INT8, PROBE_NB>(a, n_ctas, s);
+    return launch_k<T, SRC_INT8, PROBE_NB>(a, n_ctas, loop, s);
   }
   a.levels = 7.0f;
-  return launch_k<T, SRC_INT4, PROBE_NB>(a, n_ctas, s);
+  return launch_k<T, SRC_INT4, PROBE_NB>(a, n_ctas, loop, s);
 }
+
+int query_bytes(int qdtype) { return qdtype == 2 ? 4 : (qdtype == 3 ? 1 : 2); }
+int src_of(int bits) { return bits == 4 ? SRC_INT4 : SRC_INT8; }
 
 }  // namespace
 
@@ -76,21 +92,31 @@ extern "C" {
 int probe_topk_quant_block_slots() { return probe::QB; }
 
 int probe_topk_quant_tile_rows() { return PROBE_NB; }
-long long probe_topk_quant_smem_bytes(int k, int pool) {
-  return (long long)probe::smem_bytes(probe::kpl_of(k), PROBE_NB, pool != 0);
+// The main loop that a launch of these sizes takes (0 staged, 1 wgmma), and
+// the shared memory one CTA of a loop takes.
+int probe_topk_quant_loop(int qdtype, int bits, int d, int k, int pool) {
+  return probe::loop_of(query_bytes(qdtype), src_of(bits), d, k, pool != 0,
+                        PROBE_NB);
+}
+long long probe_topk_quant_smem_bytes(int loop, int bits, int d, int k,
+                                      int pool) {
+  return (long long)probe::loop_smem_bytes(loop, src_of(bits), d, k,
+                                           pool != 0, PROBE_NB);
 }
 
 // Launch on `stream`; `n_ctas`, `items`, `pool`, `k_out` and `span` as in
 // probe_topk_launch. `qdtype` is the type of q: 0 bfloat16, 1 float16,
 // 2 float32, 3 int8 codes (int8 x int8). `bits` is the store's code width:
 // 8 (codes is (n_rows, d) int8) or 4 (codes is (n_rows, d/2) packed bytes).
-// `d` is the logical width. Returns the CUDA error code (0 = ok).
+// `d` is the logical width; `loop` as in probe_topk_launch. Returns the CUDA
+// error code (0 = ok).
 int probe_topk_quant_launch(const void *q, const void *qidx,
                             const void *codes, const void *scales,
                             const void *blocks, const void *items,
                             void *out_d, void *out_i, void *pool, int n_ctas,
                             int d, long long n_rows, int k, int k_out,
-                            int span, int qdtype, int bits, void *stream) {
+                            int span, int qdtype, int bits, int loop,
+                            void *stream) {
   if (n_ctas <= 0) return 0;
   const ProbeArgs a{q, static_cast<const int *>(qidx), codes,
                     static_cast<const float *>(scales),
@@ -104,10 +130,10 @@ int probe_topk_quant_launch(const void *q, const void *qidx,
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (qdtype) {
-    case 0: return launch_src<__nv_bfloat16>(a, n_ctas, bits, s);
-    case 1: return launch_src<__half>(a, n_ctas, bits, s);
-    case 2: return launch_src<float>(a, n_ctas, bits, s);
-    case 3: return launch_src<signed char>(a, n_ctas, bits, s);
+    case 0: return launch_src<__nv_bfloat16>(a, n_ctas, bits, loop, s);
+    case 1: return launch_src<__half>(a, n_ctas, bits, loop, s);
+    case 2: return launch_src<float>(a, n_ctas, bits, loop, s);
+    case 3: return launch_src<signed char>(a, n_ctas, bits, loop, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

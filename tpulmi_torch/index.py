@@ -370,14 +370,17 @@ class LearnedIndex:
         # rerank pool: the kernel keeps an exact top-k, the pool supplies
         # the rerank extras
         pool_k = k if (scfg.pallas_pool and rerank and k_eff > k) else 0
-        pair = probe.resolve_tiling(scfg.pallas_pair, k=pool_k or k_eff,
-                                    pool=bool(pool_k), device=self.device)
+        int8_queries = scfg.int8_queries and quantized
+        pair = scfg.pallas_pair and probe.resolve_tiling(
+            True, k=pool_k or k_eff, pool=bool(pool_k), device=self.device,
+            query_bytes=1 if int8_queries else compute_dtype.itemsize,
+            code_bits=store.quant_bits if quantized else 0, d=store.dim)
         q = int(queries_nav.shape[0])
         plan = SimpleNamespace(
             q=q, backend=backend, compute_dtype=compute_dtype, k=k,
             rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair, wl_pad=0,
             item_rows=scfg.pallas_mc,
-            int8_queries=scfg.int8_queries and quantized)
+            int8_queries=int8_queries)
         # the worklist: sized from this batch's routing at a shape's first
         # use (one more routing pass and a host read), then cached
         if scfg.pallas_worklist:

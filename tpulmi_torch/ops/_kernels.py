@@ -38,22 +38,28 @@ LIBRARIES = {
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _probe_signatures(source: str, launch_args) -> dict:
+def _probe_signatures(source: str, launch_args, n_codes: int) -> dict:
+    """`n_codes`: the type codes of the entry points (query type; code
+    width of a quantized store)."""
     return {f"{source}_launch": (launch_args, _I),
             f"{source}_block_slots": ([], _I),
             f"{source}_tile_rows": ([], _I),
-            f"{source}_smem_bytes": ([_I, _I], _LL)}
+            # type codes, d, k, pool -> main loop
+            f"{source}_loop": ([_I] * (n_codes + 3), _I),
+            # loop, type codes after the query's, d, k, pool -> bytes
+            f"{source}_smem_bytes": ([_I] * (n_codes + 3), _LL)}
 
 
 SIGNATURES = {
     # q, qidx, data, blocks, items, out_d, out_i, pool, n_ctas, d, n_rows,
-    # k, k_out, span, dtype, stream
+    # k, k_out, span, dtype, loop, stream
     "probe_topk": _probe_signatures(
-        "probe_topk", [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _P]),
+        "probe_topk", [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _I, _P], 1),
     # q, qidx, codes, scales, blocks, items, out_d, out_i, pool, n_ctas, d,
-    # n_rows, k, k_out, span, qdtype, bits, stream
+    # n_rows, k, k_out, span, qdtype, bits, loop, stream
     "probe_topk_quant": _probe_signatures(
-        "probe_topk_quant", [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _I, _I, _P]),
+        "probe_topk_quant",
+        [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _I, _I, _I, _P], 2),
     # blocks, block_items, part_d, part_i, pool, out_d, out_i, n_blocks,
     # n_items, k, k_out, stream
     "merge_items": {

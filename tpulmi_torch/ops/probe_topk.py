@@ -45,9 +45,18 @@ configurations of the TPU kernel:
   ``wl_pad`` the trailing items were dropped, the result is invalid and the
   caller runs again with a larger pad. With ``pair`` an item spans
   ``2 * item_rows`` rows.
+
+The kernel has two main loops that compute one function
+(csrc/probe_wgmma.cuh, csrc/probe_common.cuh). `probe_loop` is the rule
+that chooses, from the sizes of a launch alone: the wgmma loop for bfloat16
+and float16 queries whenever its shared memory (`smem_bytes`, with the
+block's queries resident) fits, else the staged loop. ``loop="staged"`` or
+``"wgmma"`` asks for one by name, for checks that hold the two against each
+other; the wgmma loop raises where the rule would not choose it.
 """
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -130,14 +139,81 @@ def list_lanes(k: int) -> int:
     return 1 if k <= 32 else (2 if k <= 64 else 4)
 
 
-def smem_bytes(k: int, tile_rows: int, pool: bool) -> int:
-    """Shared memory of one probe CTA (probe_common.cuh::smem_bytes): the
-    staged query and store slices, the product tile, the lists, thresholds
-    and query rows, the column scales, and the pool's keys."""
-    return ((BLOCK_SLOTS + tile_rows) * 272 + BLOCK_SLOTS * (tile_rows + 4) * 4
-            + BLOCK_SLOTS * 32 * list_lanes(k) * 8 + BLOCK_SLOTS * 8
-            + tile_rows * 4
-            + (BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0))
+LOOPS = ("staged", "wgmma")   # the kernel's main loops, by their C code
+# query types by the code the C entry points take -> bytes of one value
+_QUERY_BYTES = {0: 2, 1: 2, 2: 4, 3: 1}
+
+
+# the wgmma loop's rings (probe_wgmma.cuh): most stages over a store of the
+# queries' type and over codes, fewest of either
+WGMMA_STAGES = (12, 8, 2)
+_RAW_ROW_BYTES = {0: 0, 8: 64, 4: 32}   # code bytes of one row and slice
+
+
+def smem_bytes(k: int, tile_rows: int, pool: bool, loop: str = "staged",
+               d: int = 0, code_bits: int = 0, stages: int = 0) -> int:
+    """Shared memory of one probe CTA. The staged loop
+    (probe_common.cuh::smem_bytes): the staged query and store slices, the
+    product tile, the lists, thresholds and query rows, the column scales,
+    and the pool's keys. The wgmma loop (probe_wgmma.cuh::smem_bytes), for
+    queries of width `d` over a store of the queries' type (`code_bits` 0)
+    or of 8- or 4-bit codes, with rings of `stages` (`wgmma_stages`'s when
+    0): 1 KB of alignment, the resident queries (8 KB per 64 features), the
+    operand ring and a quantized store's raw ring, the barriers, the pool's
+    keys, the distance tile, the lists (k keys a slot), thresholds and query
+    rows, and the consumer warps' column scales."""
+    keys = BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0
+    tile = BLOCK_SLOTS * (tile_rows + 4) * 4
+    if loop == "staged":
+        return ((BLOCK_SLOTS + tile_rows) * 272 + tile
+                + BLOCK_SLOTS * 32 * list_lanes(k) * 8 + BLOCK_SLOTS * 8
+                + tile_rows * 4 + keys)
+    if loop != "wgmma":
+        raise ValueError(f"unknown main loop {loop!r}")
+    stages = stages or wgmma_stages(d, code_bits, k, pool, tile_rows)
+    return (1024 + -(-d // 64) * BLOCK_SLOTS * 128
+            + stages * tile_rows * (128 + _RAW_ROW_BYTES[code_bits]) + 512
+            + keys + tile + BLOCK_SLOTS * k * 8 + BLOCK_SLOTS * 8
+            + 4 * tile_rows * 4)
+
+
+@lru_cache(maxsize=None)
+def wgmma_stages(d: int, code_bits: int, k: int, pool: bool,
+                 tile_rows: int) -> int:
+    """Stages of the wgmma loop's rings (probe_wgmma.cuh::stages): as many
+    as fit the opt-in limit of an H100 beside the rest, up to the most
+    (over codes 8, 4, 3 or 2, so that each of the four converter warps
+    keeps its stages); 0 when not even the fewest fit."""
+    most, most_codes, fewest = WGMMA_STAGES
+    for n in range(most_codes if code_bits else most, fewest - 1, -1):
+        if code_bits and n > 4 and n % 4:
+            continue    # over codes 8, 4, 3 or 2: the four converter warps
+        if smem_bytes(k, tile_rows, pool, "wgmma", d, code_bits,
+                      n) <= SMEM_OPTIN_H100:
+            return n
+    return 0
+
+
+def probe_loop(query_bytes: int, code_bits: int, d: int, k: int, pool: bool,
+               tile_rows: int) -> str:
+    """The main loop a launch takes (probe_common.cuh::loop_of): the wgmma
+    loop for 2-byte queries (bfloat16, float16) whenever its shared memory,
+    which grows with d, fits the opt-in limit of an H100 with rings of at
+    least 2 stages; else the staged loop, which also serves float32 and
+    int8 queries. A function of these sizes alone: no launch is tried and
+    caught."""
+    fits = wgmma_stages(d, code_bits, k, pool, tile_rows) > 0
+    return "wgmma" if query_bytes == 2 and fits else "staged"
+
+
+def common_loop(query_bytes: int, code_bits: int, d: int, launches):
+    """The `loop` option under which every launch of `launches` ((k, pool,
+    tile rows) each) takes one and the same main loop: None when the rule
+    already gives them the same, else "staged", which takes every launch.
+    Checks that hold two configurations against each other to the bit
+    compare like with like under it."""
+    loops = {probe_loop(query_bytes, code_bits, d, *one) for one in launches}
+    return None if len(loops) == 1 else "staged"
 
 
 def smem_budget(device) -> int:
@@ -154,17 +230,22 @@ def smem_budget(device) -> int:
 _declined = set()
 
 
-def resolve_tiling(pair: bool, *, k: int, pool: bool, device) -> bool:
+def resolve_tiling(pair: bool, *, k: int, pool: bool, device,
+                   query_bytes: int = 4, code_bits: int = 0,
+                   d: int = 0) -> bool:
     """Whether the 128-row tile can be launched for lists of `k` entries,
-    with or without the pool: its shared memory against the card's opt-in
-    limit. A request that does not fit is declined with one logged line
-    per (k, pool), and the 64-row tile serves it, instead of a refused
-    launch. The TPU kernel's other answer to a tight budget, halving the
-    query block (``pallas_qc``), has no counterpart: the block is fixed at
-    64 slots."""
+    with or without the pool: the shared memory of the main loop that the
+    launch would take (`probe_loop`; without the sizes, the staged loop)
+    against the card's opt-in limit. A request that does not fit is
+    declined with one logged line per (k, pool), and the 64-row tile serves
+    it, instead of a refused launch. The TPU kernel's other answer to a
+    tight budget, halving the query block (``pallas_qc``), has no
+    counterpart: the block is fixed at 64 slots."""
     if not pair:
         return False
-    need, have = smem_bytes(k, 128, pool), smem_budget(device)
+    loop = probe_loop(query_bytes, code_bits, d, k, pool, 128)
+    need = smem_bytes(k, 128, pool, loop, d, code_bits)
+    have = smem_budget(device)
     if need <= have:
         return True
     if (k, pool, have) not in _declined:
@@ -183,9 +264,14 @@ def worklist_scratch_bytes(wl_pad: int, k: int, n_blocks: int,
             + (n_blocks * BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0))
 
 
-def _variant(k, k_out=0, pair=False, wl_pad=0, item_rows=1024):
-    """Check the variant options; returns (k_out, pool, rows of an item)."""
+def _variant(k, k_out=0, pair=False, wl_pad=0, item_rows=1024, loop=None):
+    """Check the variant options; returns (k_out, pool, rows of an item).
+    `loop` asks the kernel for one of `LOOPS` instead of `probe_loop`'s
+    choice (the checks on the card hold one loop against the other); a
+    plain version has no loops and ignores it."""
     ko = k_out or k
+    if loop is not None and loop not in LOOPS:
+        raise ValueError(f"loop={loop!r} must be None or one of {LOOPS}")
     if not k <= ko <= POOL_CLASSES:
         raise ValueError(f"k_out={ko} must lie in [k={k}, {POOL_CLASSES}]")
     if wl_pad < 0:
@@ -503,6 +589,8 @@ def probe_topk_plain(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
 # worklist's item kernel and its merge kernel, the 128-row tile, the pool
 _launches = {"probe_worklist": 0, "merge_items": 0, "probe_pair": 0,
              "probe_pool": 0}
+# launches of the probe kernel by the main loop they took
+_loop_launches = {name: 0 for name in LOOPS}
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -511,15 +599,18 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
-            k_out=0, pair=False, wl_pad=0, item_rows=1024, merge=True):
+            k_out=0, pair=False, wl_pad=0, item_rows=1024, merge=True,
+            loop=None):
     """Run the launch entry point of csrc/`source`.cu (its 128-row library
     with `pair`) on the current stream: the inputs' pointers (the last one
     is `blocks`), the worklist, outputs and pool allocated here, the sizes,
-    then `codes` (the entry point's type codes). With a worklist the items'
-    partial lists go on through `merge_items` (``merge=False`` returns them
-    as they are, as `WorklistParts`). Raises on what the kernel cannot
-    take; there is no fallback."""
-    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows)
+    then `codes` (the entry point's type codes: the queries' type and, for
+    a quantized store, its code width) and the main loop (`probe_loop`'s
+    choice unless `loop` names one). With a worklist the items' partial
+    lists go on through `merge_items` (``merge=False`` returns them as they
+    are, as `WorklistParts`). Raises on what the kernel cannot take; there
+    is no fallback."""
+    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows, loop)
     dev = inputs[0].device
     if dev.type != "cuda":
         raise ValueError(f"probe kernel runs on CUDA tensors, not {dev}")
@@ -529,12 +620,23 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
 
     lib = _kernels.load(source + ("_pair" if pair else ""))
     tile_rows = 128 if pair else 64
+    code_bits = codes[1] if len(codes) > 1 else 0
+    rule = probe_loop(_QUERY_BYTES[codes[0]], code_bits, d, k, pool,
+                      tile_rows)
+    if loop == "wgmma" and rule != "wgmma":
+        raise ValueError(f"the wgmma loop does not take this launch "
+                         f"(d={d}, k={k}, pool={pool}, tile of {tile_rows})")
+    loop = loop or rule
     if (getattr(lib, f"{source}_block_slots")() != BLOCK_SLOTS
             or getattr(lib, f"{source}_tile_rows")() != tile_rows
-            or getattr(lib, f"{source}_smem_bytes")(k, int(pool))
-            != smem_bytes(k, tile_rows, pool)):
+            or LOOPS[getattr(lib, f"{source}_loop")(*codes, d, k, int(pool))]
+            != rule
+            or getattr(lib, f"{source}_smem_bytes")(
+                LOOPS.index(loop), *codes[1:], d, k, int(pool))
+            != smem_bytes(k, tile_rows, pool, loop, d, code_bits)):
         raise RuntimeError("csrc/probe_common.cuh and ops/probe_topk.py "
-                           "differ on block, tile or shared-memory sizes")
+                           "differ on block, tile or shared-memory sizes "
+                           "or on the main loop")
     blocks = inputs[-1]
     n_blocks = int(blocks.shape[0])
     parts = None
@@ -561,7 +663,9 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             out_i.data_ptr(),
             parts.keys.data_ptr() if parts and pool else None,
             wl_pad or n_blocks, d, n_rows, k, ko, span if parts else 0,
-            *codes, torch.cuda.current_stream(dev).cuda_stream), source)
+            *codes, LOOPS.index(loop),
+            torch.cuda.current_stream(dev).cuda_stream), source)
+    _loop_launches[loop] += 1
     _launches["probe_worklist"] += int(parts is not None)
     _launches["probe_pair"] += int(pair)
     _launches["probe_pool"] += int(pool)
@@ -752,8 +856,15 @@ def launch_counts() -> dict:
     }
 
 
+def loop_launch_counts() -> dict:
+    """Launches of the probe kernel so far by the main loop they took."""
+    return dict(_loop_launches)
+
+
 def reset_launch_counts() -> None:
     probe_topk.launches = 0
+    for name in _loop_launches:
+        _loop_launches[name] = 0
     for fn in (probe_topk_quant, probe_topk_int8q):
         fn.launches = 0
         fn.launches_by_bits = {8: 0, 4: 0}

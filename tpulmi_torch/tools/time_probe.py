@@ -1,0 +1,114 @@
+"""Time the probe kernel's two main loops on one NVIDIA card.
+
+    python3 -m tpulmi_torch.tools.time_probe [--off BITS] [--clocks]
+                                             [--rounds N]
+
+A synthetic store of the main path's shape (about 300K unit rows of 768
+features in 122 buckets of 960 to 3,960 rows, 10k queries at 2 probes drawn
+in proportion to bucket size, k = 10) is probed by every configuration
+that has the wgmma loop: full precision, int8 and int4 codes, each with the
+64- and the 128-row tile and through the worklist, beside the staged loop
+on the same inputs. Prints one line per configuration and round with the
+mean time of 20 launches, after the card's name and power limit. The store
+is not a built index: compare these times with each other, and take the
+main path's from chip_smoke.py.
+
+``--off BITS`` builds the wgmma loop with parts left out
+(csrc/probe_wgmma.cuh, PROBE_PARTS_OFF: 1 the list inserts, 2 the whole
+epilogue, 4 the wgmmas, 8 the column scales of a quantized store), into
+libraries of their own, to see what the rest costs; the staged loop and the
+worklist's merge are then not run, and no result is checked. ``--clocks``
+builds it with PROBE_CLOCKS=1: one warp of every 97th CTA prints where its
+cycles went, and each configuration is launched twice only (the times
+printed then mean little).
+"""
+
+import argparse
+import subprocess
+import sys
+
+import torch
+
+from tpulmi_torch.ops import _kernels
+from tpulmi_torch.ops import probe_topk as probe
+from tpulmi_torch.ops.quantize import quantize_rows, quantize_rows_int4
+
+N_CAT, N_QUERIES, D, K, SEED = 122, 10_000, 768, 10, 1
+
+
+def cuda_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--off", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--clocks", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_probe: no CUDA device", file=sys.stderr)
+        return 1
+    if args.off:
+        _kernels.NVCC_FLAGS += (f"-DPROBE_PARTS_OFF={args.off}",)
+    if args.clocks:
+        _kernels.NVCC_FLAGS += ("-DPROBE_CLOCKS=1",)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = torch.Generator().manual_seed(SEED)
+    sizes = (torch.rand(N_CAT, generator=rng) * 3000).long() + 960
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long),
+                         torch.cumsum(sizes, 0)])
+    x = torch.randn((int(offsets[-1]), D), generator=gen, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    q = torch.randn((N_QUERIES, D), generator=gen, device=dev)
+    q = (q / q.norm(dim=1, keepdim=True)).bfloat16()
+    probes = torch.multinomial(sizes.float().expand(N_QUERIES, -1), 2,
+                               generator=rng).int().to(dev)
+    lay = probe.group_slots(probes, offsets.int().to(dev),
+                            sizes.int().to(dev))
+    slots = lay.slot_counts.double().cpu()
+    flops = float(2 * D * (slots * sizes.double()).sum())
+    items = int((-(-slots.long() // probe.BLOCK_SLOTS)
+                 * -(-sizes // 1024)).sum())
+    wl = dict(wl_pad=-(-int(items * 1.15) // 1024) * 1024, item_rows=1024,
+              merge=not args.off)
+    print(f"{int(offsets[-1])} rows, longest bucket {int(sizes.max())}; "
+          f"{int((lay.blocks[:, 2] > 0).sum())} live blocks, {items} work "
+          f"items; {flops / 1e9:.2f} GFLOP; parts off: {args.off}",
+          flush=True)
+
+    data = x.bfloat16()
+    launches = [("full precision", probe.probe_topk,
+                 (q, lay.qidx, data, lay.blocks, K))]
+    for bits, quant in ((8, quantize_rows), (4, quantize_rows_int4)):
+        codes, scales = quant(x)
+        launches.append((f"int{bits} codes", probe.probe_topk_quant,
+                         (q, lay.qidx, codes, scales, lay.blocks, K, bits)))
+    for rnd in range(args.rounds):
+        for name, fn, a in launches:
+            configs = [("wgmma", {}), ("wgmma, 128-row tile", dict(pair=True)),
+                       ("wgmma, worklist", wl)]
+            if not args.off and not args.clocks:
+                configs.insert(1, ("staged", dict(loop="staged")))
+            for label, opts in configs:
+                ms = cuda_ms(lambda: fn(*a, **opts), 1 if args.clocks else 20)
+                print(f"round {rnd}: {name}, {label}: {ms:.4f} ms = "
+                      f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,17 +17,20 @@ result line.
              64-feature slice, and one too wide for the wgmma loop; skewed
              bucket sizes, buckets smaller than k, dumped slots), with the
              main loop that each case took (the main path's shape must take
-             the wgmma loop); equal rows inside a tile and across tile and
-             work-item edges, which must come back lower row first, on a
-             store whose last, ragged tile reaches past its end; then
-             every further
+             the wgmma loop, with bfloat16 and with int8 queries); equal
+             rows inside a tile and across tile and work-item edges, which
+             must come back lower row first, on a store whose last, ragged
+             tile reaches past its end (int8 queries there also equal to
+             the staged loop to the bit); then every further
              configuration of the kernel (the 128-row tile, the worklist's
              item and merge kernels, the rerank pool, and their
              combinations) against its plain version and, to the bit,
              against the one-CTA-per-block kernel, on a store with one
              bucket of more than 20 times the mean, an empty probed bucket,
              dumped slots, a tight and an undersized worklist (two
-             launches are held together to the bit under one main loop);
+             launches are held together to the bit under one main loop;
+             under int8 queries every configuration, with and without the
+             pool, equals the staged loop to the bit);
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
              synthetic corpus with 122 buckets, then LearnedIndex.search of
              10k queries at 1, 2, 3, 4 and 7 probes, recall@10 against an
@@ -49,8 +52,10 @@ result line.
 6. timing  - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
-             rates it reached; K1 and K2 also under the staged main loop,
-             in turns; then the
+             rates it reached; K1, K2 and K3 also under the staged main
+             loop, in turns, and the pool beside the list of k_out it
+             replaces, in turns; the merge kernel beside one stable sort
+             of each slot's item lists; then the
              one-CTA-per-block kernel against the worklist and the 128-row
              tile on a skewed store.
 
@@ -140,9 +145,12 @@ def phase_build():
                 for m in re.findall(r"Used (\d+) registers", line)]
         log(f"[build] {name}: {len(regs)} kernels, at most "
             f"{max(regs, default=0)} registers")
+        fn = "?"
         for line in lines:
+            props = re.search(r"Function properties for (\S+)", line)
+            fn = props.group(1) if props else fn
             if re.search(r"[1-9]\d* bytes spill", line):
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {name}: {fn}: {line.strip()}")
     return time.perf_counter() - t0
 
 
@@ -289,11 +297,13 @@ def phase_kernels(dev):
         errs[name] = max(errs.get(name, 0.0), err)
         log(f"[kernels] {name} {what} d={d} k={k} probes={p} queries={nq}: "
             f"{loop} loop, max |err| {err:.3g}")
-        # the main path's shape must take the loop built for this card, and
-        # a width whose queries cannot be resident the staged one
-        want = {768: "wgmma", 1536: "staged"}.get(d)
-        if (k == 10 and "int8q" not in name and "float32" not in what
-                and want and loop != want):
+        # the main path's shape must take the loop built for this card, for
+        # 2-byte and int8 queries alike, and a width whose bfloat16 queries
+        # cannot be resident the staged one (int8 queries, half as wide,
+        # still fit there)
+        want = {768: "wgmma",
+                1536: None if "int8q" in name else "staged"}.get(d)
+        if (k == 10 and "float32" not in what and want and loop != want):
             raise AssertionError(f"{name} {what} d={d} k={k} ran the {loop} "
                                  f"loop, not the {want} loop")
 
@@ -362,9 +372,12 @@ def phase_ties(dev, errs):
     counts = [300, 50, 129, 1000, 130]
     twins = (10, 40, 63, 127)         # bucket rows j, j + 1 are equal
     nq, p, k = 600, 2, 10
-    for d, dtype, kinds in ((768, torch.bfloat16, ("full", "quant8", "quant4")),
-                            (96, torch.float16, ("full", "quant8", "quant4")),
-                            (1536, torch.bfloat16, ("full", "quant8"))):
+    for d, dtype, kinds in ((768, torch.bfloat16, ("full", "quant8", "quant4",
+                                                   "int8q8", "int8q4")),
+                            (96, torch.float16, ("full", "quant8", "quant4",
+                                                 "int8q8", "int8q4")),
+                            (1536, torch.bfloat16, ("full", "quant8",
+                                                    "int8q8"))):
         offsets = [0]
         for c in counts:
             offsets.append(offsets[-1] + c)
@@ -401,6 +414,14 @@ def phase_ties(dev, errs):
                     raise AssertionError("the ties' worklist is too short")
                 err = compare(kern[:2], plain(*args, k, *tail, **opts)[:2],
                               own, layout, nq * p, tol)
+                if name.startswith("probe_topk_int8q") and loop == "wgmma":
+                    # exact integer sums: the staged loop's result to the bit
+                    staged = fn(*args, k, *tail, loop="staged", **opts)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(staged[0][live], kern[0][live]) and
+                            torch.equal(staged[1][live], kern[1][live])):
+                        raise AssertionError(f"{name} d={d} {opts}: the wgmma "
+                                             f"loop differs from the staged")
                 ids = kern[1][live].long()
                 # wherever a twin's lower row stands before the last place,
                 # its higher row follows at once; a higher row never stands
@@ -668,6 +689,35 @@ def phase_variants(dev, errs):
             same(merge_items(layout.blocks, parts, k, k_out),
                  merge_items_plain(layout.blocks, parts, k, k_out),
                  f"merge kernel with pool against its plain version, {what}")
+            if name.startswith("probe_topk_int8q"):
+                # K3 and K5 under int8 queries: the sums are exact integers,
+                # so each configuration in the loop that the rule gives it
+                # equals the staged loop (which keeps no gate) to the bit,
+                # and the pool's also the one-CTA-per-block kernel's
+                loops = []
+                pooled_dense = fn(*args, k, *tail, k_out=k_out)
+                for extra in ({}, dict(k_out=k_out)):
+                    for opts in ({}, dict(pair=True),
+                                 dict(wl_pad=wants[False] + 1000,
+                                      item_rows=mc),
+                                 dict(wl_pad=wants[True], item_rows=mc,
+                                      pair=True)):
+                        got, loop = ran_loop(
+                            lambda: fn(*args, k, *tail, **extra, **opts))
+                        loops.append(loop)
+                        same(got[:2], fn(*args, k, *tail, loop="staged",
+                                         **extra, **opts)[:2],
+                             f"{extra} {opts} in the {loop} loop against "
+                             f"the staged loop, {what}")
+                        if extra:
+                            same(got[:2], pooled_dense, f"pool with {opts} "
+                                 f"against one CTA per block, {what}")
+                log(f"[kernels] {what} k_out={k_out}: dense, 128-row tile, "
+                    f"worklist and both, without and with the pool, in the "
+                    f"loops {loops}: each equal to the staged loop to the "
+                    f"bit, and with the pool to the one-CTA-per-block "
+                    f"kernel (its extras against the definition: "
+                    f"probe_pool above)")
     log("[kernels] the 128-row tile, the worklist (also tight and with the "
         "128-row tile) and the pool's combinations equal the "
         "one-CTA-per-block kernel to the bit; the merge kernel equals its "
@@ -1189,10 +1239,40 @@ def phase_timing(index, stores, ds, dev, name):
             raise AssertionError("merge kernel and plain version differ")
         return 0.0
 
+    # one library call for the merge: a stable sort of each slot row's item
+    # lists laid end to end in chunk order (padded to the block with the
+    # most items), then its first k; the layout is made before the timing
+    first, n_of = parts.block_items[:, 0].long(), parts.block_items[:, 1].long()
+    width = int(n_of.max()) * k
+    slot = torch.arange(n_blocks * BLOCK_SLOTS, device=dev)
+    place = torch.arange(width, device=dev)
+    item = first.repeat_interleave(BLOCK_SLOTS)[:, None] + place // k
+    src = (item * BLOCK_SLOTS + (slot % BLOCK_SLOTS)[:, None]) * k + place % k
+    inside = (place // k)[None, :] < n_of.repeat_interleave(BLOCK_SLOTS)[:, None]
+    src = torch.where(inside, src, torch.zeros_like(src))
+    cat_d = torch.where(inside, parts.part_d.reshape(-1)[src],
+                        torch.full_like(src, 10000, dtype=torch.float32))
+    cat_i = torch.where(inside, parts.part_i.reshape(-1)[src],
+                        torch.full_like(src, -1, dtype=torch.int32))
+
+    def library_merge():
+        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :k]
+        return torch.gather(cat_d, 1, order), torch.gather(cat_i, 1, order)
+
+    live_rows = slot < 0   # the rows of live slots of blocks with items
+    live_rows |= (n_of.repeat_interleave(BLOCK_SLOTS) > 0) & (
+        slot % BLOCK_SLOTS < layout.blocks[:, 2].long().clamp(0, BLOCK_SLOTS)
+        .repeat_interleave(BLOCK_SLOTS))
+    lib_d, lib_i = library_merge()
+    ker_d, ker_i = merge_items(layout.blocks, parts, k)
+    if not (torch.equal(lib_d[live_rows], ker_d[live_rows])
+            and torch.equal(lib_i[live_rows], ker_i[live_rows])):
+        raise AssertionError("the merge's library call differs from it")
     results["merge_items"] = measure(
         "merge kernel of the worklist",
         lambda: merge_items(layout.blocks, parts, k),
-        lambda: merge_items_plain(layout.blocks, parts, k), None, None, 0.0,
+        lambda: merge_items_plain(layout.blocks, parts, k), library_merge,
+        None, 0.0,
         # the partial lists read, the blocks' lists written, 20 bytes of
         # block and item arrays a block; no arithmetic
         bound_of(part_bytes + n_blocks * (BLOCK_SLOTS * k * 8 + 20), 0.0,
@@ -1256,8 +1336,18 @@ def phase_timing(index, stores, ds, dev, name):
                                            **wl), None,
                     own_quant(q, codes, scales, bits), layout, n_q * p, k))
             wide = (q, layout.qidx, codes, scales, layout.blocks, k_out, bits)
+            # in turns with the pool, in this process
+            turns = [cuda_ms(fn, 20) for fn in (
+                lambda: probe_topk_quant(*wide),
+                lambda: probe_topk_quant(*qargs, k_out=k_out),
+                lambda: probe_topk_quant(*qargs, k_out=k_out),
+                lambda: probe_topk_quant(*wide))]
+            results["probe_pool"]["list_ms"] = (turns[0] + turns[3]) / 2
             log(f"[timing] the list of k_out={k_out} that the pool replaces: "
-                f"{cuda_ms(lambda: probe_topk_quant(*wide), 20):.4f} ms")
+                f"{(turns[0] + turns[3]) / 2:.4f} ms, the pool "
+                f"{(turns[1] + turns[2]) / 2:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns)}; main loop of the "
+                f"pool: {ran_loop(lambda: probe_topk_quant(*qargs, k_out=k_out))[1]})")
 
         iargs = (q_codes, q_scales, layout.qidx, codes, scales, layout.blocks,
                  k, bits)
@@ -1278,7 +1368,8 @@ def phase_timing(index, stores, ds, dev, name):
             lambda: probe_topk_int8q(*iargs),
             lambda: probe_topk_int8q_plain(*iargs), library_int8q,
             own_quant(q_codes, codes, scales, bits, q_scales), INT8Q_TOL,
-            bound(row_bytes, n_q * (d + 4), peak_flops * INT8_OVER_BF16))
+            bound(row_bytes, n_q * (d + 4), peak_flops * INT8_OVER_BF16),
+            staged=lambda: probe_topk_int8q(*iargs, loop="staged"))
     return results
 
 

@@ -370,3 +370,81 @@ def test_kernels_refuse_what_they_do_not_take(rng, card):
         probe_topk(q.bfloat16(), lay.qidx, full.data_sorted.bfloat16(),
                    lay.blocks, 10, k_out=129)
     assert launch_counts() == before
+
+
+# ------------------------------------------- int8 queries in the wgmma loop
+def _int8q(full, q, lay, bits):
+    store = quantize_store(full, bits=bits)
+    qc, qs = quantize_rows(q)
+    return (qc, qs, lay.qidx, store.data_sorted, store.scales, lay.blocks)
+
+
+@pytest.mark.parametrize("k", [10, 24])
+@pytest.mark.parametrize("d", [768, 96, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_int8q_wgmma_equals_staged(rng, card, bits, d, k):
+    """K3 in the wgmma loop (s8 x s8 sums, exact) equals the staged loop
+    to the bit: dense, 128-row tile, worklist, the pool and their
+    combinations; and it is the loop that the rule gives every one of
+    them."""
+    full, q, lay, n_slots = _setup(rng, d, card)
+    args = _int8q(full, q, lay, bits)
+    live = lay.slot_of_row < n_slots
+    for opts in ({}, dict(pair=True), dict(wl_pad=8192, item_rows=128),
+                 dict(wl_pad=8192, item_rows=256, pair=True),
+                 dict(k_out=2 * k), dict(k_out=2 * k, pair=True),
+                 dict(k_out=2 * k, wl_pad=8192, item_rows=128)):
+        pool = "k_out" in opts
+        nb = 128 if opts.get("pair") else 64
+        assert probe_loop(1, bits, d, k, pool, nb) == "wgmma"
+        before = loop_launch_counts()
+        got = probe_topk_int8q(*args, k, bits, **opts)
+        assert loop_launch_counts()["wgmma"] == before["wgmma"] + 1
+        want = probe_topk_int8q(*args, k, bits, loop="staged", **opts)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][live], want[0][live]), opts
+        assert torch.equal(got[1][live], want[1][live]), opts
+        _check(got[:2], probe_topk_int8q_plain(*args, k, bits, **opts)[:2],
+               lay, n_slots, 1e-5)
+
+
+@pytest.mark.parametrize("k, k_out", [(10, 20), (10, 40), (40, 128)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_pool_gate_equals_staged(rng, card, bits, k, k_out):
+    """K5 behind its gate, under int8 queries (exact sums): rows [0,
+    k_out) equal to the staged loop's (which keeps no gate) and to the
+    one-CTA-per-block kernel's to the bit, dense, with the worklist and
+    with the 128-row tile; the exact prefix also to the plain version's
+    to rounding (torch divides the scales by 127 through its reciprocal on
+    a card, the kernels by a rounded division, so a near tie at rank k may
+    move an extra: test_pool_kernel holds the extras to the definition)."""
+    full, q, lay, n_slots = _setup(rng, 768, card)
+    args = _int8q(full, q, lay, bits)
+    live = lay.slot_of_row < n_slots
+    want = probe_topk_int8q_plain(*args, k, bits, k_out=k_out)
+    staged = probe_topk_int8q(*args, k, bits, k_out=k_out, loop="staged")
+    dense = None
+    for opts in ({}, dict(pair=True), dict(wl_pad=8192, item_rows=128),
+                 dict(wl_pad=8192, item_rows=256, pair=True)):
+        before = loop_launch_counts()
+        got = probe_topk_int8q(*args, k, bits, k_out=k_out, **opts)
+        assert loop_launch_counts()["wgmma"] == before["wgmma"] + 1
+        torch.cuda.synchronize()
+        dense = got if dense is None else dense
+        # the exact prefix against the plain version; the extras against
+        # the definition are test_pool_kernel's
+        _check((got[0][:, :k], got[1][:, :k]), (want[0][:, :k],
+                                                want[1][:, :k]),
+               lay, n_slots, 1e-5)
+        for other in (staged, dense):
+            assert torch.equal(got[0][live], other[0][live]), opts
+            assert torch.equal(got[1][live], other[1][live]), opts
+
+
+@pytest.mark.parametrize("kind", ["int8q"])
+@pytest.mark.parametrize("d", [96, 32])
+def test_equal_rows_under_int8_queries(rng, card, kind, d):
+    """Equal rows come back lower row first under int8 queries, in the
+    wgmma loop, at narrow widths too (d = 32: one slice of 128 features,
+    three quarters empty)."""
+    test_equal_rows_and_the_stores_end(rng, card, kind, d)

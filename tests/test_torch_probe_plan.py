@@ -4,6 +4,9 @@ reckons it, and the tie rule that either loop's epilogue must keep: the
 plain version against the JAX package's Pallas kernel in interpret mode on
 a store with equal rows."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,9 +60,13 @@ def test_every_plan_fits(d, k, pool, tile_rows):
             more = 8 if bits and stages == 4 else stages + 1
             assert smem_bytes(k, tile_rows, pool, "wgmma", d, bits,
                               more) > SMEM_OPTIN_H100
-        # float32 and int8 queries never take the wgmma loop
+        # float32 queries never take the wgmma loop; int8 queries take it
+        # over codes whenever their (half as wide) plan fits
         assert probe_loop(4, bits, d, k, pool, tile_rows) == "staged"
-        assert probe_loop(1, bits, d, k, pool, tile_rows) == "staged"
+        int8q = bits and _wgmma_need(d, bits, 1, k, pool, tile_rows,
+                                     fewest) <= SMEM_OPTIN_H100
+        assert probe_loop(1, bits, d, k, pool, tile_rows) == (
+            "wgmma" if int8q else "staged")
 
 
 @pytest.mark.parametrize("bits", [0, 8, 4])
@@ -229,3 +236,111 @@ def test_equal_rows_across_work_items(item_rows, pair):
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
     np.testing.assert_array_equal(got[1][:, 0].numpy(), pick)
     np.testing.assert_array_equal(got[1][:, 1].numpy(), pick + 1)
+
+
+# ------------------------------------- int8 queries (K3) and the pool (K5)
+def _header_constant(name):
+    text = (Path(__file__).resolve().parent.parent / "tpulmi_torch" / "csrc"
+            / "probe_wgmma.cuh").read_text()
+    return int(re.search(rf"\b{name} = (\d+)", text).group(1))
+
+
+def test_plan_constants_are_the_headers():
+    """The Python plan reckons with the CUDA header's own constants."""
+    assert probe.WGMMA_STAGES == (_header_constant("MAX_STAGES"),
+                                  _header_constant("MAX_CODE_STAGES"),
+                                  _header_constant("MIN_STAGES"))
+    assert probe.SLICE_BYTES == _header_constant("SLICE_BYTES")
+    assert SMEM_OPTIN_H100 == _header_constant("SMEM_LIMIT")
+    assert _header_constant("BARRIER_BYTES") == 512
+
+
+def _wgmma_need(d, bits, qb, k, pool, tile_rows, stages):
+    """probe_wgmma.cuh::smem_bytes written out: alignment, resident
+    queries (8 KB a slice of 128 bytes), the operand ring and a raw ring
+    (over int4 codes under int8 queries: 64 bytes a row; over int8 codes
+    none, the codes are the operand), barriers, pool, tile, lists,
+    thresholds and rows, column scales."""
+    raw = {(1, 8): 0, (1, 4): 64, (2, 8): 64, (2, 4): 32}[(qb, bits)]
+    return (1024 + -(-d // (128 // qb)) * 8192
+            + stages * tile_rows * (128 + raw) + 512
+            + (64 * 128 * 8 if pool else 0) + 64 * (tile_rows + 4) * 4
+            + 64 * k * 8 + 64 * 8 + 4 * tile_rows * 4)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("pool", [False, True])
+@pytest.mark.parametrize("k", [10, 24, 64])
+@pytest.mark.parametrize("d", [768, 96])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_int8_query_plan(bits, d, k, pool, tile_rows):
+    """1-byte queries over int8 and int4 codes: the rule's loop, its rings
+    and its shared memory as the header reckons them, and every plan
+    within 232,448 bytes. Resident int8 queries take half the bytes of
+    bfloat16 ones, so all of these launches but one take the wgmma loop:
+    lists of 64 with the pool and the 128-row tile over int4 codes at
+    d = 768, whose 64-byte raw ring leaves room for no 2 stages."""
+    loop = probe_loop(1, bits, d, k, pool, tile_rows)
+    stages = wgmma_stages(d, bits, k, pool, tile_rows, 1)
+    misfit = (bits, d, k, pool, tile_rows) == (4, 768, 64, True, 128)
+    assert loop == ("staged" if misfit else "wgmma")
+    if misfit:
+        assert stages == 0 and _wgmma_need(d, bits, 1, k, pool, tile_rows,
+                                           2) > SMEM_OPTIN_H100
+        assert smem_bytes(k, tile_rows, pool, loop) <= SMEM_OPTIN_H100
+        return
+    assert stages >= 2
+    raw = probe.raw_row_bytes(bits, 1)
+    assert raw == (0 if bits == 8 else 64)
+    need = smem_bytes(k, tile_rows, pool, loop, d, bits, query_bytes=1)
+    assert need == _wgmma_need(d, bits, 1, k, pool, tile_rows, stages)
+    assert need <= SMEM_OPTIN_H100
+    most, most_codes, _ = probe.WGMMA_STAGES
+    if raw:     # converters: 8, 4, 3 or 2 stages
+        assert stages in (8, 4, 3, 2)
+        more = 8 if stages == 4 else stages + 1
+        top = most_codes
+    else:       # the loads land in the operand ring: any count up to 12
+        assert stages <= most
+        more, top = stages + 1, most
+    if stages < top:
+        assert _wgmma_need(d, bits, 1, k, pool, tile_rows,
+                           more) > SMEM_OPTIN_H100
+    # the queries' bytes: half of bfloat16's at the same width
+    assert (smem_bytes(k, tile_rows, pool, "wgmma", d, bits, 2, 2)
+            - smem_bytes(k, tile_rows, pool, "wgmma", d, bits, 2, 1)
+            - 2 * tile_rows * (probe.raw_row_bytes(bits, 2) - raw)
+            == (-(-d // 64) - -(-d // 128)) * 8192)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_main_path_int8_queries_take_the_wgmma_loop(bits, tile_rows):
+    """300K x 768, k = 10, int8 queries: 48 KB of resident queries, and
+    over int8 codes a ring fed by TMA alone (12 stages at the 64-row
+    tile), over int4 codes the converters' 8 or 4."""
+    assert probe_loop(1, bits, 768, 10, False, tile_rows) == "wgmma"
+    stages = wgmma_stages(768, bits, 10, False, tile_rows, 1)
+    assert stages == {(8, 64): 12, (8, 128): 8, (4, 64): 8,
+                      (4, 128): 4}[(bits, tile_rows)]
+    need = smem_bytes(10, tile_rows, False, "wgmma", 768, bits,
+                      query_bytes=1)
+    assert 6 * 8192 < need <= SMEM_OPTIN_H100
+
+
+# (query bytes, code bits, tile rows) -> stages of the pool's plan at
+# d = 768, k = 10; 0: the staged loop
+K5_STAGES = {(2, 8, 64): 3, (2, 8, 128): 0, (2, 4, 64): 4, (2, 4, 128): 0,
+             (1, 8, 64): 11, (1, 8, 128): 4, (1, 4, 64): 4, (1, 4, 128): 3}
+
+
+@pytest.mark.parametrize("qb, bits, tile_rows", sorted(K5_STAGES))
+def test_pool_plan_stages(qb, bits, tile_rows):
+    """K5's rings beside its 64 KB of keys: the gate and the swizzle take
+    no shared memory, so bfloat16 queries keep 3 or 4 stages at the 64-row
+    tile and none at the 128-row tile (the staged loop), while int8
+    queries now fit at both."""
+    stages = wgmma_stages(768, bits, 10, True, tile_rows, qb)
+    assert stages == K5_STAGES[(qb, bits, tile_rows)]
+    assert probe_loop(qb, bits, 768, 10, True, tile_rows) == (
+        "wgmma" if stages else "staged")

@@ -55,17 +55,20 @@
 // Two main loops. `probe_kernel` below is the staged loop: plain loads into
 // shared memory, a barrier, WMMA or FMA from shared memory, a barrier, the
 // whole product tile through shared memory. It serves float32 queries
-// (FmaTile), int8 queries (IMmaTile) and the shapes that the other loop's
-// plan does not fit. For bfloat16 and float16 queries probe_wgmma.cuh holds
-// the loop built for this card (queries resident in shared memory, the store
-// through a TMA ring, wgmma, the threshold test in registers), which takes
-// away the staged loop's exposed latency, its re-staging of the queries and
-// its round trip of the tile; `loop_of` below is the rule that chooses, and
-// every configuration here (tile height, worklist, pool) runs in either. In
-// both a bucket is still read once per 64-slot block, from L2. Beside 96 KB
-// of resident queries (d = 768) the pool's 64 KB leave the wgmma loop rings
-// of 3 to 5 stages with the 64-row tile and none with the 128-row tile,
-// which there keeps the staged loop.
+// (FmaTile) and the shapes that the other loop's plan does not fit, and
+// stays the reference of the other loop for every query type (IMmaTile for
+// int8 queries). For bfloat16, float16 and int8 queries probe_wgmma.cuh
+// holds the loop built for this card (queries resident in shared memory,
+// the store through a TMA ring, wgmma, the threshold test in registers, the
+// pool behind a gate), which takes away the staged loop's exposed latency,
+// its re-staging of the queries and its round trip of the tile; `loop_of`
+// below is the rule that chooses, and every configuration here (tile
+// height, worklist, pool) runs in either. In both a bucket is still read
+// once per 64-slot block, from L2. Beside 96 KB of resident bfloat16
+// queries (d = 768) the pool's 64 KB leave the wgmma loop rings of 3 to 5
+// stages with the 64-row tile and none with the 128-row tile over int4
+// codes, which there keeps the staged loop; int8 queries take half the
+// bytes (48 KB), and every pool plan at d = 768 fits.
 
 #pragma once
 
@@ -621,19 +624,22 @@ namespace probe {
 // Which main loop a launch takes, a function of the queries' width in bytes,
 // the store's layout, d, k, the pool and the tile height alone (the wrapper,
 // tpulmi_torch/ops/probe_topk.py::probe_loop, holds the same rule): the
-// wgmma loop for 2-byte queries whenever its shared memory, which grows with
-// d for the resident queries, fits the opt-in limit of an H100; else the
-// staged loop of probe_kernel, which also serves float32 and int8 queries.
+// wgmma loop for 2-byte queries, and for int8 queries over int8 or
+// packed-int4 codes, whenever its shared memory, which grows with d for the
+// resident queries, fits the opt-in limit of an H100; else the staged loop
+// of probe_kernel, which also serves float32 queries.
 constexpr int LOOP_STAGED = 0, LOOP_WGMMA = 1;
 inline int loop_of(int query_bytes, int src, int d, int k, bool pool, int nb) {
-  return query_bytes == 2 && hopper::stages(d, src, k, nb, pool) > 0
+  const bool takes = query_bytes == 2 || (query_bytes == 1 && src != SRC_SAME);
+  return takes && hopper::stages(d, src, query_bytes, k, nb, pool) > 0
              ? LOOP_WGMMA : LOOP_STAGED;
 }
-inline size_t loop_smem_bytes(int loop, int src, int d, int k, bool pool,
-                              int nb) {
+inline size_t loop_smem_bytes(int loop, int query_bytes, int src, int d, int k,
+                              bool pool, int nb) {
   return loop == LOOP_WGMMA
-             ? hopper::smem_bytes(d, src, k, nb, pool,
-                                  hopper::stages(d, src, k, nb, pool))
+             ? hopper::smem_bytes(
+                   d, src, query_bytes, k, nb, pool,
+                   hopper::stages(d, src, query_bytes, k, nb, pool))
              : smem_bytes(kpl_of(k), nb, pool);
 }
 
@@ -646,7 +652,7 @@ int launch_k(const ProbeArgs &a, int n_ctas, int loop, cudaStream_t s) {
   if (loop == LOOP_WGMMA && rule != LOOP_WGMMA)
     return int(cudaErrorInvalidValue);
   if (loop != LOOP_STAGED && loop != LOOP_WGMMA) loop = rule;
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) <= 2) {
     if (loop == LOOP_WGMMA) return hopper::launch<T, SRC, NB>(a, n_ctas, s);
   }
   switch (kpl_of(a.k)) {

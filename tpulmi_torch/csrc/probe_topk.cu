@@ -88,9 +88,10 @@ int probe_topk_loop(int dtype, int d, int k, int pool) {
   return probe::loop_of(query_bytes(dtype), probe::SRC_SAME, d, k, pool != 0,
                         PROBE_NB);
 }
-long long probe_topk_smem_bytes(int loop, int d, int k, int pool) {
-  return (long long)probe::loop_smem_bytes(loop, probe::SRC_SAME, d, k,
-                                           pool != 0, PROBE_NB);
+long long probe_topk_smem_bytes(int loop, int dtype, int d, int k, int pool) {
+  return (long long)probe::loop_smem_bytes(loop, query_bytes(dtype),
+                                           probe::SRC_SAME, d, k, pool != 0,
+                                           PROBE_NB);
 }
 
 // Launch `n_ctas` CTAs on `stream`: one per block of `blocks`, or, with

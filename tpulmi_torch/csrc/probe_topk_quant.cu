@@ -10,19 +10,17 @@
 //     full-precision store, and each column is scaled by
 //     scales[row] / q_levels (127 or 7) before 1 - s;
 //   - int8 x int8 (the `int8q` branch): the queries arrive as int8 codes,
-//     the product runs on the tensor cores with int32 sums (WMMA 16x16x16,
-//     signed char), and the int32 tile is cast to float32 and scaled the
-//     same way. The query's own scale stays out of the kernel, as on the
-//     TPU: it is positive and constant per slot, so it changes no ranking,
-//     and the wrapper (tpulmi_torch/ops/probe_topk.py) applies it to the
-//     final lists. With a packed int4 store the nibbles are unpacked to int8
-//     while staging.
+//     the product runs on the tensor cores with int32 sums, and each sum is
+//     cast to float32 and scaled the same way. The query's own scale stays
+//     out of the kernel, as on the TPU: it is positive and constant per
+//     slot, so it changes no ranking, and the wrapper
+//     (tpulmi_torch/ops/probe_topk.py) applies it to the final lists.
 //
 // Design. The CTA design of probe_topk.cu (one CTA per 64-slot block looping
-// over its bucket's rows, vote-gated insert into a sorted list held across a
-// warp's lanes, ties to the lower store row), in its two main loops
-// (csrc/probe_common.cuh::loop_of chooses); this file instantiates them for
-// the two code layouts and the four query types:
+// over its bucket's rows, vote-gated insert into a sorted list, ties to the
+// lower store row), in its two main loops (csrc/probe_common.cuh::loop_of
+// chooses); this file instantiates them for the two code layouts and the
+// four query types:
 //
 //   - bfloat16 and float16 queries: probe_wgmma.cuh. The TMA ring carries the
 //     raw code bytes (64 or 32 a row and slice of 64 features); four
@@ -30,17 +28,25 @@
 //     queries' type in wgmma's swizzled layout, beside the warpgroup that
 //     multiplies, so the conversion is off both the load and the product.
 //     The tile's column scales are read once per tile by each consumer warp;
-//   - float32 queries, int8 queries (IMmaTile, WMMA with int32 sums) and
-//     shapes whose resident queries do not fit: probe_common.cuh::
-//     probe_kernel, which converts the codes while it stages them.
+//   - int8 queries: probe_wgmma.cuh too, with wgmma m64nNBk32 s8 x s8 and
+//     int32 sums over slices of 128 features. Over int8 codes the codes are
+//     the B operand as they lie: TMA lands them swizzled in the operand ring
+//     and no warp converts them. Over packed int4 a raw box of 64 bytes a
+//     row holds 128 features, and four converter warps sign-extend its
+//     nibbles into int8 bytes with masks and a multiply. Integer sums are
+//     exact, so the result equals the staged loop's to the bit;
+//   - float32 queries, and shapes whose resident queries do not fit:
+//     probe_common.cuh::probe_kernel, which converts the codes while it
+//     stages them (int8 queries there: IMmaTile, WMMA 16x16x16 with int32
+//     sums, which stays as the reference of the wgmma loop).
 //
 // What the TPU kernel needed and neither loop does: scales fed as
 // (mc/128, 128) tiles, mc % 1024 == 0, int32 shifts for the nibbles. A packed
 // byte j holds dim j in the low and dim j + d/2 in the high nibble; the
 // staged loop splits it where it is staged (a vector of 4, 8 or 16
 // neighbouring features lies in one nibble of as many neighbouring bytes),
-// the wgmma loop takes both nibbles of 32 bytes as one slice and gathers the
-// resident queries in the same order.
+// the wgmma loop takes both nibbles of 32 (or, under int8 queries, 64)
+// bytes as one slice and gathers the resident queries in the same order.
 //
 // Limits. k <= 128; int8 codes need d % 16 == 0 (16-byte row loads of the
 // int8 queries, the tensor map's row stride), packed int4 d % 32 == 0 (so
@@ -50,12 +56,10 @@
 // quarter of a bfloat16 store's bytes) and 2 d slots rows operations done on
 // them; at the 300K x 768 shape with bfloat16 queries the operations at the
 // bf16 tensor-core rate are the larger bound, with int8 queries the two are
-// of one order. With bfloat16 or float16 queries the wgmma loop makes the
-// fewer bytes count: the ring moves a half or a quarter of the bytes per
-// tile, and what is left is the re-read of a bucket per 64-slot block (from
-// L2) and the converters' instruction rate. The int8 x int8 kernel keeps the
-// staged loop: its loads are synchronous and WMMA reads its operands from
-// shared memory; wgmma s8 is its next step.
+// of one order. The wgmma loop makes the fewer bytes count: the ring moves
+// a half or a quarter of the bytes per tile, and what is left is the
+// re-read of a bucket per 64-slot block (from L2) and, where there are
+// converters, their shared-memory traffic.
 //
 // Like probe_topk.cu this file is compiled twice, for tiles of 64 store rows
 // and, with -DPROBE_NB=128, for the paired tile; both run the worklist and
@@ -98,10 +102,11 @@ int probe_topk_quant_loop(int qdtype, int bits, int d, int k, int pool) {
   return probe::loop_of(query_bytes(qdtype), src_of(bits), d, k, pool != 0,
                         PROBE_NB);
 }
-long long probe_topk_quant_smem_bytes(int loop, int bits, int d, int k,
-                                      int pool) {
-  return (long long)probe::loop_smem_bytes(loop, src_of(bits), d, k,
-                                           pool != 0, PROBE_NB);
+long long probe_topk_quant_smem_bytes(int loop, int qdtype, int bits, int d,
+                                      int k, int pool) {
+  return (long long)probe::loop_smem_bytes(loop, query_bytes(qdtype),
+                                           src_of(bits), d, k, pool != 0,
+                                           PROBE_NB);
 }
 
 // Launch on `stream`; `n_ctas`, `items`, `pool`, `k_out` and `span` as in

@@ -4,23 +4,29 @@
 // probe_common.cuh, which holds what both loops share (the pool's keys and
 // extras, ProbeArgs) and the rule that chooses between them.
 //
-// It serves the instantiations with bfloat16 and float16 queries: a store of
-// the queries' type (SRC_SAME) and int8 / packed-int4 codes (SRC_INT8,
-// SRC_INT4). The function is probe_kernel's, element for element; only the
-// order in which the tensor cores sum a product differs.
+// It serves the instantiations with bfloat16 and float16 queries over a
+// store of the queries' type (SRC_SAME) and over int8 / packed-int4 codes
+// (SRC_INT8, SRC_INT4), and those with int8 query codes over int8 or
+// packed-int4 codes (int8 x int8, K3). The function is probe_kernel's,
+// element for element; with float queries only the order in which the
+// tensor cores sum a product differs, with int8 queries not even that: the
+// int32 sums are exact, so the result equals the staged loop's to the bit.
 //
 // One CTA, as in probe_kernel, owns one block of QB = 64 slots (or a work
-// item of it) and walks its bucket's rows in tiles of NB. Its warps have three
-// roles, which meet only at mbarriers after the start:
+// item of it) and walks its bucket's rows in tiles of NB. A slice is 128
+// bytes of the queries' type: 64 features of bfloat16 / float16, 128 of
+// int8. Its warps have three roles, which meet only at mbarriers after the
+// start:
 //
 //   - warps 0-3, the consumer warpgroup. The 64 slots' query rows are
 //     gathered once, at the start, into the 128-byte-swizzled K-major layout
-//     that wgmma reads (64 x 64 features a slice, 8 KB); they are the A
+//     that wgmma reads (64 rows x 128 bytes a slice, 8 KB); they are the A
 //     operand for the CTA's whole life. For each tile the warpgroup waits
-//     for each slice of NB store rows x 64 features in the operand ring,
-//     issues four wgmma m64nNBk16 on it (float32 sums in registers) and
-//     hands the stage back once those have read it. Then each warp, which
-//     owns 16 of the 64 slot rows in the accumulator layout, turns its
+//     for each slice of NB store rows x 128 bytes in the operand ring,
+//     starts four wgmma on it (m64nNBk16 with float32 sums, or m64nNBk32
+//     s8 x s8 with int32 sums, in the same registers and fragment layout)
+//     and hands the stage back once those have read it. Then each warp,
+//     which owns 16 of the 64 slot rows in the accumulator layout, turns its
 //     fragment into distances and tests them against its rows' k-th bests
 //     in registers. One vote skips the tile when nothing beats any of them.
 //     Otherwise the warp writes its own 16 rows to its part of the
@@ -35,21 +41,65 @@
 //     its latency that insert took a third of this loop's time, and the
 //     list in shared memory still a third of what was left. A column must
 //     be strictly below the k-th best to enter and entries that equal it
-//     stay ahead, so the tie rule is probe_kernel's. The rerank pool is
-//     folded from the registers: a row's class belongs to the one thread
-//     that holds its columns;
+//     stay ahead, so the tie rule is probe_kernel's. The same thread folds
+//     the row's columns that pass the pool's gate (below) into the row's
+//     rerank pool, from the tile, in column order;
 //   - warp 4, the loader: one thread keeps a ring full with TMA tile loads
 //     through a tensor map over the whole store (rows past the store's end
 //     and features past d arrive as zeros; rows past the bucket's end are
-//     masked by the consumers). It starts before the queries are gathered;
-//   - warps 5-8, only over a quantized store, the converters: the loader's
-//     ring then carries the raw code bytes (64 or 32 a row and slice), and
-//     each of these warps turns whole raw stages into swizzled operand
+//     masked by the consumers). It starts before the queries are gathered.
+//     Over a store of the queries' type, and over int8 codes with int8
+//     queries, the codes already are the B operand: the loads land in the
+//     operand ring in the 128-byte swizzle and no warp converts them;
+//   - warps 5-8, only where the codes are not the operand, the converters:
+//     the loader's ring then carries the raw code bytes (64 or 32 a row and
+//     slice of bfloat16 / float16, 64 of packed int4 under int8 queries),
+//     and each of these warps turns whole raw stages into swizzled operand
 //     stages of the queries' type (every code is exact in it), several
-//     stages at once. A packed-int4 slice of 32 bytes holds features
+//     stages at once. A packed-int4 slice of 2-byte queries holds features
 //     [32 s, 32 s + 32) in its low and [d/2 + 32 s, d/2 + 32 s + 32) in its
-//     high nibbles; the resident queries are gathered in that order, so the
-//     product needs no shuffle.
+//     high nibbles; under int8 queries the 16-byte chunk ch < 4 of a slice
+//     holds features 64 s + 16 ch .. + 15 (low nibbles) and chunk ch >= 4
+//     features d/2 + 64 s + 16 (ch - 4) .. + 15 (high nibbles). The
+//     resident queries are gathered in that order, so the product needs no
+//     shuffle.
+//
+// The rerank pool (k_out > k), a template parameter: the kernels without it
+// carry none of its registers. Slot row r keeps, for each of the POOL
+// residue classes c, its best key at pool_s[r * POOL + (c ^ pool_swz(r))].
+// The XOR spreads the 16 rows of a warp, which fold one class at the same
+// time while every column passes (a CTA's first tiles), over 16 bank pairs
+// where they would all meet one (rows 1024 bytes apart); it also keeps an
+// access by the accumulator layout (lanes (g, tq): rows 16 w + g, columns
+// 8 j + 2 tq + e) at 2 wavefronts, not 8. A permutation inside a row changes
+// no result: write_extras ranks keys, which carry their rows, and the fold
+// of a work item into the global pool undoes it. In front of the pool
+// stands a gate: each row keeps a bound U_r, the distance of the k_out-th
+// smallest key its pool holds (+inf while fewer than k_out classes are
+// filled), in the registers of the threads that hold its columns. A column
+// is marked for the pool only if v <= U_r; the marks are joined like the
+// list's, the tile's vote skips it only when no column beats either a
+// row's k-th best or its U_r, and the row's inserting thread folds just
+// the marked columns (a predicated pass over every register costs as much
+// when few pass as when all do). The warp recomputes U_r of its 16 rows
+// after tiles 2, 4, 8, 16, ... of the CTA, by a radix select over the
+// keys' distance bits, four rows side by side and to 16 bits (the bound
+// rounded up, still a bound). Why the gate is exact:
+//   - class bests only fall, so a stale U_r is still an upper bound of the
+//     true k_out-th class best;
+//   - take the dropped column of least distance m whose class c lost its
+//     true best by it. When it was dropped, at least k_out classes other
+//     than c held keys at most U_r < m, and none of them can have lost its
+//     own best (that best would lie under m), so they hold their exact
+//     bests. The exact top-k removes at most k of them, so k_out - k keys
+//     under m are left, and no class whose stored key is wrong (all at or
+//     above m) can be among the k_out - k extras; every class that does
+//     reach the extras holds its exact best;
+//   - it holds per work item too: the atomicMin fold takes the minimum of
+//     item bests, and a class dropped in one item is beaten by k_out
+//     classes of that item.
+// So rows [k, k_out) come out identical to the bit to the plain definition
+// and to the staged loop, which keeps no gate.
 //
 // After the start there is no __syncthreads(): a stage is full when its
 // mbarrier has the bytes (TMA) or a converter warp's arrivals, and empty
@@ -59,9 +109,9 @@
 // never by a failed launch.
 //
 // What bounds it now. A bucket is read once per 64-slot block, so about
-// three times at 2 probes, from L2; with wgmma m64n64k16 reading both
-// operands from shared memory (4 KB for 32 cycles of the tensor cores),
-// the TMA writes and, over codes, the converters' reads and writes, shared
+// three times at 2 probes, from L2; with wgmma reading both operands from
+// shared memory (4 KB for 32 cycles of the tensor cores at m64n64), the
+// TMA writes and, over codes, the converters' reads and writes, shared
 // memory is as busy as the tensor cores. One CTA fills an SM, so blocks run
 // in waves whose tail the longest bucket sets.
 
@@ -73,8 +123,12 @@
 
 // Parts of the loop that a build can leave out, to time what is left
 // (-DPROBE_PARTS_OFF=bits, tpulmi_torch/tools/time_probe.py; the results are
-// then wrong): 1 the list inserts, 2 the whole epilogue, 4 the wgmmas, 8 a
-// quantized store's column scales (distances as over a full-precision one).
+// then wrong, but for 16): 1 the list inserts, 2 the whole epilogue, 4 the
+// wgmmas, 8 a quantized store's column scales (distances as over a
+// full-precision one), 16 the pool's gate (the pool without one: every
+// column folded from the registers that hold it, by its own thread), 32
+// the pool's folds (no column touches it), 64 the pool's extras and a work
+// item's fold into the global pool.
 #ifndef PROBE_PARTS_OFF
 #define PROBE_PARTS_OFF 0
 #endif
@@ -82,8 +136,9 @@
 // -DPROBE_CLOCKS=1 (the same tool, --clocks): the second consumer warp of
 // every 97th CTA counts the cycles it spends waiting for a stage, between a
 // stage's arrival and the end of its wgmmas, in the epilogue up to the
-// vote, and from there to the tile's end (tile write, marks, inserts), and
-// prints them at its end. Where no profiler reads the card's counters, this
+// vote, in the pool's pass and gate, from there to the tile's end (tile
+// write, marks, inserts), and after the last tile (lists out, the pool's
+// extras or fold), and prints them at its end. Where no profiler reads the card's counters, this
 // says which part of a CTA's life to look at.
 #ifndef PROBE_CLOCKS
 #define PROBE_CLOCKS 0
@@ -100,7 +155,6 @@
 namespace probe {
 namespace hopper {
 
-constexpr int SLICE = 64;                  // features of one ring stage
 constexpr int SLICE_BYTES = 128;           // one operand row of a stage
 constexpr int A_SLICE_BYTES = QB * SLICE_BYTES;
 constexpr int CONSUMER_WARPS = 4;
@@ -110,49 +164,61 @@ constexpr int FIRST_CONVERTER = (CONSUMER_WARPS + 1) * 32;
 constexpr int BARRIER_BYTES = 512;
 // what the plan may take of one SM: the opt-in limit of an H100
 constexpr size_t SMEM_LIMIT = 232448;
-// Most stages of the rings. Over a store of the queries' type the operand
-// ring is what the TMA loads fill, and what is in flight hides their
-// latency; over codes the converters fill it from the raw ring, and more
-// than 8 stages of either gained nothing on the card.
+// Most stages of the rings. Where the loads land in the operand ring, what
+// is in flight hides their latency; where converters fill it from the raw
+// ring, more than 8 stages of either gained nothing on the card.
 constexpr int MAX_STAGES = 12, MAX_CODE_STAGES = 8, MIN_STAGES = 2;
 
-__host__ __device__ constexpr int raw_row_bytes(int src) {
-  return src == SRC_INT8 ? 64 : (src == SRC_INT4 ? 32 : 0);
+// Features of one slice for queries of `qb` bytes a value.
+__host__ __device__ constexpr int slice_of(int qb) { return SLICE_BYTES / qb; }
+// Code bytes of one row and slice in the raw ring, or 0 where the loads land
+// in the operand ring: a store of the queries' type, int8 codes under int8
+// queries.
+__host__ __device__ constexpr int raw_row_bytes(int src, int qb) {
+  return src == SRC_SAME || (src == SRC_INT8 && qb == 1)
+             ? 0
+             : (src == SRC_INT8 ? slice_of(qb) : slice_of(qb) / 2);
 }
-__host__ __device__ constexpr int slices(int d) {
-  return (d + SLICE - 1) / SLICE;
+__host__ __device__ constexpr int slices(int d, int qb) {
+  return (d + slice_of(qb) - 1) / slice_of(qb);
 }
-__host__ __device__ constexpr int threads(int src) {
-  return FIRST_CONVERTER + (src == SRC_SAME ? 0 : CONVERTERS);
+__host__ __device__ constexpr int threads(int src, int qb) {
+  return FIRST_CONVERTER + (raw_row_bytes(src, qb) > 0 ? CONVERTERS : 0);
 }
 
 // Shared memory of one CTA with rings of `n_stages`: 1 KB to align the
-// swizzled buffers, the resident queries, the operand ring, the raw ring of
-// a quantized store, the barriers, the pool's keys, the distance tile, the
+// swizzled buffers, the resident queries, the operand ring, the raw ring
+// where there is one, the barriers, the pool's keys, the distance tile, the
 // lists (k keys a slot), thresholds and query rows, and each consumer
 // warp's column scales.
-__host__ __device__ constexpr size_t smem_bytes(int d, int src, int k, int nb,
-                                                bool pool, int n_stages) {
-  return 1024 + size_t(slices(d)) * A_SLICE_BYTES +
-         size_t(n_stages) * nb * (SLICE_BYTES + raw_row_bytes(src)) +
+__host__ __device__ constexpr size_t smem_bytes(int d, int src, int qb, int k,
+                                                int nb, bool pool,
+                                                int n_stages) {
+  return 1024 + size_t(slices(d, qb)) * A_SLICE_BYTES +
+         size_t(n_stages) * nb * (SLICE_BYTES + raw_row_bytes(src, qb)) +
          BARRIER_BYTES + (pool ? size_t(QB) * POOL * sizeof(PoolKey) : 0) +
          size_t(QB) * (nb + 4) * 4 + size_t(QB) * k * 8 + size_t(QB) * 8 +
          size_t(CONSUMER_WARPS) * nb * 4;
 }
 
 // Stages of the rings: as many as fit beside the rest, up to the most; 0
-// when not even MIN_STAGES fit, and the launch takes the staged loop. Over
-// codes 8, 4, 3 or 2: with at most CONVERTER_WARPS warps at work, each
+// when not even MIN_STAGES fit, and the launch takes the staged loop. With
+// converters 8, 4, 3 or 2: with at most CONVERTER_WARPS warps at work, each
 // taking every such stage, a stage is then always converted by the same
 // warp, which a wait on a phase's parity relies on.
-__host__ __device__ constexpr int stages(int d, int src, int k, int nb,
+__host__ __device__ constexpr int stages(int d, int src, int qb, int k, int nb,
                                          bool pool) {
-  const bool codes = src != SRC_SAME;
-  for (int n = codes ? MAX_CODE_STAGES : MAX_STAGES; n >= MIN_STAGES; --n) {
-    if (codes && n > CONVERTER_WARPS && n % CONVERTER_WARPS != 0) continue;
-    if (smem_bytes(d, src, k, nb, pool, n) <= SMEM_LIMIT) return n;
+  const bool raw = raw_row_bytes(src, qb) > 0;
+  for (int n = raw ? MAX_CODE_STAGES : MAX_STAGES; n >= MIN_STAGES; --n) {
+    if (raw && n > CONVERTER_WARPS && n % CONVERTER_WARPS != 0) continue;
+    if (smem_bytes(d, src, qb, k, nb, pool, n) <= SMEM_LIMIT) return n;
   }
   return 0;
+}
+
+// Where class c of slot row r lies in the row's POOL keys (see the header).
+__host__ __device__ constexpr int pool_swz(int r) {
+  return (r & 1) | ((r & 2) << 2) | ((r & 12) >> 1);
 }
 
 // ------------------------------------------------------------ PTX wrappers
@@ -218,36 +284,38 @@ __device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
-// d += A B^T for one k-step of 16 features: A 64 x 16 and B NB x 16 from
-// shared memory (descriptors `da`, `db`), float32 sums in registers;
-// scale_d = 0 starts a new sum.
-#define PROBE_WGMMA_64(TY)                                                   \
+// d += A B^T for one k-step of 32 bytes (16 bfloat16 / float16 or 32 int8
+// features): A 64 x 32 bytes and B NB x 32 bytes from shared memory
+// (descriptors `da`, `db`), sums in registers (float32, or int32 for s8 x
+// s8, in the same fragment layout); scale_d = 0 starts a new sum. OP names
+// the instruction, ARGS its operands after the predicate, CON the sums'
+// register constraint.
+#define PROBE_WGMMA_64(OP, ARGS, CON)                                        \
   asm volatile(                                                              \
       "{\n"                                                                  \
       ".reg .pred p;\n"                                                      \
       "setp.ne.b32 p, %34, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      OP " "                                                                 \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
       " %8, %9, %10, %11, %12, %13, %14, %15, "                              \
       " %16, %17, %18, %19, %20, %21, %22, %23, "                            \
       " %24, %25, %26, %27, %28, %29, %30, %31}, "                           \
-      "%32, %33, p, 1, 1, 0, 0;\n"                                           \
+      "%32, %33, p" ARGS ";\n"                                               \
       "}\n"                                                                  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
-        "+f"(d[30]), "+f"(d[31])                                             \
+      : CON(d[0]), CON(d[1]), CON(d[2]), CON(d[3]), CON(d[4]), CON(d[5]),    \
+        CON(d[6]), CON(d[7]), CON(d[8]), CON(d[9]), CON(d[10]), CON(d[11]),  \
+        CON(d[12]), CON(d[13]), CON(d[14]), CON(d[15]), CON(d[16]),          \
+        CON(d[17]), CON(d[18]), CON(d[19]), CON(d[20]), CON(d[21]),          \
+        CON(d[22]), CON(d[23]), CON(d[24]), CON(d[25]), CON(d[26]),          \
+        CON(d[27]), CON(d[28]), CON(d[29]), CON(d[30]), CON(d[31])           \
       : "l"(da), "l"(db), "r"(scale_d))
 
-#define PROBE_WGMMA_128(TY)                                                  \
+#define PROBE_WGMMA_128(OP, ARGS, CON)                                       \
   asm volatile(                                                              \
       "{\n"                                                                  \
       ".reg .pred p;\n"                                                      \
       "setp.ne.b32 p, %66, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      OP " "                                                                 \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
       " %8, %9, %10, %11, %12, %13, %14, %15, "                              \
       " %16, %17, %18, %19, %20, %21, %22, %23, "                            \
@@ -256,31 +324,44 @@ __device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
       " %40, %41, %42, %43, %44, %45, %46, %47, "                            \
       " %48, %49, %50, %51, %52, %53, %54, %55, "                            \
       " %56, %57, %58, %59, %60, %61, %62, %63}, "                           \
-      "%64, %65, p, 1, 1, 0, 0;\n"                                           \
+      "%64, %65, p" ARGS ";\n"                                               \
       "}\n"                                                                  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                   \
+      : CON(d[0]), CON(d[1]), CON(d[2]), CON(d[3]), CON(d[4]), CON(d[5]),    \
+        CON(d[6]), CON(d[7]), CON(d[8]), CON(d[9]), CON(d[10]), CON(d[11]),  \
+        CON(d[12]), CON(d[13]), CON(d[14]), CON(d[15]), CON(d[16]),          \
+        CON(d[17]), CON(d[18]), CON(d[19]), CON(d[20]), CON(d[21]),          \
+        CON(d[22]), CON(d[23]), CON(d[24]), CON(d[25]), CON(d[26]),          \
+        CON(d[27]), CON(d[28]), CON(d[29]), CON(d[30]), CON(d[31]),          \
+        CON(d[32]), CON(d[33]), CON(d[34]), CON(d[35]), CON(d[36]),          \
+        CON(d[37]), CON(d[38]), CON(d[39]), CON(d[40]), CON(d[41]),          \
+        CON(d[42]), CON(d[43]), CON(d[44]), CON(d[45]), CON(d[46]),          \
+        CON(d[47]), CON(d[48]), CON(d[49]), CON(d[50]), CON(d[51]),          \
+        CON(d[52]), CON(d[53]), CON(d[54]), CON(d[55]), CON(d[56]),          \
+        CON(d[57]), CON(d[58]), CON(d[59]), CON(d[60]), CON(d[61]),          \
+        CON(d[62]), CON(d[63])                                               \
       : "l"(da), "l"(db), "r"(scale_d))
 
+#define PROBE_F32(N, TY)                                                     \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY
+#define PROBE_S32(N) "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8"
+
+// The sums' type: int32 for int8 queries, else float32.
+template <typename T>
+using AccOf = typename std::conditional<std::is_same<T, signed char>::value,
+                                        int, float>::type;
+
 template <typename T, int NB>
-__device__ __forceinline__ void wgmma_k16(float (&d)[NB / 2], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (NB == 64) {
-    if constexpr (BF16) PROBE_WGMMA_64("bf16"); else PROBE_WGMMA_64("f16");
+__device__ __forceinline__ void wgmma_step(AccOf<T> (&d)[NB / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, signed char>::value) {
+    if constexpr (NB == 64) PROBE_WGMMA_64(PROBE_S32(64), "", "+r");
+    else PROBE_WGMMA_128(PROBE_S32(128), "", "+r");
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (NB == 64) PROBE_WGMMA_64(PROBE_F32(64, "bf16"), ", 1, 1, 0, 0", "+f");
+    else PROBE_WGMMA_128(PROBE_F32(128, "bf16"), ", 1, 1, 0, 0", "+f");
   } else {
-    if constexpr (BF16) PROBE_WGMMA_128("bf16"); else PROBE_WGMMA_128("f16");
+    if constexpr (NB == 64) PROBE_WGMMA_64(PROBE_F32(64, "f16"), ", 1, 1, 0, 0", "+f");
+    else PROBE_WGMMA_128(PROBE_F32(128, "f16"), ", 1, 1, 0, 0", "+f");
   }
 }
 
@@ -289,6 +370,41 @@ template <int N>
 __device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// A sum as float32 (an int32 sum rounded as IMmaTile::value rounds it), and
+// a distance kept in, and read back from, a sum's register.
+__device__ __forceinline__ float sum_of(float s) { return s; }
+__device__ __forceinline__ float sum_of(int s) { return float(s); }
+__device__ __forceinline__ void keep(float &slot, float v) { slot = v; }
+__device__ __forceinline__ void keep(int &slot, float v) {
+  slot = __float_as_int(v);
+}
+__device__ __forceinline__ float kept(float slot) { return slot; }
+__device__ __forceinline__ float kept(int slot) { return __int_as_float(slot); }
+
+// Sixteen packed int4 codes (`w`: nibbles in 0..15, two to a byte) as
+// sign-extended int8 bytes: the low nibbles into `lo`, the high into `hi`,
+// by masks and one multiply a word (a nibble's sign bit 0x08 times 0x1e is
+// 0xf0, which stays in its byte), with no conversion instruction.
+__device__ __forceinline__ void nibbles_to_s8(uint4 w, uint4 &lo, uint4 &hi) {
+  constexpr uint32_t NIB = 0x0f0f0f0fu, SIGN = 0x08080808u;
+  const uint32_t in[4] = {w.x, w.y, w.z, w.w};
+  uint32_t l[4], h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] = in[i] & NIB;
+    h[i] = (in[i] >> 4) & NIB;
+    l[i] |= (l[i] & SIGN) * 0x1eu;
+    h[i] |= (h[i] & SIGN) * 0x1eu;
+  }
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
 }
 
 // Two codes as two values of T in one word, by integer and packed
@@ -349,7 +465,7 @@ __device__ __forceinline__ int swizzled(int r, int ch) {
 template <typename T, int SRC, int NB>
 __device__ __forceinline__ void convert_stage(const unsigned char *raw,
                                               unsigned char *op, int ct) {
-  constexpr int RAWB = raw_row_bytes(SRC);
+  constexpr int RAWB = raw_row_bytes(SRC, sizeof(T));
   constexpr int VPR = RAWB / 16;          // 16-byte raw vectors per row
   // every lane's raw vectors are loaded before the first is converted
   constexpr int PER_LANE = NB * VPR / 32;
@@ -365,7 +481,15 @@ __device__ __forceinline__ void convert_stage(const unsigned char *raw,
     const int v = ct + 32 * i;
     const int r = v / VPR, vi = v % VPR;
     const uint4 w = in_flight[i];
-    if constexpr (SRC == SRC_INT8) {
+    if constexpr (std::is_same<T, signed char>::value) {
+      // packed int4 under int8 queries: 16 bytes, whose low nibbles are
+      // features 16 vi .. 16 vi + 15 of the slice's first half (chunk vi)
+      // and whose high nibbles are those of its second half (chunk 4 + vi)
+      uint4 lo, hi;
+      nibbles_to_s8(w, lo, hi);
+      *reinterpret_cast<uint4 *>(op + swizzled(r, vi)) = lo;
+      *reinterpret_cast<uint4 *>(op + swizzled(r, 4 + vi)) = hi;
+    } else if constexpr (SRC == SRC_INT8) {
       // 16 codes: features 16 vi .. 16 vi + 15 of the slice
       *reinterpret_cast<uint4 *>(op + swizzled(r, 2 * vi)) =
           codes_to<T, SRC>(w.x, w.y);
@@ -435,21 +559,84 @@ __device__ __forceinline__ float insert_held(float (&ld)[KL], int (&li)[KL],
   return th;
 }
 
-// T: bfloat16 or float16, the type of the queries and of the operand
-// stages. KL: the capacity of a slot row's list when the thread that
-// inserts into it holds it in registers (16 or 32, at least k), or 0 for a
-// list in shared memory (k above 32). SRC and NB as in probe_kernel; `map`
-// is the tensor map over the store (`store_map`).
-template <typename T, int SRC, int NB, int KL>
-__global__ void __launch_bounds__(threads(SRC))
+// The gate's select takes four rows side by side (their chains of
+// reductions interleave) and resolves the top 16 bits of a distance, the
+// rest taken as ones: a bound rounded up is still a bound, and 16 bits
+// timed faster than 8 or 32 (PERF.md, the pool's costs).
+constexpr int GATE_ROWS = 4, GATE_BITS = 16;
+
+// For R consecutive slot rows (`rows`: POOL keys each, in any order; R a
+// multiple of 4), the distance of each row's kk-th smallest key, or +inf
+// while fewer than kk are filled; by the whole warp, each lane holding
+// POOL / 32 of a row's distance words, and a radix select over their top
+// bits: the answer's bits from the top, each set when fewer than kk words
+// lie at or under the prefix with that bit clear. A lane counts at most
+// POOL / 32 words a row, so four rows' counts (at most POOL each) share one
+// 32-bit reduction in bytes.
+template <int R>
+__device__ __forceinline__ void kth_class_best(const PoolKey *rows, int kk,
+                                               int lane, float (&out)[R]) {
+  constexpr int G = POOL / 32;
+  static_assert(R % 4 == 0 && POOL < 256, "four counts a word");
+  const uint32_t *words = reinterpret_cast<const uint32_t *>(rows);
+  uint32_t u[R][G], ans[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    ans[i] = 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      u[i][g] = words[2 * (i * POOL + lane + 32 * g) + 1];
+  }
+#pragma unroll 2
+  for (int b = 31; b >= 32 - GATE_BITS; --b) {
+    unsigned n[R / 4];
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) n[i] = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const uint32_t x = ans[i] | ((1u << b) - 1u);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        n[i / 4] += u[i][g] <= x ? 1u << (8 * (i % 4)) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) n[i] = __reduce_add_sync(FULL, n[i]);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (int((n[i / 4] >> (8 * (i % 4))) & 0xffu) < kk) ans[i] |= 1u << b;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    // the bits left unresolved, as ones; an empty key's word is all ones
+    const uint32_t a = ans[i] | ((1u << (32 - GATE_BITS)) - 1u);
+    out[i] = a == ~0u ? __int_as_float(0x7f800000)
+                      : key_dist(PoolKey(a) << 32);
+  }
+}
+
+// T: the type of the queries and of the operand stages: bfloat16 or
+// float16, or signed char for int8 query codes (SRC_INT8 or SRC_INT4 only).
+// KL: the capacity of a slot row's list when the thread that inserts into
+// it holds it in registers (16 or 32, at least k), or 0 for a list in
+// shared memory (k above 32). POOL_ON: the launch keeps the rerank pool
+// (k_out > k); the kernels without it carry none of its registers. SRC and
+// NB as in probe_kernel; `map` is the tensor map over the store
+// (`store_map`).
+template <typename T, int SRC, int NB, int KL, bool POOL_ON>
+__global__ void __launch_bounds__(threads(SRC, sizeof(T)))
     probe_kernel_wgmma(const __grid_constant__ CUtensorMap map,
                        const ProbeArgs a) {
-  constexpr int NW = NB / 64;              // 64-bit words of a row's columns
+  using Acc = AccOf<T>;
+  constexpr int QBYTES = sizeof(T);
+  constexpr int SL = slice_of(QBYTES);       // features of a slice
+  constexpr int EPC = 16 / QBYTES;           // features of a 16-byte chunk
+  constexpr int NW = NB / 64;                // 64-bit words of a row's columns
   constexpr int LDT = NB + 4;
-  constexpr int RAWB = raw_row_bytes(SRC);
+  constexpr int RAWB = raw_row_bytes(SRC, QBYTES);
+  constexpr bool RAW = RAWB > 0;             // a raw ring and converters
   constexpr int STAGE_BYTES = NB * SLICE_BYTES;
   constexpr int RAW_BYTES = NB * RAWB;
-  constexpr int NTHREADS = threads(SRC);
+  constexpr int NTHREADS = threads(SRC, QBYTES);
   constexpr int GATHERERS = NTHREADS - 32;   // all but the loader's warp
   constexpr bool SCALED = SRC != SRC_SAME;
   extern __shared__ unsigned char smem_raw[];
@@ -458,11 +645,11 @@ __global__ void __launch_bounds__(threads(SRC))
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T *q = static_cast<const T *>(a.q);
   const int d = a.d, k = a.k;
-  const int ks = slices(d);
+  const int ks = slices(d, QBYTES);
   const long long n_rows = a.n_rows;
   const bool flat = a.items != nullptr;
-  const bool pooled = a.k_out > k;
-  const int S = stages(d, SRC, k, NB, pooled);
+  constexpr bool pooled = POOL_ON;
+  const int S = stages(d, SRC, QBYTES, k, NB, pooled);
   long long blk = blockIdx.x;
   int chunk = 0;
   if (flat) {
@@ -517,15 +704,15 @@ __global__ void __launch_bounds__(threads(SRC))
     // ---------------------------------------------------------- the loader
     // It starts at once: the ring fills while the other warps gather.
     if (lane != 0) return;
-    const uint32_t dst0 = smem_addr(SCALED ? raws : bs);
-    constexpr int BYTES = SCALED ? RAW_BYTES : STAGE_BYTES;
-    constexpr int STEP = SCALED ? RAWB : SLICE;   // elements of the map
+    const uint32_t dst0 = smem_addr(RAW ? raws : bs);
+    constexpr int BYTES = RAW ? RAW_BYTES : STAGE_BYTES;
+    constexpr int STEP = RAW ? RAWB : SL;   // elements of the map
     int st = 0, ph = 0;
     for (int t = 0; t < n_tiles; ++t) {
       const int row = int(dstart) + t_lo + t * NB;
       for (int s = 0; s < ks; ++s) {
-        mbar_wait(SCALED ? raw_empty(st) : op_empty(st), ph ^ 1);
-        const uint32_t full = SCALED ? raw_full(st) : op_full(st);
+        mbar_wait(RAW ? raw_empty(st) : op_empty(st), ph ^ 1);
+        const uint32_t full = RAW ? raw_full(st) : op_full(st);
         mbar_expect_tx(full, BYTES);
         tma_load_2d(dst0 + st * BYTES, &map, full, s * STEP, row);
         if (++st == S) { st = 0; ph ^= 1; }
@@ -535,7 +722,7 @@ __global__ void __launch_bounds__(threads(SRC))
   }
 
   // The resident queries, gathered once by every warp but the loader's:
-  // chunk ch of slice s of slot row r holds features [f0, f0 + 8) of its
+  // chunk ch of slice s of slot row r holds features [f0, f0 + EPC) of its
   // query, zeros past the width and for a dead slot. Four loads are in
   // flight for each thread.
   {
@@ -547,10 +734,12 @@ __global__ void __launch_bounds__(threads(SRC))
       for (int u = 0; u < 4; ++u) {
         const int v = v0 + u * GATHERERS;
         const int r = v / (ks * 8), s = (v % (ks * 8)) >> 3, ch = v & 7;
-        int f0 = s * SLICE + ch * 8;
+        int f0 = s * SL + ch * EPC;
         bool live = v < total && r < nq && f0 < d;
         if constexpr (SRC == SRC_INT4) {
-          const int j0 = s * 32 + (ch & 3) * 8;   // byte of the packed row
+          // byte of the packed row: its low nibble in the first four
+          // chunks, its high nibble in the last four
+          const int j0 = s * (SL / 2) + (ch & 3) * EPC;
           f0 = j0 + (ch >= 4 ? half : 0);
           live = v < total && r < nq && j0 < half;
         }
@@ -578,7 +767,7 @@ __global__ void __launch_bounds__(threads(SRC))
     // behind the others'. No more warps than stages convert: a wait on a
     // phase's parity tells two phases apart, not three, so a warp's first
     // stage must lie in the ring's first round.
-    if constexpr (SCALED) {
+    if constexpr (RAW) {
       const int cw = warp - CONSUMER_WARPS - 1;
       const int step = min(CONVERTER_WARPS, S);
       int st = cw, ph = 0;
@@ -608,9 +797,12 @@ __global__ void __launch_bounds__(threads(SRC))
   const uint64_t adesc = operand_desc(smem_addr(as));
   const uint64_t bdesc = operand_desc(smem_addr(bs));
   float *scw = sc + warp * NB;
-  float acc[NB / 2];
+  Acc acc[NB / 2];
 #pragma unroll
-  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0;
+  // the pool's gate of rows r0 and r1: a live row's starts open, a dead
+  // row's stays shut
+  float u0 = r0 < nq ? inf : -inf, u1 = r1 < nq ? inf : -inf;
   // the list of the slot row that this thread inserts into (threads 0 and 1
   // of each four: rows r0 and r1), when it is held in registers
   constexpr int HELD = KL > 0 ? KL : 1;
@@ -622,7 +814,7 @@ __global__ void __launch_bounds__(threads(SRC))
     held_i[p] = -1;
   }
 #if PROBE_CLOCKS
-  long long c_wait = 0, c_mma = 0, c_test = 0, c_insert = 0;
+  long long c_wait = 0, c_mma = 0, c_test = 0, c_pool = 0, c_insert = 0;
 #endif
   PROBE_TICK(c_start);
   int st = 0, ph = 0;
@@ -648,11 +840,12 @@ __global__ void __launch_bounds__(threads(SRC))
       PROBE_TICK(c1);
       wgmma_fence();
       if constexpr (!(PROBE_PARTS_OFF & 4)) {
+        // four steps of 32 bytes a slice
 #pragma unroll
-        for (int kk = 0; kk < SLICE / 16; ++kk)
-          wgmma_k16<T, NB>(acc, adesc + ((s * A_SLICE_BYTES + kk * 32) >> 4),
-                           bdesc + ((st * STAGE_BYTES + kk * 32) >> 4),
-                           (s | kk) != 0);
+        for (int kk = 0; kk < SLICE_BYTES / 32; ++kk)
+          wgmma_step<T, NB>(acc, adesc + ((s * A_SLICE_BYTES + kk * 32) >> 4),
+                            bdesc + ((st * STAGE_BYTES + kk * 32) >> 4),
+                            (s | kk) != 0);
       }
       wgmma_commit();
       if (s > 0) {
@@ -680,98 +873,156 @@ __global__ void __launch_bounds__(threads(SRC))
     }
     // Thread (g, tq) of a warp holds, for j < NB / 8, columns 8 j + 2 tq and
     // + 1 of slot rows r0 (acc[4 j], [4 j + 1]) and r1 (acc[4 j + 2],
-    // [4 j + 3]). It turns them into distances, folds them into the pool,
-    // and marks in hit0 / hit1 (one bit a column, before the shift by 2 tq)
-    // those under the row's k-th best.
+    // [4 j + 3]). It turns them into distances (kept in the sums'
+    // registers), marks in hit0 / hit1 (one bit a column, before the shift
+    // by 2 tq) those under the row's k-th best, and notes whether any
+    // passes its row's pool gate.
     const float th0 = r0 < nq ? thr[r0] : -inf;
     const float th1 = r1 < nq ? thr[r1] : -inf;
-    unsigned long long hit0[NW], hit1[NW];
+    unsigned long long hit0[NW], hit1[NW], pm0[NW], pm1[NW];
 #pragma unroll
-    for (int w = 0; w < NW; ++w) hit0[w] = hit1[w] = 0;
+    for (int w = 0; w < NW; ++w) hit0[w] = hit1[w] = pm0[w] = pm1[w] = 0;
 #pragma unroll
     for (int j = 0; j < NB / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + 2 * tq + (e & 1);
-        const int r = (e & 2) ? r1 : r0;
-        const float s = acc[4 * j + e];
+        const float s = sum_of(acc[4 * j + e]);
         float v = 1.0f - s;
         if constexpr (SCALED && !(PROBE_PARTS_OFF & 8))
           v = __fsub_rn(1.0f, __fmul_rn(s, scw[c]));
         v = c < ncol ? v : inf;
-        acc[4 * j + e] = v;
-        if (pooled && c < ncol && r < nq) {
-          // a class of a row belongs to the one thread that holds its
-          // columns; rows come in ascending order and only a smaller key
-          // is stored, so equal distances keep the lower row
-          const PoolKey key = make_key(v, int(row0) + c);
-          PoolKey *slot = pool_s + r * POOL + ((t0 + c) & (POOL - 1));
-          if (key < *slot) *slot = key;
-        }
+        keep(acc[4 * j + e], v);
         const unsigned long long bit = 1ull << ((8 * j + (e & 1)) & 63);
         if (e & 2) hit1[j / 8] |= v < th1 ? bit : 0;
         else hit0[j / 8] |= v < th0 ? bit : 0;
+        if constexpr (pooled && !(PROBE_PARTS_OFF & 48)) {
+          // the pool's gate: dead rows' are -inf
+          if (e & 2) pm1[j / 8] |= c < ncol && v <= u1 ? bit : 0;
+          else pm0[j / 8] |= c < ncol && v <= u0 ? bit : 0;
+        } else if constexpr (pooled && (PROBE_PARTS_OFF & 48) == 16) {
+          // no gate: each column folded by the thread that holds it
+          const int r = (e & 2) ? r1 : r0;
+          PoolKey *slot = pool_s + r * POOL +
+                          (((t0 + c) & (POOL - 1)) ^ pool_swz(r));
+          const PoolKey key = make_key(v, int(row0) + c);
+          if (c < ncol && r < nq && key < *slot) *slot = key;
+        }
       }
     }
     unsigned long long some = 0;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) some |= hit0[w] | hit1[w];
-    // the common case after the first tiles: nothing beats any threshold
+    for (int w = 0; w < NW; ++w) some |= hit0[w] | hit1[w] | pm0[w] | pm1[w];
     PROBE_TOCK(c_test, c3);
-    if (!__any_sync(FULL, some != 0) || (PROBE_PARTS_OFF & 1)) continue;
-    PROBE_TICK(c4);
+    // the common case after the first tiles: no column beats its row's k-th
+    // best or passes its row's pool gate
+    if (__any_sync(FULL, some != 0) && !(PROBE_PARTS_OFF & 1)) {
+      PROBE_TICK(c4);
 #pragma unroll
-    for (int j = 0; j < NB / 8; ++j) {
-      const int c = 8 * j + 2 * tq;
-      *reinterpret_cast<float2 *>(tile + r0 * LDT + c) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2 *>(tile + r1 * LDT + c) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-    // the four threads of a row join their marks; the first of them then
-    // inserts row r0's marked columns, the second row r1's, in column order
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      hit0[w] <<= 2 * tq;
-      hit1[w] <<= 2 * tq;
-      hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 1);
-      hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 2);
-      hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 1);
-      hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 2);
-    }
-    __syncwarp();
-    const int r = tq == 0 ? r0 : r1;
-    if (tq < 2 && r < nq) {
-      const float *trow = tile + r * LDT;
-      float th = thr[r];
+      for (int j = 0; j < NB / 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        *reinterpret_cast<float2 *>(tile + r0 * LDT + c) =
+            make_float2(kept(acc[4 * j]), kept(acc[4 * j + 1]));
+        *reinterpret_cast<float2 *>(tile + r1 * LDT + c) =
+            make_float2(kept(acc[4 * j + 2]), kept(acc[4 * j + 3]));
+      }
+      // the four threads of a row join their marks; the first of them then
+      // inserts row r0's marked columns, the second row r1's, in column
+      // order, and folds those that passed the row's pool gate
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        unsigned long long marks = tq == 0 ? hit0[w] : hit1[w];
-        while (marks) {
-          const int c = 64 * w + __ffsll(marks) - 1;
-          marks &= marks - 1;
-          const float v = trow[c];
-          if (v < th) {
-            if constexpr (KL > 0) {
-              th = insert_held<KL>(held_d, held_i, k, v, int(row0) + c);
-            } else {
-              insert_key(list + r, k, make_key(v, int(row0) + c));
-              th = key_dist(list[(k - 1) * QB + r]);
+        hit0[w] <<= 2 * tq;
+        hit1[w] <<= 2 * tq;
+        hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 1);
+        hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 2);
+        hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 1);
+        hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 2);
+        if constexpr (pooled) {
+          pm0[w] <<= 2 * tq;
+          pm1[w] <<= 2 * tq;
+          pm0[w] |= __shfl_xor_sync(FULL, pm0[w], 1);
+          pm0[w] |= __shfl_xor_sync(FULL, pm0[w], 2);
+          pm1[w] |= __shfl_xor_sync(FULL, pm1[w], 1);
+          pm1[w] |= __shfl_xor_sync(FULL, pm1[w], 2);
+        }
+      }
+      __syncwarp();
+      const int r = tq == 0 ? r0 : r1;
+      if (tq < 2 && r < nq) {
+        const float *trow = tile + r * LDT;
+        float th = thr[r];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          unsigned long long marks = tq == 0 ? hit0[w] : hit1[w];
+          while (marks) {
+            const int c = 64 * w + __ffsll(marks) - 1;
+            marks &= marks - 1;
+            const float v = trow[c];
+            if (v < th) {
+              if constexpr (KL > 0) {
+                th = insert_held<KL>(held_d, held_i, k, v, int(row0) + c);
+              } else {
+                insert_key(list + r, k, make_key(v, int(row0) + c));
+                th = key_dist(list[(k - 1) * QB + r]);
+              }
             }
           }
         }
+        thr[r] = th;
+        if constexpr (pooled) {
+          // the row's classes belong to this thread; rows come in
+          // ascending order and only a smaller key is stored, so equal
+          // distances keep the lower row
+          PROBE_TICK(c5);
+          PoolKey *prow = pool_s + r * POOL;
+          const int swz = pool_swz(r);
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            unsigned long long marks = tq == 0 ? pm0[w] : pm1[w];
+            while (marks) {
+              const int c = 64 * w + __ffsll(marks) - 1;
+              marks &= marks - 1;
+              const PoolKey key = make_key(trow[c], int(row0) + c);
+              PoolKey *slot = prow + (((t0 + c) & (POOL - 1)) ^ swz);
+              if (key < *slot) *slot = key;
+            }
+          }
+          PROBE_TOCK(c_pool, c5);
+        }
       }
-      thr[r] = th;
+      __syncwarp();
+      PROBE_TOCK(c_insert, c4);
     }
-    __syncwarp();
-    PROBE_TOCK(c_insert, c4);
+    if constexpr (pooled) {
+      if (t > 0 && ((t + 1) & t) == 0 && !(PROBE_PARTS_OFF & 16)) {
+        // after tiles 2, 4, 8, ...: the warp's 16 rows' gates anew, R rows
+        // side by side (the warp's folds are behind the __syncwarp above)
+        PROBE_TICK(c6);
+        constexpr int R = GATE_ROWS;
+        for (int i0 = 0; i0 < 16 && warp * 16 + i0 < nq; i0 += R) {
+          float u[R];
+          kth_class_best<R>(pool_s + (warp * 16 + i0) * POOL, a.k_out, lane,
+                            u);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const bool live = warp * 16 + i0 + i < nq;
+            u0 = live && i0 + i == g ? u[i] : u0;
+            u1 = live && i0 + i == g + 8 ? u[i] : u1;
+          }
+        }
+        PROBE_TOCK(c_pool, c6);
+      }
+    }
   }
 #if PROBE_CLOCKS
   if (warp == 1 && lane == 0 && blockIdx.x % 97 == 5 && n_tiles > 0)
     printf("[clocks] cta %d: %d tiles of %d slices, %lld cycles: %lld waiting "
-           "for a stage, %lld in wgmma, %lld testing, %lld inserting\n",
+           "for a stage, %lld in wgmma, %lld testing, %lld writing the tile, "
+           "inserting and folding into the pool, %lld in the pool's folds "
+           "and gates\n",
            int(blockIdx.x), n_tiles, ks, clock64() - c_start, c_wait, c_mma,
-           c_test, c_insert);
+           c_test, c_insert, c_pool);
+  PROBE_TICK(c_end);
 #endif
 
   // lists held in registers go to the shared-memory lists, as keys
@@ -794,12 +1045,15 @@ __global__ void __launch_bounds__(threads(SRC))
     a.out_d[(orow + r) * ko + p] = key_dist(key);
     a.out_i[(orow + r) * ko + p] = int(unsigned(key));
   }
-  if (!pooled) return;
+  if constexpr (!pooled || (PROBE_PARTS_OFF & 64)) return;
   if (flat) {
-    const PoolKey *wp = pool_s + warp * 16 * POOL;
+    // the global pool keeps classes in order: the swizzle is undone here
     PoolKey *pool_g = a.pool + (size_t(blk) * QB + warp * 16) * POOL;
-    for (int i = lane; i < 16 * POOL; i += 32)
-      if (wp[i] != EMPTY_KEY) atomicMin(pool_g + i, wp[i]);
+    for (int i = lane; i < 16 * POOL; i += 32) {
+      const int r = warp * 16 + i / POOL, c = i % POOL;
+      const PoolKey key = pool_s[r * POOL + (c ^ pool_swz(r))];
+      if (key != EMPTY_KEY) atomicMin(pool_g + i, key);
+    }
   } else {
     for (int r = warp * 16; r < warp * 16 + 16; ++r)
       // a key's low word is its row
@@ -807,12 +1061,18 @@ __global__ void __launch_bounds__(threads(SRC))
                    k, a.k_out, a.out_d + (orow + r) * ko,
                    a.out_i + (orow + r) * ko, 2 * QB);
   }
+#if PROBE_CLOCKS
+  if (warp == 1 && lane == 0 && blockIdx.x % 97 == 5 && n_tiles > 0)
+    printf("[clocks] cta %d: %lld cycles for the pool's extras or fold\n",
+           int(blockIdx.x), clock64() - c_end);
+#endif
 }
 
 // The tensor map over the store that the loader's TMA loads go through:
-// rows of `d` values of T (SRC_SAME, boxes of NB rows x 64 values in the
-// 128-byte swizzle) or of code bytes (boxes of NB rows x 64 or 32 bytes as
-// they lie). cuTensorMapEncodeTiled lives in libcuda; the runtime hands out
+// rows of `d` values of T (SRC_SAME) or of code bytes. Where the loads land
+// in the operand ring, boxes of NB rows x 128 bytes (64 values, or 128 int8
+// codes under int8 queries) in the 128-byte swizzle; else boxes of NB rows
+// x the raw ring's bytes as they lie. cuTensorMapEncodeTiled lives in libcuda; the runtime hands out
 // its address, so nothing links against libcuda. Returns a CUDA error code.
 using EncodeTiled = CUresult (*)(CUtensorMap *, CUtensorMapDataType,
                                  cuuint32_t, void *, const cuuint64_t *,
@@ -845,6 +1105,7 @@ int store_map(CUtensorMap *map, const ProbeArgs &a) {
   if (a.n_rows < 1 || reinterpret_cast<uintptr_t>(a.data) % 16 != 0)
     return int(cudaErrorInvalidValue);
   constexpr bool CODES = SRC != SRC_SAME;
+  constexpr int RAWB = raw_row_bytes(SRC, sizeof(T));
   const CUtensorMapDataType type =
       CODES ? CU_TENSOR_MAP_DATA_TYPE_UINT8
             : (std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
@@ -852,27 +1113,36 @@ int store_map(CUtensorMap *map, const ProbeArgs &a) {
   const cuuint64_t width = SRC == SRC_INT4 ? a.d / 2 : a.d;
   const cuuint64_t dims[2] = {width, cuuint64_t(a.n_rows)};
   const cuuint64_t strides[1] = {width * (CODES ? 1 : sizeof(T))};
-  const cuuint32_t box[2] = {cuuint32_t(CODES ? raw_row_bytes(SRC) : SLICE),
-                             cuuint32_t(NB)};
+  const cuuint32_t box[2] = {
+      cuuint32_t(RAWB > 0 ? RAWB : slice_of(sizeof(T))), cuuint32_t(NB)};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult res = encode(
       map, type, 2, const_cast<void *>(a.data), dims, strides, box, steps,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CODES ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      RAWB > 0 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+template <typename T, int SRC, int NB, int KL, bool POOL_ON>
+int launch_pooled(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
+                  size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_kernel_wgmma<T, SRC, NB, KL, POOL_ON>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  probe_kernel_wgmma<T, SRC, NB, KL, POOL_ON>
+      <<<n_ctas, threads(SRC, sizeof(T)), smem, stream>>>(map, a);
+  return int(cudaGetLastError());
 }
 
 template <typename T, int SRC, int NB, int KL>
 int launch_held(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
                 size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_kernel_wgmma<T, SRC, NB, KL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  probe_kernel_wgmma<T, SRC, NB, KL>
-      <<<n_ctas, threads(SRC), smem, stream>>>(map, a);
-  return int(cudaGetLastError());
+  return a.k_out > a.k
+             ? launch_pooled<T, SRC, NB, KL, true>(map, a, n_ctas, smem, stream)
+             : launch_pooled<T, SRC, NB, KL, false>(map, a, n_ctas, smem,
+                                                    stream);
 }
 
 template <typename T, int SRC, int NB>
@@ -881,8 +1151,9 @@ int launch(const ProbeArgs &a, int n_ctas, cudaStream_t stream) {
   const int bad = store_map<T, SRC, NB>(&map, a);
   if (bad != 0) return bad;
   const bool pool = a.k_out > a.k;
-  const size_t smem =
-      smem_bytes(a.d, SRC, a.k, NB, pool, stages(a.d, SRC, a.k, NB, pool));
+  constexpr int QBYTES = sizeof(T);
+  const size_t smem = smem_bytes(a.d, SRC, QBYTES, a.k, NB, pool,
+                                 stages(a.d, SRC, QBYTES, a.k, NB, pool));
   // a list of up to 32 entries is held in registers
   if (a.k <= 16)
     return launch_held<T, SRC, NB, 16>(map, a, n_ctas, smem, stream);

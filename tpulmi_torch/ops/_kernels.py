@@ -46,8 +46,8 @@ def _probe_signatures(source: str, launch_args, n_codes: int) -> dict:
             f"{source}_tile_rows": ([], _I),
             # type codes, d, k, pool -> main loop
             f"{source}_loop": ([_I] * (n_codes + 3), _I),
-            # loop, type codes after the query's, d, k, pool -> bytes
-            f"{source}_smem_bytes": ([_I] * (n_codes + 3), _LL)}
+            # loop, type codes, d, k, pool -> bytes
+            f"{source}_smem_bytes": ([_I] * (n_codes + 4), _LL)}
 
 
 SIGNATURES = {

@@ -49,8 +49,9 @@ configurations of the TPU kernel:
 The kernel has two main loops that compute one function
 (csrc/probe_wgmma.cuh, csrc/probe_common.cuh). `probe_loop` is the rule
 that chooses, from the sizes of a launch alone: the wgmma loop for bfloat16
-and float16 queries whenever its shared memory (`smem_bytes`, with the
-block's queries resident) fits, else the staged loop. ``loop="staged"`` or
+and float16 queries, and for int8 queries over int8 or int4 codes, whenever
+its shared memory (`smem_bytes`, with the block's queries resident) fits,
+else the staged loop. ``loop="staged"`` or
 ``"wgmma"`` asks for one by name, for checks that hold the two against each
 other; the wgmma loop raises where the rule would not choose it.
 """
@@ -144,24 +145,36 @@ LOOPS = ("staged", "wgmma")   # the kernel's main loops, by their C code
 _QUERY_BYTES = {0: 2, 1: 2, 2: 4, 3: 1}
 
 
-# the wgmma loop's rings (probe_wgmma.cuh): most stages over a store of the
-# queries' type and over codes, fewest of either
+# the wgmma loop's rings (probe_wgmma.cuh): most stages where the loads land
+# in the operand ring and where converters fill it, fewest of either
 WGMMA_STAGES = (12, 8, 2)
-_RAW_ROW_BYTES = {0: 0, 8: 64, 4: 32}   # code bytes of one row and slice
+SLICE_BYTES = 128   # one operand row of a ring stage
+
+
+def raw_row_bytes(code_bits: int, query_bytes: int = 2) -> int:
+    """Code bytes of one row and slice in the wgmma loop's raw ring
+    (probe_wgmma.cuh::raw_row_bytes); 0 where the loads land in the
+    operand ring: a store of the queries' type, or int8 codes under int8
+    queries. A slice is 128 bytes of the queries' type."""
+    if not code_bits or (code_bits == 8 and query_bytes == 1):
+        return 0
+    return SLICE_BYTES // query_bytes // (1 if code_bits == 8 else 2)
 
 
 def smem_bytes(k: int, tile_rows: int, pool: bool, loop: str = "staged",
-               d: int = 0, code_bits: int = 0, stages: int = 0) -> int:
+               d: int = 0, code_bits: int = 0, stages: int = 0,
+               query_bytes: int = 2) -> int:
     """Shared memory of one probe CTA. The staged loop
     (probe_common.cuh::smem_bytes): the staged query and store slices, the
     product tile, the lists, thresholds and query rows, the column scales,
     and the pool's keys. The wgmma loop (probe_wgmma.cuh::smem_bytes), for
-    queries of width `d` over a store of the queries' type (`code_bits` 0)
-    or of 8- or 4-bit codes, with rings of `stages` (`wgmma_stages`'s when
-    0): 1 KB of alignment, the resident queries (8 KB per 64 features), the
-    operand ring and a quantized store's raw ring, the barriers, the pool's
-    keys, the distance tile, the lists (k keys a slot), thresholds and query
-    rows, and the consumer warps' column scales."""
+    queries of `query_bytes` a value and width `d` over a store of the
+    queries' type (`code_bits` 0) or of 8- or 4-bit codes, with rings of
+    `stages` (`wgmma_stages`'s when 0): 1 KB of alignment, the resident
+    queries (8 KB per slice of 128 bytes), the operand ring and the raw
+    ring where there is one, the barriers, the pool's keys, the distance
+    tile, the lists (k keys a slot), thresholds and query rows, and the
+    consumer warps' column scales."""
     keys = BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0
     tile = BLOCK_SLOTS * (tile_rows + 4) * 4
     if loop == "staged":
@@ -170,26 +183,30 @@ def smem_bytes(k: int, tile_rows: int, pool: bool, loop: str = "staged",
                 + tile_rows * 4 + keys)
     if loop != "wgmma":
         raise ValueError(f"unknown main loop {loop!r}")
-    stages = stages or wgmma_stages(d, code_bits, k, pool, tile_rows)
-    return (1024 + -(-d // 64) * BLOCK_SLOTS * 128
-            + stages * tile_rows * (128 + _RAW_ROW_BYTES[code_bits]) + 512
-            + keys + tile + BLOCK_SLOTS * k * 8 + BLOCK_SLOTS * 8
+    stages = stages or wgmma_stages(d, code_bits, k, pool, tile_rows,
+                                    query_bytes)
+    slice_features = SLICE_BYTES // query_bytes
+    return (1024 + -(-d // slice_features) * BLOCK_SLOTS * SLICE_BYTES
+            + stages * tile_rows * (SLICE_BYTES
+                                    + raw_row_bytes(code_bits, query_bytes))
+            + 512 + keys + tile + BLOCK_SLOTS * k * 8 + BLOCK_SLOTS * 8
             + 4 * tile_rows * 4)
 
 
 @lru_cache(maxsize=None)
 def wgmma_stages(d: int, code_bits: int, k: int, pool: bool,
-                 tile_rows: int) -> int:
+                 tile_rows: int, query_bytes: int = 2) -> int:
     """Stages of the wgmma loop's rings (probe_wgmma.cuh::stages): as many
     as fit the opt-in limit of an H100 beside the rest, up to the most
-    (over codes 8, 4, 3 or 2, so that each of the four converter warps
-    keeps its stages); 0 when not even the fewest fit."""
+    (with converters 8, 4, 3 or 2, so that each of the four converter
+    warps keeps its stages); 0 when not even the fewest fit."""
     most, most_codes, fewest = WGMMA_STAGES
-    for n in range(most_codes if code_bits else most, fewest - 1, -1):
-        if code_bits and n > 4 and n % 4:
-            continue    # over codes 8, 4, 3 or 2: the four converter warps
-        if smem_bytes(k, tile_rows, pool, "wgmma", d, code_bits,
-                      n) <= SMEM_OPTIN_H100:
+    raw = raw_row_bytes(code_bits, query_bytes) > 0
+    for n in range(most_codes if raw else most, fewest - 1, -1):
+        if raw and n > 4 and n % 4:
+            continue    # with converters 8, 4, 3 or 2: the four warps
+        if smem_bytes(k, tile_rows, pool, "wgmma", d, code_bits, n,
+                      query_bytes) <= SMEM_OPTIN_H100:
             return n
     return 0
 
@@ -197,13 +214,15 @@ def wgmma_stages(d: int, code_bits: int, k: int, pool: bool,
 def probe_loop(query_bytes: int, code_bits: int, d: int, k: int, pool: bool,
                tile_rows: int) -> str:
     """The main loop a launch takes (probe_common.cuh::loop_of): the wgmma
-    loop for 2-byte queries (bfloat16, float16) whenever its shared memory,
-    which grows with d, fits the opt-in limit of an H100 with rings of at
-    least 2 stages; else the staged loop, which also serves float32 and
-    int8 queries. A function of these sizes alone: no launch is tried and
-    caught."""
-    fits = wgmma_stages(d, code_bits, k, pool, tile_rows) > 0
-    return "wgmma" if query_bytes == 2 and fits else "staged"
+    loop for 2-byte queries (bfloat16, float16), and for int8 queries over
+    int8 or packed-int4 codes, whenever its shared memory, which grows with
+    d, fits the opt-in limit of an H100 with rings of at least 2 stages;
+    else the staged loop, which also serves float32 queries. A function of
+    these sizes alone: no launch is tried and caught."""
+    takes = query_bytes == 2 or (query_bytes == 1 and code_bits != 0)
+    fits = takes and wgmma_stages(d, code_bits, k, pool, tile_rows,
+                                  query_bytes) > 0
+    return "wgmma" if fits else "staged"
 
 
 def common_loop(query_bytes: int, code_bits: int, d: int, launches):
@@ -244,7 +263,8 @@ def resolve_tiling(pair: bool, *, k: int, pool: bool, device,
     if not pair:
         return False
     loop = probe_loop(query_bytes, code_bits, d, k, pool, 128)
-    need = smem_bytes(k, 128, pool, loop, d, code_bits)
+    need = smem_bytes(k, 128, pool, loop, d, code_bits,
+                      query_bytes=query_bytes)
     have = smem_budget(device)
     if need <= have:
         return True
@@ -621,8 +641,8 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
     lib = _kernels.load(source + ("_pair" if pair else ""))
     tile_rows = 128 if pair else 64
     code_bits = codes[1] if len(codes) > 1 else 0
-    rule = probe_loop(_QUERY_BYTES[codes[0]], code_bits, d, k, pool,
-                      tile_rows)
+    query_bytes = _QUERY_BYTES[codes[0]]
+    rule = probe_loop(query_bytes, code_bits, d, k, pool, tile_rows)
     if loop == "wgmma" and rule != "wgmma":
         raise ValueError(f"the wgmma loop does not take this launch "
                          f"(d={d}, k={k}, pool={pool}, tile of {tile_rows})")
@@ -632,8 +652,9 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             or LOOPS[getattr(lib, f"{source}_loop")(*codes, d, k, int(pool))]
             != rule
             or getattr(lib, f"{source}_smem_bytes")(
-                LOOPS.index(loop), *codes[1:], d, k, int(pool))
-            != smem_bytes(k, tile_rows, pool, loop, d, code_bits)):
+                LOOPS.index(loop), *codes, d, k, int(pool))
+            != smem_bytes(k, tile_rows, pool, loop, d, code_bits,
+                          query_bytes=query_bytes)):
         raise RuntimeError("csrc/probe_common.cuh and ops/probe_topk.py "
                            "differ on block, tile or shared-memory sizes "
                            "or on the main loop")

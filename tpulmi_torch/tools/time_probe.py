@@ -1,23 +1,28 @@
 """Time the probe kernel's two main loops on one NVIDIA card.
 
     python3 -m tpulmi_torch.tools.time_probe [--off BITS] [--clocks]
-                                             [--rounds N]
+                                             [--rounds N] [--match TEXT]
 
 A synthetic store of the main path's shape (about 300K unit rows of 768
 features in 122 buckets of 960 to 3,960 rows, 10k queries at 2 probes drawn
 in proportion to bucket size, k = 10) is probed by every configuration
-that has the wgmma loop: full precision, int8 and int4 codes, each with the
-64- and the 128-row tile and through the worklist, beside the staged loop
-on the same inputs. Prints one line per configuration and round with the
+that has the wgmma loop: full precision, int8 and int4 codes under bfloat16
+queries, int8 and int4 codes under int8 queries, each with the 64- and the
+128-row tile, through the worklist and with the rerank pool (k_out = 2k,
+with either tile), beside the staged loop on the same inputs. Each line
+names the main loop that the launch took. Prints one line per configuration and round with the
 mean time of 20 launches, after the card's name and power limit. The store
 is not a built index: compare these times with each other, and take the
 main path's from chip_smoke.py.
 
 ``--off BITS`` builds the wgmma loop with parts left out
 (csrc/probe_wgmma.cuh, PROBE_PARTS_OFF: 1 the list inserts, 2 the whole
-epilogue, 4 the wgmmas, 8 the column scales of a quantized store), into
-libraries of their own, to see what the rest costs; the staged loop and the
-worklist's merge are then not run, and no result is checked. ``--clocks``
+epilogue, 4 the wgmmas, 8 the column scales of a quantized store, 16 the
+pool's gate (every column folded from the registers instead, a pool
+without a gate), 32 the pool's folds, 64 its extras), into libraries of
+their own, to see what the rest costs; the staged loop and the worklist's
+merge are then not run, and no result is checked. ``--match TEXT`` times
+only the configurations whose line would hold TEXT. ``--clocks``
 builds it with PROBE_CLOCKS=1: one warp of every 97th CTA prints where its
 cycles went, and each configuration is launched twice only (the times
 printed then mean little).
@@ -53,6 +58,7 @@ def main(argv=None):
     ap.add_argument("--off", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--clocks", action="store_true")
+    ap.add_argument("--match", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_probe: no CUDA device", file=sys.stderr)
@@ -61,6 +67,7 @@ def main(argv=None):
         _kernels.NVCC_FLAGS += (f"-DPROBE_PARTS_OFF={args.off}",)
     if args.clocks:
         _kernels.NVCC_FLAGS += ("-DPROBE_CLOCKS=1",)
+    _kernels.build(_kernels.LIBRARIES)      # all at once, not one by one
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -93,19 +100,32 @@ def main(argv=None):
     data = x.bfloat16()
     launches = [("full precision", probe.probe_topk,
                  (q, lay.qidx, data, lay.blocks, K))]
+    qc, qs = quantize_rows(q.float())
     for bits, quant in ((8, quantize_rows), (4, quantize_rows_int4)):
         codes, scales = quant(x)
         launches.append((f"int{bits} codes", probe.probe_topk_quant,
                          (q, lay.qidx, codes, scales, lay.blocks, K, bits)))
+        launches.append((f"int8 queries, int{bits} codes",
+                         probe.probe_topk_int8q,
+                         (qc, qs, lay.qidx, codes, scales, lay.blocks, K,
+                          bits)))
     for rnd in range(args.rounds):
         for name, fn, a in launches:
-            configs = [("wgmma", {}), ("wgmma, 128-row tile", dict(pair=True)),
-                       ("wgmma, worklist", wl)]
+            configs = [("", {}), ("128-row tile", dict(pair=True)),
+                       ("worklist", wl), ("pool", dict(k_out=2 * K)),
+                       ("pool, 128-row tile", dict(k_out=2 * K, pair=True))]
             if not args.off and not args.clocks:
-                configs.insert(1, ("staged", dict(loop="staged")))
+                configs.insert(1, ("", dict(loop="staged")))
             for label, opts in configs:
+                if args.match not in f"{name}, {label}, {opts}":
+                    continue
+                before = probe.loop_launch_counts()
+                fn(*a, **opts)
+                after = probe.loop_launch_counts()
+                loop = [n for n in after if after[n] != before[n]][0]
                 ms = cuda_ms(lambda: fn(*a, **opts), 1 if args.clocks else 20)
-                print(f"round {rnd}: {name}, {label}: {ms:.4f} ms = "
+                print(f"round {rnd}: {name}, {loop}"
+                      f"{', ' + label if label else ''}: {ms:.4f} ms = "
                       f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     return 0
 

@@ -23,16 +23,19 @@ result line.
              tile reaches past its end (int8 queries there also equal to
              the staged loop to the bit); then every further
              configuration of the kernel (the 128-row tile, the worklist's
-             item and merge kernels, the rerank pool, and their
-             combinations) against its plain version and, to the bit,
-             against the one-CTA-per-block kernel, on a store with one
-             bucket of more than 20 times the mean, an empty probed bucket,
-             dumped slots, a tight and an undersized worklist (two
+             item and merge kernels, the item kernel on its persistent
+             grid and on 7 CTAs, whose pieces must be its schedule's, the
+             rerank pool, and their combinations) against its plain
+             version and, to the bit, against the one-CTA-per-block
+             kernel, on a store with one bucket of more than 20 times the
+             mean, an empty probed bucket, dumped slots, a tight and an
+             undersized worklist (two
              launches are held together to the bit under one main loop;
              under int8 queries every configuration, with and without the
              pool, equals the staged loop to the bit);
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
-             synthetic corpus with 122 buckets, then LearnedIndex.search of
+             synthetic corpus with 122 buckets (and a sha256 of what it
+             built, the same in every run), then LearnedIndex.search of
              10k queries at 1, 2, 3, 4 and 7 probes, recall@10 against an
              exact oracle, and the launch count of every kernel;
 4. quantized - on that index, for an int8 and then a packed-int4 store:
@@ -64,6 +67,7 @@ name and power limit as nvidia-smi reports them, and
 {"ok": true, "device": {...}}.
 """
 
+import itertools
 import json
 import re
 import subprocess
@@ -83,6 +87,7 @@ INT8Q_TOL = 1e-5
 KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
                   "probe_topk_quant": "tpulmi_torch/csrc/probe_topk_quant.cu",
                   "probe_common": "tpulmi_torch/csrc/probe_common.cuh",
+                  "probe_wgmma": "tpulmi_torch/csrc/probe_wgmma.cuh",
                   "merge_items": "tpulmi_torch/csrc/merge_items.cu"}
 N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
 
@@ -407,7 +412,9 @@ def phase_ties(dev, errs):
                 q, qf, data, layout, kinds):
             n_pairs = 0
             for opts in ({}, dict(pair=True), dict(wl_pad=256, item_rows=128),
-                         dict(wl_pad=256, item_rows=128, pair=True)):
+                         dict(wl_pad=256, item_rows=128, pair=True),
+                         dict(wl_pad=256, item_rows=128, ctas=7),
+                         dict(wl_pad=256, item_rows=128, pair=True, ctas=7)):
                 kern, loop = ran_loop(lambda: fn(*args, k, *tail, **opts))
                 torch.cuda.synchronize()
                 if opts.get("wl_pad", 0) and int(kern[2]) > opts["wl_pad"]:
@@ -445,7 +452,8 @@ def phase_ties(dev, errs):
             log(f"[kernels] {name} d={d} {dtype}: equal rows in a tile and "
                 f"across tile and item edges, a ragged tile past the store's "
                 f"end: {loop} loop, lower row first in {n_pairs} pairs (dense, "
-                f"128-row tile, worklist, both); max |err| "
+                f"128-row tile, worklist, both; the worklist also on 7 CTAs); "
+                f"max |err| "
                 f"{errs[name]:.3g}")
     return errs
 
@@ -565,7 +573,7 @@ def phase_variants(dev, errs):
     import torch
     from tpulmi_torch.ops.probe_topk import (common_loop, group_slots,
                                              merge_items, merge_items_plain,
-                                             probe_loop)
+                                             probe_loop, worklist_pieces)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rng = torch.Generator().manual_seed(SEED + 1)
@@ -641,26 +649,45 @@ def phase_variants(dev, errs):
             wants = {paired: worklist_total(layout, counts,
                                             mc * (2 if paired else 1))
                      for paired in (False, True)}
-            for paired, want in wants.items():
-                opts = dict(item_rows=mc, pair=paired, loop=tiles)
+            for (paired, want), ctas in itertools.product(wants.items(),
+                                                          (0, 7)):
+                # the persistent grid of the wgmma loop: as many CTAs as
+                # the card holds (0), or 7, each a range of many items
+                opts = dict(item_rows=mc, pair=paired, loop=tiles, ctas=ctas)
+                on = f"pair={paired}, ctas={ctas or 'the grid'}"
                 parts = fn(*args, k, *tail, wl_pad=want + 1000, merge=False,
                            **opts)
                 if int(parts.total) != want:
                     raise AssertionError(
                         f"worklist total {int(parts.total)} != {want}")
+                if ctas and (tiles or probe_loop(qbytes, bits, d, k, False,
+                                                 128 if paired else 64)
+                             ) == "wgmma":
+                    firsts = parts.block_items[:, 0].tolist()
+                    span = mc * (2 if paired else 1)
+                    starts = [firsts[b] + c0 for _, b, c0, _ in
+                              worklist_pieces(parts.items, parts.total,
+                                              layout.blocks, span,
+                                              128 if paired else 64, ctas)]
+                    if torch.nonzero(parts.written).flatten().tolist() \
+                            != starts:
+                        raise AssertionError(f"worklist ({on}) marks other "
+                                             f"pieces than its schedule")
                 merged = merge_items(layout.blocks, parts, k)
                 same(merged, merge_items_plain(layout.blocks, parts, k),
-                     f"merge kernel against its plain version, {what}")
+                     f"merge kernel against its plain version ({on}), "
+                     f"{what}")
                 if not name.startswith("probe_topk_int8q"):
                     # (int8 queries: the parts hold raw scores, the scale
                     # comes after the merge; the whole calls below cover it)
-                    same(merged, dense, f"worklist (pair={paired}), {what}")
+                    same(merged, dense, f"worklist ({on}), {what}")
                 tight = fn(*args, k, *tail, wl_pad=want, **opts)
-                same(tight, dense, f"tight worklist (pair={paired}), {what}")
+                same(tight, dense, f"tight worklist ({on}), {what}")
                 *_, total = fn(*args, k, *tail, wl_pad=want // 2, **opts)
                 if int(total) != want or int(tight[2]) != want:
                     raise AssertionError("an undersized or tight worklist "
                                          "reports another total")
+            opts = dict(item_rows=mc, pair=True, loop=tiles)
             wl_plain = plain(*args, k, *tail, wl_pad=want, **opts)
             if int(wl_plain[2]) != want:
                 raise AssertionError("the plain worklist counts another total")
@@ -681,7 +708,8 @@ def phase_variants(dev, errs):
                 layout, nq * p, k, tol), f"{what} k_out={k_out}")
             for opts in (dict(pair=True), dict(wl_pad=wants[False] + 1000,
                                                item_rows=mc),
-                         dict(wl_pad=wants[True], item_rows=mc, pair=True)):
+                         dict(wl_pad=wants[True], item_rows=mc, pair=True),
+                         dict(wl_pad=wants[False], item_rows=mc, ctas=7)):
                 same(fn(*args, k, *tail, k_out=k_out, loop=pools,
                         **opts)[:2], pooled, f"pool with {opts}, {what}")
             parts = fn(*args, k, *tail, k_out=k_out,
@@ -701,7 +729,9 @@ def phase_variants(dev, errs):
                                  dict(wl_pad=wants[False] + 1000,
                                       item_rows=mc),
                                  dict(wl_pad=wants[True], item_rows=mc,
-                                      pair=True)):
+                                      pair=True),
+                                 dict(wl_pad=wants[True], item_rows=mc,
+                                      pair=True, ctas=7)):
                         got, loop = ran_loop(
                             lambda: fn(*args, k, *tail, **extra, **opts))
                         loops.append(loop)
@@ -718,8 +748,9 @@ def phase_variants(dev, errs):
                     f"bit, and with the pool to the one-CTA-per-block "
                     f"kernel (its extras against the definition: "
                     f"probe_pool above)")
-    log("[kernels] the 128-row tile, the worklist (also tight and with the "
-        "128-row tile) and the pool's combinations equal the "
+    log("[kernels] the 128-row tile, the worklist (also tight, with the "
+        "128-row tile, on the persistent grid and on 7 CTAs, whose pieces "
+        "are its schedule's) and the pool's combinations equal the "
         "one-CTA-per-block kernel to the bit; the merge kernel equals its "
         "plain version to the bit")
     return errs
@@ -730,6 +761,7 @@ def phase_main(dev):
     import numpy as np
     import torch
     from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
+    from tpulmi_torch.build import build_digest
     from tpulmi_torch.data import synthetic_dataset
     from tpulmi_torch.evaluate import recall_at_k
     from tpulmi_torch.ops.probe_topk import (launch_counts,
@@ -784,6 +816,11 @@ def phase_main(dev):
     log(f"[main] build {build_s:.3f}s; store {tuple(store.data_sorted.shape)}"
         f" f32 ({store.data_sorted.numel() * 4 / 1e9:.3f} GB) + bf16 copy "
         f"({store.data_sorted.numel() * 2 / 1e9:.3f} GB)")
+    # equal digests: the same build to the bit, in any two runs
+    log(f"[main] build digest (sha256 of centroids, router parameters, "
+        f"store rows, ids and offsets): " + build_digest(
+            index.built.centroids, index.built.classifier.model,
+            store.data_sorted, store.ids_sorted, store.offsets))
     gt, gt_bf16 = oracle(ds, dev), oracle(ds, dev, bf16_inputs=True)
     recalls = {}
     for p, (runs, dists, ids) in searches.items():
@@ -1214,14 +1251,19 @@ def phase_timing(index, stores, ds, dev, name):
     wl = dict(wl_pad=max(-(-int(n_items * 1.15) // 1024) * 1024, 1024),
               item_rows=1024)
     n_blocks = int(layout.blocks.shape[0])
-    part_bytes = n_items * BLOCK_SLOTS * k * 8
+    parts = probe_topk(*args, merge=False, **wl)
+    # the persistent grid writes one set of partial lists a piece, and marks
+    # it: what this run's items need written and read again
+    n_pieces = int(parts.written.sum())
+    part_bytes = n_pieces * BLOCK_SLOTS * k * 8
     lists = build_worklist(layout.blocks, wl["wl_pad"], 1024)
-    list_bytes = sum(t.numel() * 4 for t in lists[:2])
+    list_bytes = sum(t.numel() * 4 for t in lists[:2]) + wl["wl_pad"]
     build_ms = cuda_ms(lambda: build_worklist(layout.blocks, wl["wl_pad"],
                                               1024), 20)
     results["probe_worklist"] = measure(
         f"worklist item kernel (bf16, {n_items} items in a list of "
-        f"{wl['wl_pad']}; {build_ms:.4f} ms of it builds the list)",
+        f"{wl['wl_pad']}, written as {n_pieces} pieces; {build_ms:.4f} ms "
+        f"of it builds the list)",
         lambda: probe_topk(*args, merge=False, **wl),
         lambda: probe_topk_plain(*args, merge=False, **wl), library,
         own_full(q, data), DIST_TOL,
@@ -1229,7 +1271,6 @@ def phase_timing(index, stores, ds, dev, name):
         check=lambda: compare(probe_topk(*args, **wl)[:2],
                               probe_topk_plain(*args, **wl)[:2],
                               own_full(q, data), layout, n_q * p))
-    parts = probe_topk(*args, merge=False, **wl)
 
     def merge_equal():
         a = merge_items(layout.blocks, parts, k)
@@ -1241,7 +1282,8 @@ def phase_timing(index, stores, ds, dev, name):
 
     # one library call for the merge: a stable sort of each slot row's item
     # lists laid end to end in chunk order (padded to the block with the
-    # most items), then its first k; the layout is made before the timing
+    # most items; the items that start no piece hold no list and count as
+    # empty), then its first k; the layout is made before the timing
     first, n_of = parts.block_items[:, 0].long(), parts.block_items[:, 1].long()
     width = int(n_of.max()) * k
     slot = torch.arange(n_blocks * BLOCK_SLOTS, device=dev)
@@ -1250,6 +1292,7 @@ def phase_timing(index, stores, ds, dev, name):
     src = (item * BLOCK_SLOTS + (slot % BLOCK_SLOTS)[:, None]) * k + place % k
     inside = (place // k)[None, :] < n_of.repeat_interleave(BLOCK_SLOTS)[:, None]
     src = torch.where(inside, src, torch.zeros_like(src))
+    inside &= parts.written.bool()[src // (BLOCK_SLOTS * k)]
     cat_d = torch.where(inside, parts.part_d.reshape(-1)[src],
                         torch.full_like(src, 10000, dtype=torch.float32))
     cat_i = torch.where(inside, parts.part_i.reshape(-1)[src],
@@ -1277,14 +1320,16 @@ def phase_timing(index, stores, ds, dev, name):
         # block and item arrays a block; no arithmetic
         bound_of(part_bytes + n_blocks * (BLOCK_SLOTS * k * 8 + 20), 0.0,
                  peak_flops), check=merge_equal)
-    whole = [cuda_ms(lambda: probe_topk(*args, **wl), 20),
-             cuda_ms(lambda: probe_topk(*args), 20),
-             cuda_ms(lambda: probe_topk(*args, pair=True, **wl), 20),
-             cuda_ms(lambda: probe_topk(*args, pair=True), 20)]
+    # in turns: one CTA per block, worklist, worklist, one CTA per block
+    whole = [[cuda_ms(lambda: probe_topk(*args, pair=pair, **opts), 20)
+              for opts in ({}, wl, wl, {})] for pair in (False, True)]
+    results["probe_worklist"]["whole_ms"] = (whole[0][1] + whole[0][2]) / 2
     log(f"[timing] whole probe call at probes={p} (ms): worklist "
-        f"{whole[0]:.4f}, one CTA per block {whole[1]:.4f}; with the "
-        f"128-row tile: worklist {whole[2]:.4f}, one CTA per block "
-        f"{whole[3]:.4f}")
+        f"{(whole[0][1] + whole[0][2]) / 2:.4f}, one CTA per block "
+        f"{(whole[0][0] + whole[0][3]) / 2:.4f}; with the 128-row tile: "
+        f"worklist {(whole[1][1] + whole[1][2]) / 2:.4f}, one CTA per block "
+        f"{(whole[1][0] + whole[1][3]) / 2:.4f} (turns "
+        + "; ".join(", ".join(f"{t:.4f}" for t in w) for w in whole) + ")")
 
     for bits, qstore in stores.items():
         codes, scales = qstore.data_sorted, qstore.scales
@@ -1519,7 +1564,7 @@ def main(args) -> int:
                 "probe_topk_quant_int4": ("probe_topk_quant", 268),
                 "probe_topk_int8q_int8": ("probe_topk_quant", 288),
                 "probe_topk_int8q_int4": ("probe_topk_quant", 288),
-                "probe_worklist": ("probe_common", 184),
+                "probe_worklist": ("probe_wgmma", 184),
                 "merge_items": ("merge_items", 184),
                 "probe_pool": ("probe_common", 222),
                 "probe_pair": ("probe_common", 231)}

@@ -12,14 +12,16 @@ import pytest
 import torch
 
 from tpulmi_torch.buckets import build_bucket_store
-from tpulmi_torch.ops.probe_topk import (apply_query_scale, common_loop,
-                                         group_slots, launch_counts,
+from tpulmi_torch.ops.probe_topk import (apply_query_scale, build_worklist,
+                                         common_loop, group_slots,
+                                         launch_counts,
                                          loop_launch_counts, pool_extras,
                                          pool_pairs, probe_loop, probe_topk,
                                          probe_topk_int8q,
                                          probe_topk_int8q_plain,
                                          probe_topk_plain, probe_topk_quant,
-                                         probe_topk_quant_plain)
+                                         probe_topk_quant_plain,
+                                         worklist_pieces)
 from tpulmi_torch.ops.quantize import quantize_rows, quantize_store
 
 pytestmark = pytest.mark.cuda
@@ -448,3 +450,150 @@ def test_equal_rows_under_int8_queries(rng, card, kind, d):
     wgmma loop, at narrow widths too (d = 32: one slice of 128 features,
     three quarters empty)."""
     test_equal_rows_and_the_stores_end(rng, card, kind, d)
+
+
+# ------------------------------------------------- the build, reproducibly
+# one build of the main path's shape cut to 50K rows: the k-means sample of
+# 256 x 122 rows, two epochs of the router, the store laid out in 2048-row
+# buckets
+BUILD = dict(model_type="MLP-5", lr=0.003, n_categories=122, epochs=2,
+             batch_size=1024, row_align=2048, seed=2023)
+BUILD_SCRIPT = """
+import sys, torch
+from tpulmi_torch.build import build_digest, fused_build
+from tpulmi_torch.data import synthetic_dataset
+torch.use_deterministic_algorithms(True)
+ds = synthetic_dataset(n={n}, n_queries=10, d_nav=96, d_search=768,
+                       n_clusters=122, seed=2023)
+nav, search = (torch.from_numpy(ds[k]).cuda() for k in ("data_nav",
+                                                         "data_search"))
+r = fused_build(nav, search, **{build})
+torch.cuda.synchronize()
+print(build_digest(r.centroids, r.model, r.data_sorted, r.ids_sorted,
+                   r.offsets))
+"""
+
+
+def _build(dev, n=50_000):
+    from tpulmi_torch.build import fused_build
+    from tpulmi_torch.data import synthetic_dataset
+
+    ds = synthetic_dataset(n=n, n_queries=10, d_nav=96, d_search=768,
+                           n_clusters=122, seed=2023)
+    nav, search = (torch.from_numpy(ds[k]).to(dev)
+                   for k in ("data_nav", "data_search"))
+    out = fused_build(nav, search, **BUILD)
+    torch.cuda.synchronize()
+    return out
+
+
+def test_build_is_bit_reproducible(card):
+    """Two builds in one process: centroids, router parameters and store
+    equal to the bit (k-means sums each cluster in a fixed order)."""
+    from tpulmi_torch.build import build_digest
+
+    a, b = _build(card), _build(card)
+    for name in ("centroids", "data_sorted", "ids_sorted", "offsets",
+                 "counts", "pred_categories", "losses"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    assert sa.keys() == sb.keys()
+    assert all(torch.equal(sa[n], sb[n]) for n in sa)
+    assert build_digest(a.centroids, a.model, a.data_sorted, a.ids_sorted,
+                        a.offsets) == build_digest(
+        b.centroids, b.model, b.data_sorted, b.ids_sorted, b.offsets)
+
+
+def test_build_under_deterministic_algorithms(card):
+    """The same build with torch.use_deterministic_algorithms(True), in a
+    process of its own so that the setting reaches no other test: no op of
+    the build is one that torch knows to be order-dependent on CUDA."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    out = subprocess.run(
+        [sys.executable, "-c", BUILD_SCRIPT.format(n=50_000, build=BUILD)],
+        cwd=Path(__file__).resolve().parent.parent, env=env,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert len(out.stdout.split()[-1]) == 64
+
+
+# ------------------------------------------- the persistent worklist (K4)
+# (queries, store) of each variant that the wgmma loop's worklist takes:
+# bfloat16 and float16 queries over a store of their type, over int8 and
+# over packed-int4 codes; int8 queries over int8 and int4 codes
+PERSISTENT_KINDS = {"bf16": (torch.bfloat16, 0), "f16": (torch.float16, 0),
+                    "bf16-int8": (torch.bfloat16, 8),
+                    "bf16-int4": (torch.bfloat16, 4),
+                    "f16-int8": (torch.float16, 8),
+                    "int8q-int8": (torch.int8, 8),
+                    "int8q-int4": (torch.int8, 4)}
+
+
+def _persistent_variant(full, q, lay, kind):
+    """(wrapper, arguments up to k, after k, bytes of a query value, code
+    bits) of a PERSISTENT_KINDS entry."""
+    dtype, bits = PERSISTENT_KINDS[kind]
+    if not bits:
+        return (probe_topk, (q.to(dtype), lay.qidx,
+                             full.data_sorted.to(dtype), lay.blocks), (), 2,
+                0)
+    store = quantize_store(full, bits=bits)
+    tail = (lay.qidx, store.data_sorted, store.scales, lay.blocks)
+    if dtype == torch.int8:
+        qc, qs = quantize_rows(q)
+        return probe_topk_int8q, (qc, qs, *tail), (bits,), 1, bits
+    return probe_topk_quant, (q.to(dtype), *tail), (bits,), 2, bits
+
+
+@pytest.mark.parametrize("ctas", [1, 7, 0], ids=["ctas1", "ctas7", "grid"])
+@pytest.mark.parametrize("kind", list(PERSISTENT_KINDS))
+def test_persistent_worklist_equals_dense(rng, card, kind, ctas):
+    """The wgmma loop's worklist on a persistent grid of 1, 7 or (0) as
+    many CTAs as the card holds: item kernel and merge equal the
+    one-CTA-per-block wgmma launch to the bit, with and without the pool,
+    with 64- and 128-row tiles, items of 128 and 1024 rows, a tight pad;
+    the pieces it marks are those of the plain schedule; an undersized pad
+    reports the true total."""
+    full, q, lay, n_slots = _setup(rng, 256, card)
+    fn, args, tail, qbytes, bits = _persistent_variant(full, q, lay, kind)
+    live = lay.slot_of_row < n_slots
+    for k, k_out in ((10, 0), (10, 20), (40, 0)):
+        for pair, item_rows in ((False, 128), (False, 1024), (True, 128)):
+            tile = 128 if pair else 64
+            assert probe_loop(qbytes, bits, 256, k, k_out > k, tile) == \
+                "wgmma"
+            opts = dict(k_out=k_out, pair=pair, item_rows=item_rows)
+            dense = fn(*args, k, *tail, k_out=k_out, pair=pair)
+            want = int(build_worklist(lay.blocks, 1,
+                                      item_rows * (2 if pair else 1))[2])
+            for pad in (8192, want):
+                before = loop_launch_counts()["wgmma"]
+                parts = fn(*args, k, *tail, wl_pad=pad, ctas=ctas,
+                           merge=False, **opts)
+                assert loop_launch_counts()["wgmma"] == before + 1
+                got = fn(*args, k, *tail, wl_pad=pad, ctas=ctas, **opts)
+                torch.cuda.synchronize()
+                assert int(got[2]) == int(parts.total) == want
+                assert torch.equal(got[0][live], dense[0][live]), (k, opts)
+                assert torch.equal(got[1][live], dense[1][live]), (k, opts)
+                if ctas:
+                    # the pieces of the plain schedule, at their first items
+                    firsts = parts.block_items[:, 0].tolist()
+                    starts = [firsts[b] + c0 for _, b, c0, _ in
+                              worklist_pieces(parts.items, parts.total,
+                                              lay.blocks,
+                                              item_rows * (2 if pair else 1),
+                                              tile, ctas)]
+                    assert torch.nonzero(parts.written).flatten().tolist() \
+                        == starts
+                else:
+                    # at least one piece a CTA, at most one an item
+                    assert 0 < int(parts.written.sum()) <= want
+            *_, total = fn(*args, k, *tail, wl_pad=max(want // 2, 1),
+                           ctas=ctas, **opts)
+            assert int(total) == want

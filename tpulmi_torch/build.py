@@ -15,6 +15,7 @@ centroids at every ``(n_train // k)``-th sample point, the
 weights (the tests feed both packages the same ones).
 """
 
+import hashlib
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
 
@@ -87,6 +88,19 @@ class BuildResult(NamedTuple):
     offsets: torch.Tensor          # (k + 1,) int32
     counts: torch.Tensor           # (k,) int32
     pad_rows: int
+
+
+def build_digest(centroids: torch.Tensor, model: MLP,
+                 data_sorted: torch.Tensor, ids_sorted: torch.Tensor,
+                 offsets: torch.Tensor) -> str:
+    """sha256 of the bytes a build made: the centroids, the router's
+    parameters (by name) and the store. Two builds with equal digests are
+    equal to the bit, wherever they ran."""
+    h = hashlib.sha256()
+    params = [v for _, v in sorted(model.state_dict().items())]
+    for t in (centroids, *params, data_sorted, ids_sorted, offsets):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:

@@ -31,11 +31,15 @@
 //     half as many barriers for every store row). The result does not depend
 //     on it: a product element is summed over the features in one order
 //     whatever the tile, and candidates are inserted in row order;
-//   - the worklist (`items` not null): a CTA is one work item, a (block,
-//     chunk) pair, and scans only rows [chunk * span, (chunk + 1) * span) of
-//     its block's bucket. It writes each slot's sorted partial list to a
-//     scratch row of its own; merge_items.cu merges a block's items in chunk
-//     order. A long bucket becomes many CTAs instead of one long one;
+//   - the worklist (`items` not null): a work item is a (block, chunk)
+//     pair, rows [chunk * span, (chunk + 1) * span) of its block's bucket.
+//     Here a CTA is one item: it writes each slot's sorted partial list to
+//     the item's scratch rows and marks the item in `written`. The wgmma
+//     loop runs it on a persistent grid instead (probe_wgmma.cuh): a CTA
+//     walks a range of items, carrying a block's lists across the block's
+//     consecutive items, and writes them once per such piece.
+//     merge_items.cu merges a block's written pieces in chunk order. A long
+//     bucket becomes many items instead of one long CTA;
 //   - the rerank pool (k_out > k): beside the exact k-list, every slot keeps
 //     for each of the POOL residue classes (row - bucket start) mod POOL the
 //     best row it has seen, as one 64-bit key (distance, row) that orders
@@ -49,8 +53,9 @@
 //
 // What bounds them. The 128-row tile and the pool change no byte or
 // operation that must be done: K1's bound (each probed bucket read once,
-// 2 d slots rows operations). The worklist adds the items' partial lists,
-// written once and read once by the merge kernel (items * 64 * k * 8 bytes).
+// 2 d slots rows operations). The worklist adds the pieces' partial lists,
+// written once and read once by the merge kernel (pieces * 64 * k * 8
+// bytes).
 //
 // Two main loops. `probe_kernel` below is the staged loop: plain loads into
 // shared memory, a barrier, WMMA or FMA from shared memory, a barrier, the
@@ -424,23 +429,36 @@ __device__ __forceinline__ void write_extras(const PoolKey *pool,
   }
 }
 
+// The kernels' arguments. At most 128 bytes: past that (and past 256 with
+// the wgmma loop's 128-byte tensor map beside it) the kernels ran 3-9%
+// slower on an H100 for the same work (PERF.md, "The kernels' arguments"),
+// so what only the launch needs (the worklist grid's size) is passed
+// beside it, and the worklist's total is read from `block_items`.
 struct ProbeArgs {
   const void *q;           // (Q, d) of T
   const int *qidx;         // (blocks*QB,) query of each slot row
   const void *data;        // (n_rows, d) of SRC
   const float *scales;     // (n_rows,) or null
-  const int *blocks;       // (blocks, 3): first store row, rows, live slots
-  const int *items;        // (ctas, 2): block (-1: none) and chunk of each
-                           // work item, or null: CTA b is block b
-  float *out_d;            // (blocks*QB, k_out); with items (ctas*QB, k)
+  const int *blocks;       // (n_blocks, 3): first store row, rows, live
+                           // slots
+  const int *items;        // (n_items, 2): block (-1: none) and chunk of
+                           // each work item, or null: CTA b is block b
+  const int *block_items;  // (n_blocks, 2): first item and item count, with
+                           // items
+  signed char *written;    // (n_items,): 1 where an item starts a written
+                           // piece, with items
+  float *out_d;            // (blocks*QB, k_out); with items (n_items*QB, k)
   int *out_i;
   PoolKey *pool;             // (blocks*QB, POOL) keys, with items and a pool
-  int d;
   long long n_rows;
+  int d;
   int k, k_out;            // k_out > k: keep the pool
   int span;                // store rows of one work item
+  int n_items;             // items the scratch holds, with items
+  int n_blocks;            // rows of `blocks`
   float levels;
 };
+static_assert(sizeof(ProbeArgs) <= 128, "the kernels' arguments grew");
 
 // T: type of the queries and of the staged slices. SRC: how the store's
 // rows lie in memory. scales / levels are read only when SRC != SRC_SAME.
@@ -478,6 +496,7 @@ __global__ void __launch_bounds__(THREADS) probe_kernel(const ProbeArgs a) {
     blk = a.items[2 * blockIdx.x];
     chunk = a.items[2 * blockIdx.x + 1];
     if (blk < 0) return;   // padding past the worklist's end
+    if (threadIdx.x == 0) a.written[blockIdx.x] = 1;   // a piece of one item
   }
   const long long dstart = a.blocks[blk * 3 + 0];
   const int dcnt = a.blocks[blk * 3 + 1];
@@ -646,14 +665,17 @@ inline size_t loop_smem_bytes(int loop, int query_bytes, int src, int d, int k,
 // The list holds 32 KPL entries a slot; the smallest that holds k is used.
 // `loop`: LOOP_STAGED or LOOP_WGMMA to ask for that loop (the wgmma loop is
 // refused where the rule would not choose it), anything else for the rule.
+// `ctas`: the wgmma loop's worklist grid (0: as many as the card holds).
 template <typename T, int SRC, int NB>
-int launch_k(const ProbeArgs &a, int n_ctas, int loop, cudaStream_t s) {
+int launch_k(const ProbeArgs &a, int n_ctas, int ctas, int loop,
+             cudaStream_t s) {
   const int rule = loop_of(sizeof(T), SRC, a.d, a.k, a.k_out > a.k, NB);
   if (loop == LOOP_WGMMA && rule != LOOP_WGMMA)
     return int(cudaErrorInvalidValue);
   if (loop != LOOP_STAGED && loop != LOOP_WGMMA) loop = rule;
   if constexpr (sizeof(T) <= 2) {
-    if (loop == LOOP_WGMMA) return hopper::launch<T, SRC, NB>(a, n_ctas, s);
+    if (loop == LOOP_WGMMA)
+      return hopper::launch<T, SRC, NB>(a, n_ctas, ctas, s);
   }
   switch (kpl_of(a.k)) {
     case 1: return launch<T, SRC, 1, NB>(a, n_ctas, s);
@@ -666,7 +688,8 @@ int launch_k(const ProbeArgs &a, int n_ctas, int loop, cudaStream_t s) {
 inline bool sizes_ok(const ProbeArgs &a) {
   return a.k >= 1 && a.k <= 128 && a.k_out >= a.k && a.k_out <= POOL &&
          (a.items == nullptr ||
-          (a.span > 0 && a.span % POOL == 0 &&
+          (a.span > 0 && a.span % POOL == 0 && a.block_items != nullptr &&
+           a.written != nullptr && a.n_items > 0 && a.n_blocks > 0 &&
            (a.k_out == a.k || a.pool != nullptr)));
 }
 

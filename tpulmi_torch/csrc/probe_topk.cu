@@ -94,36 +94,45 @@ long long probe_topk_smem_bytes(int loop, int dtype, int d, int k, int pool) {
                                            PROBE_NB);
 }
 
-// Launch `n_ctas` CTAs on `stream`: one per block of `blocks`, or, with
-// `items` (n_ctas, 2), one per work item of `span` store rows, which writes
-// partial lists (n_ctas * QB, k) to out_d / out_i and folds its pool into
-// `pool`. `k_out` > k asks for the pool (k_out = k: none). `dtype` is the
-// type of q and data: 0 bfloat16, 1 float16, 2 float32. `loop`: 0 or 1 asks
-// for that main loop (1 is refused where probe_topk_loop gives 0), anything
-// else leaves it to the rule. Returns the CUDA error code of the launch
-// (0 = ok).
+// Launch on `stream`: one CTA per block of `blocks` (`n_ctas` = `n_blocks`
+// of them), or, with `items` (n_ctas, 2; `block_items` (n_blocks, 2)),
+// the worklist of `n_ctas` items of `span` store rows. Its partial lists (n_ctas * QB, k) go to out_d /
+// out_i, its pool folds into `pool`, and `written` (n_ctas,) int8, zeros on
+// entry, gets a 1 where an item starts a written piece: the wgmma loop
+// walks the items on a persistent grid (`ctas` CTAs, or with 0 as many as
+// the card holds at once), the staged loop takes one CTA per item and
+// marks each. `k_out` > k asks for the pool (k_out = k: none). `dtype` is
+// the type of q and data: 0 bfloat16, 1 float16, 2 float32. `loop`: 0 or 1
+// asks for that main loop (1 is refused where probe_topk_loop gives 0),
+// anything else leaves it to the rule. Returns the CUDA error code of the
+// launch (0 = ok).
 int probe_topk_launch(const void *q, const void *qidx, const void *data,
-                      const void *blocks, const void *items, void *out_d,
-                      void *out_i, void *pool, int n_ctas, int d,
-                      long long n_rows, int k, int k_out, int span, int dtype,
-                      int loop, void *stream) {
+                      const void *blocks, const void *items,
+                      const void *block_items, void *written, void *out_d,
+                      void *out_i, void *pool, int n_ctas, int ctas,
+                      int n_blocks, int d, long long n_rows, int k, int k_out,
+                      int span, int dtype, int loop, void *stream) {
   using namespace probe;
   if (n_ctas <= 0) return 0;
   const ProbeArgs a{q, static_cast<const int *>(qidx), data, nullptr,
                     static_cast<const int *>(blocks),
                     static_cast<const int *>(items),
+                    static_cast<const int *>(block_items),
+                    static_cast<signed char *>(written),
                     static_cast<float *>(out_d), static_cast<int *>(out_i),
-                    static_cast<PoolKey *>(pool), d, n_rows, k, k_out, span,
-                    1.0f};
-  if (!sizes_ok(a) || d < 8 || d % 8 != 0) return int(cudaErrorInvalidValue);
+                    static_cast<PoolKey *>(pool), n_rows, d, k, k_out, span,
+                    n_ctas, n_blocks, 1.0f};
+  if (!sizes_ok(a) || ctas < 0 || d < 8 || d % 8 != 0)
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_k<__nv_bfloat16, SRC_SAME, PROBE_NB>(a, n_ctas, loop, s);
+      return launch_k<__nv_bfloat16, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop,
+                                                      s);
     case 1:
-      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, loop, s);
+      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop, s);
     case 2:
-      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, loop, s);
+      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -12,17 +12,25 @@
 // tensor cores sum a product differs, with int8 queries not even that: the
 // int32 sums are exact, so the result equals the staged loop's to the bit.
 //
-// One CTA, as in probe_kernel, owns one block of QB = 64 slots (or a work
-// item of it) and walks its bucket's rows in tiles of NB. A slice is 128
-// bytes of the queries' type: 64 features of bfloat16 / float16, 128 of
+// One CTA, as in probe_kernel, owns one block of QB = 64 slots and walks its
+// bucket's rows in tiles of NB. With the worklist (`items`) the grid is
+// persistent instead: as many CTAs as the card holds at once, each taking a
+// contiguous range of the block-major items, balanced to within one item.
+// A CTA keeps a block's resident queries, lists and pool across the block's
+// consecutive items (a piece), writes the piece's partial lists once and
+// marks its first item in `written`; at a block change it folds the old
+// block's pool and gathers the new block's queries, while the loader, which
+// walks the same pieces, keeps the ring full across the change. A slice is
+// 128 bytes of the queries' type: 64 features of bfloat16 / float16, 128 of
 // int8. Its warps have three roles, which meet only at mbarriers after the
 // start:
 //
 //   - warps 0-3, the consumer warpgroup. The 64 slots' query rows are
-//     gathered once, at the start, into the 128-byte-swizzled K-major layout
-//     that wgmma reads (64 rows x 128 bytes a slice, 8 KB); they are the A
-//     operand for the CTA's whole life. For each tile the warpgroup waits
-//     for each slice of NB store rows x 128 bytes in the operand ring,
+//     gathered once a block, at the start or at a block change, into the
+//     128-byte-swizzled K-major layout that wgmma reads (64 rows x 128
+//     bytes a slice, 8 KB); they are the A operand for the whole block.
+//     For each tile the warpgroup waits for each slice of NB store rows x
+//     128 bytes in the operand ring,
 //     starts four wgmma on it (m64nNBk16 with float32 sums, or m64nNBk32
 //     s8 x s8 with int32 sums, in the same registers and fragment layout)
 //     and hands the stage back once those have read it. Then each warp,
@@ -112,8 +120,11 @@
 // three times at 2 probes, from L2; with wgmma reading both operands from
 // shared memory (4 KB for 32 cycles of the tensor cores at m64n64), the
 // TMA writes and, over codes, the converters' reads and writes, shared
-// memory is as busy as the tensor cores. One CTA fills an SM, so blocks run
-// in waves whose tail the longest bucket sets.
+// memory is as busy as the tensor cores. One CTA fills an SM, so the
+// one-CTA-per-block launch runs in waves whose tail the longest bucket sets;
+// the persistent worklist has no such tail (every CTA takes about as many
+// items), and pays instead for a piece's partial lists, the merge, and a
+// gather of queries and a fold of the pool at each block change.
 
 #pragma once
 
@@ -257,6 +268,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 16 bytes from global to shared memory without registers (`bytes` 16, or
+// 0 for zeros), in flight until `cp_async_wait`.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void *src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap *map,
                                             uint32_t bar, int c0, int c1) {
@@ -614,6 +637,181 @@ __device__ __forceinline__ void kth_class_best(const PoolKey *rows, int kk,
   }
 }
 
+// One piece of a CTA's work: the run of one block's work items that the CTA
+// takes one after the other (without a worklist, the CTA's whole block):
+// rows [t_lo, t_hi) of the block's bucket, scanned with the block's queries,
+// lists and pool kept across the items, and written once, to the part row of
+// the piece's first item (`first`; without a worklist, the block's own rows).
+struct Piece {
+  long long blk, dstart;
+  int nq, t_lo, t_hi, first, n_tiles;
+};
+
+// Store rows a worklist item of block `b` scans, in tiles of NB: the
+// block's rows when it has live slots (an empty bucket's one item: none),
+// else none (a block without live slots has no items).
+template <int NB>
+__device__ __forceinline__ int block_tiles(const ProbeArgs &a, int b) {
+  return __ldg(a.blocks + 3 * b + 2) > 0
+             ? (__ldg(a.blocks + 3 * b + 1) + NB - 1) / NB
+             : 0;
+}
+
+// The CTA's range [pos, end) of the worklist: contiguous, and balanced by
+// the tiles its items scan to within one item. Items are weighed by tiles,
+// not counted: a block's last item is short, so ranges of equal counts
+// differ by up to a third in work. With T the tiles of all items, CTA c of
+// G = min(CTAs, N) takes the items that start at a tile in [c T / G,
+// (c + 1) T / G); N = min(true total, items the scratch holds), the true
+// total read here from the last block's first item and count, so that the
+// host never reads it, ends the last range. All threads
+// take part: a prefix sum of the blocks' tiles over the threads, then two
+// sums of the items that start before each bound, through `red` (2 (warps
+// + 1) words of shared memory). Without a worklist the CTA's own block.
+// False for a CTA without items, which has nothing to do.
+template <int NB, int NTHREADS>
+__device__ __forceinline__ bool cta_range(const ProbeArgs &a, long long *red,
+                                          int &pos, int &end) {
+  if (a.items == nullptr) {
+    pos = blockIdx.x;
+    end = pos + 1;
+    return true;
+  }
+  constexpr int NWARPS = NTHREADS / 32;
+  const int *last = a.block_items + 2 * (a.n_blocks - 1);
+  const long long n =
+      min((long long)__ldg(last) + __ldg(last + 1), (long long)a.n_items);
+  const long long g = min((long long)gridDim.x, n);
+  if (blockIdx.x >= g) return false;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's blocks, their tiles, and the tiles before them
+  const int b0 = int((long long)tid * a.n_blocks / NTHREADS);
+  const int b1 = int((long long)(tid + 1) * a.n_blocks / NTHREADS);
+  long long mine = 0;
+  for (int b = b0; b < b1; ++b) mine += block_tiles<NB>(a, b);
+  long long x = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(FULL, x, o);
+    x += lane >= o ? y : 0;
+  }
+  if (lane == 31) red[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    // the warps' sums, scanned: red[w] the tiles before warp w, red[NWARPS]
+    // all of them
+    const long long w = lane < NWARPS ? red[lane] : 0;
+    long long y = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long z = __shfl_up_sync(FULL, y, o);
+      y += lane >= o ? z : 0;
+    }
+    if (lane <= NWARPS) red[lane] = lane < NWARPS ? y - w : y;
+  }
+  __syncthreads();
+  const long long total = red[NWARPS];
+  long long off = red[warp] + x - mine;
+  __syncthreads();
+  const long long t0 = blockIdx.x * total / g;
+  const long long t1 = blockIdx.x + 1 < g ? (blockIdx.x + 1) * total / g
+                                           : total + 1;
+  // a full item scans span / NB tiles; item j of block b starts at tile
+  // off_b + j span / NB
+  const int per = a.span / NB;
+  long long lo = 0, hi = 0;
+  for (int b = b0; b < b1; ++b) {
+    const int items = __ldg(a.block_items + 2 * b + 1);
+    lo += t0 > off ? min((long long)items, (t0 - off + per - 1) / per) : 0;
+    hi += t1 > off ? min((long long)items, (t1 - off + per - 1) / per) : 0;
+    off += block_tiles<NB>(a, b);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo += __shfl_xor_sync(FULL, lo, o);
+    hi += __shfl_xor_sync(FULL, hi, o);
+  }
+  if (lane == 0) {
+    red[2 * warp] = lo;
+    red[2 * warp + 1] = hi;
+  }
+  __syncthreads();
+  lo = hi = 0;
+  for (int w = 0; w < NWARPS; ++w) {
+    lo += red[2 * w];
+    hi += red[2 * w + 1];
+  }
+  __syncthreads();
+  pos = int(min(lo, n));
+  end = int(min(hi, n));
+  return pos < end;
+}
+
+// The piece that starts at `pos`, with `pos` moved past it; false at `end`.
+// Items of one block with consecutive chunks, one after the other in the
+// list, make one piece. Every role of a CTA walks its pieces from the same
+// arrays, so none has to tell another where a piece ends.
+template <int NB>
+__device__ __forceinline__ bool next_piece(const ProbeArgs &a, int &pos,
+                                           int end, Piece &p) {
+  if (pos >= end) return false;
+  const bool flat = a.items != nullptr;
+  int c0 = 0, c1 = 0;
+  if (!flat) {
+    p.blk = pos++;
+  } else {
+    p.blk = __ldg(a.items + 2 * pos);
+    c0 = c1 = __ldg(a.items + 2 * pos + 1);
+    for (++pos; pos < end && __ldg(a.items + 2 * pos) == p.blk &&
+                __ldg(a.items + 2 * pos + 1) == c1 + 1;
+         ++pos)
+      ++c1;
+  }
+  p.dstart = __ldg(a.blocks + p.blk * 3);
+  const int dcnt = __ldg(a.blocks + p.blk * 3 + 1);
+  p.nq = max(0, min(__ldg(a.blocks + p.blk * 3 + 2), QB));
+  p.t_lo = flat ? c0 * a.span : 0;
+  p.t_hi = flat ? min(dcnt, (c1 + 1) * a.span) : dcnt;
+  p.first = flat ? __ldg(a.block_items + 2 * p.blk) + c0 : int(p.blk);
+  p.n_tiles = (p.nq > 0 && p.t_hi > p.t_lo) ? (p.t_hi - p.t_lo + NB - 1) / NB
+                                             : 0;
+  return true;
+}
+
+// The resident queries of a block (`qrow`: the query of each slot row),
+// gathered by `n` threads, `gt` this thread's place among them: chunk ch of
+// slice s of slot row r holds features [f0, f0 + EPC) of its query, zeros
+// past the width and for a dead slot. The copies go from global to shared
+// memory asynchronously, all of a thread's in flight at once (with loads
+// into registers the gather was a chain of round trips, a few tiles' time
+// for each block).
+template <typename T, int SRC>
+__device__ __forceinline__ void gather_queries(unsigned char *as, const T *q,
+                                               const int *qrow, int d, int nq,
+                                               int gt, int n) {
+  constexpr int QBYTES = sizeof(T);
+  constexpr int SL = slice_of(QBYTES);       // features of a slice
+  constexpr int EPC = 16 / QBYTES;           // features of a 16-byte chunk
+  const int ks = slices(d, QBYTES);
+  const int half = d >> 1, total = QB * ks * 8;
+  const uint32_t as0 = smem_addr(as);
+  for (int v = gt; v < total; v += n) {
+    const int r = v / (ks * 8), s = (v % (ks * 8)) >> 3, ch = v & 7;
+    int f0 = s * SL + ch * EPC;
+    bool live = r < nq && f0 < d;
+    if constexpr (SRC == SRC_INT4) {
+      // byte of the packed row: its low nibble in the first four chunks,
+      // its high nibble in the last four
+      const int j0 = s * (SL / 2) + (ch & 3) * EPC;
+      f0 = j0 + (ch >= 4 ? half : 0);
+      live = r < nq && j0 < half;
+    }
+    cp_async_16(as0 + s * A_SLICE_BYTES + swizzled(r, ch),
+                live ? q + size_t(qrow[r]) * d + f0 : q, live ? 16 : 0);
+  }
+  cp_async_wait();
+}
+
 // T: the type of the queries and of the operand stages: bfloat16 or
 // float16, or signed char for int8 query codes (SRC_INT8 or SRC_INT4 only).
 // KL: the capacity of a slot row's list when the thread that inserts into
@@ -629,7 +827,6 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   using Acc = AccOf<T>;
   constexpr int QBYTES = sizeof(T);
   constexpr int SL = slice_of(QBYTES);       // features of a slice
-  constexpr int EPC = 16 / QBYTES;           // features of a 16-byte chunk
   constexpr int NW = NB / 64;                // 64-bit words of a row's columns
   constexpr int LDT = NB + 4;
   constexpr int RAWB = raw_row_bytes(SRC, QBYTES);
@@ -638,6 +835,7 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   constexpr int RAW_BYTES = NB * RAWB;
   constexpr int NTHREADS = threads(SRC, QBYTES);
   constexpr int GATHERERS = NTHREADS - 32;   // all but the loader's warp
+  constexpr int CONSUMERS = CONSUMER_WARPS * 32;
   constexpr bool SCALED = SRC != SRC_SAME;
   extern __shared__ unsigned char smem_raw[];
   unsigned char *as = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -650,19 +848,6 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   const bool flat = a.items != nullptr;
   constexpr bool pooled = POOL_ON;
   const int S = stages(d, SRC, QBYTES, k, NB, pooled);
-  long long blk = blockIdx.x;
-  int chunk = 0;
-  if (flat) {
-    blk = a.items[2 * blockIdx.x];
-    chunk = a.items[2 * blockIdx.x + 1];
-    if (blk < 0) return;   // padding past the worklist's end
-  }
-  const long long dstart = a.blocks[blk * 3 + 0];
-  const int dcnt = a.blocks[blk * 3 + 1];
-  const int nq = max(0, min(a.blocks[blk * 3 + 2], QB));
-  const int t_lo = flat ? chunk * a.span : 0;
-  const int t_hi = flat ? min(dcnt, t_lo + a.span) : dcnt;
-  const int n_tiles = (nq > 0 && t_hi > t_lo) ? (t_hi - t_lo + NB - 1) / NB : 0;
 
   unsigned char *bs = as + size_t(ks) * A_SLICE_BYTES;       // operand ring
   unsigned char *raws = bs + S * STAGE_BYTES;                // raw ring
@@ -682,6 +867,15 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   auto raw_full = [&](int i) { return bar0 + 8 * (2 * MAX_STAGES + i); };
   auto raw_empty = [&](int i) { return bar0 + 8 * (3 * MAX_STAGES + i); };
 
+  // the range, worked out in the distance tile's memory, unused till then
+  int pos0, end;
+  if (!cta_range<NB, NTHREADS>(a, reinterpret_cast<long long *>(tile), pos0,
+                               end))
+    return;
+  int pos = pos0;
+  Piece pc;
+  next_piece<NB>(a, pos, end, pc);   // a range holds at least one item
+
   if (tid == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(op_full(i), 1);
@@ -694,7 +888,7 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   for (int i = tid; i < QB * k; i += NTHREADS) list[i] = make_key(SENTINEL, -1);
   for (int i = tid; i < QB; i += NTHREADS) {
     thr[i] = SENTINEL;
-    qrow[i] = a.qidx[blk * QB + i];
+    qrow[i] = a.qidx[pc.blk * QB + i];
   }
   if (pooled)
     for (int i = tid; i < QB * POOL; i += NTHREADS) pool_s[i] = EMPTY_KEY;
@@ -702,63 +896,37 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
 
   if (warp == CONSUMER_WARPS) {
     // ---------------------------------------------------------- the loader
-    // It starts at once: the ring fills while the other warps gather.
+    // It starts at once: the ring fills while the other warps gather. It
+    // runs through every piece of the CTA's range without a pause, so the
+    // ring is full when the consumers come back from a piece's end. Its
+    // stage and phase run on across pieces, as the consumers' do.
     if (lane != 0) return;
     const uint32_t dst0 = smem_addr(RAW ? raws : bs);
     constexpr int BYTES = RAW ? RAW_BYTES : STAGE_BYTES;
     constexpr int STEP = RAW ? RAWB : SL;   // elements of the map
     int st = 0, ph = 0;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int row = int(dstart) + t_lo + t * NB;
-      for (int s = 0; s < ks; ++s) {
-        mbar_wait(RAW ? raw_empty(st) : op_empty(st), ph ^ 1);
-        const uint32_t full = RAW ? raw_full(st) : op_full(st);
-        mbar_expect_tx(full, BYTES);
-        tma_load_2d(dst0 + st * BYTES, &map, full, s * STEP, row);
-        if (++st == S) { st = 0; ph ^= 1; }
+    Piece lp;
+    for (int lpos = pos0; next_piece<NB>(a, lpos, end, lp);) {
+      for (int t = 0; t < lp.n_tiles; ++t) {
+        const int row = int(lp.dstart) + lp.t_lo + t * NB;
+        for (int s = 0; s < ks; ++s) {
+          mbar_wait(RAW ? raw_empty(st) : op_empty(st), ph ^ 1);
+          const uint32_t full = RAW ? raw_full(st) : op_full(st);
+          mbar_expect_tx(full, BYTES);
+          tma_load_2d(dst0 + st * BYTES, &map, full, s * STEP, row);
+          if (++st == S) { st = 0; ph ^= 1; }
+        }
       }
     }
     return;
   }
 
-  // The resident queries, gathered once by every warp but the loader's:
-  // chunk ch of slice s of slot row r holds features [f0, f0 + EPC) of its
-  // query, zeros past the width and for a dead slot. Four loads are in
-  // flight for each thread.
-  {
-    const int gt = tid < CONSUMER_WARPS * 32 ? tid : tid - 32;
-    const int half = d >> 1, total = QB * ks * 8;
-    for (int v0 = gt; v0 < total; v0 += 4 * GATHERERS) {
-      uint4 val[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int v = v0 + u * GATHERERS;
-        const int r = v / (ks * 8), s = (v % (ks * 8)) >> 3, ch = v & 7;
-        int f0 = s * SL + ch * EPC;
-        bool live = v < total && r < nq && f0 < d;
-        if constexpr (SRC == SRC_INT4) {
-          // byte of the packed row: its low nibble in the first four
-          // chunks, its high nibble in the last four
-          const int j0 = s * (SL / 2) + (ch & 3) * EPC;
-          f0 = j0 + (ch >= 4 ? half : 0);
-          live = v < total && r < nq && j0 < half;
-        }
-        val[u] = make_uint4(0, 0, 0, 0);
-        if (live)
-          val[u] = __ldg(reinterpret_cast<const uint4 *>(
-              q + size_t(qrow[r]) * d + f0));
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int v = v0 + u * GATHERERS;
-        if (v < total)
-          *reinterpret_cast<uint4 *>(as + ((v % (ks * 8)) >> 3) * A_SLICE_BYTES +
-                                     swizzled(v / (ks * 8), v & 7)) = val[u];
-      }
-    }
-    fence_async_smem();
-    asm volatile("bar.sync 1, %0;\n" ::"r"(GATHERERS) : "memory");
-  }
+  // The first piece's resident queries, gathered by every warp but the
+  // loader's; a later piece's by the consumers alone.
+  gather_queries<T, SRC>(as, q, qrow, d, pc.nq,
+                         tid < CONSUMERS ? tid : tid - 32, GATHERERS);
+  fence_async_smem();
+  asm volatile("bar.sync 1, %0;\n" ::"r"(GATHERERS) : "memory");
 
   if (warp > CONSUMER_WARPS) {
     // ------------------------------------------------------ the converters
@@ -766,12 +934,17 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
     // several stages are under conversion at once and one's latency hides
     // behind the others'. No more warps than stages convert: a wait on a
     // phase's parity tells two phases apart, not three, so a warp's first
-    // stage must lie in the ring's first round.
+    // stage must lie in the ring's first round. The stages of all pieces
+    // are one sequence.
     if constexpr (RAW) {
       const int cw = warp - CONSUMER_WARPS - 1;
       const int step = min(CONVERTER_WARPS, S);
+      int n_stages = 0;
+      Piece cp;
+      for (int cpos = pos0; next_piece<NB>(a, cpos, end, cp);)
+        n_stages += cp.n_tiles * ks;
       int st = cw, ph = 0;
-      for (int it = cw; cw < step && it < n_tiles * ks; it += step) {
+      for (int it = cw; cw < step && it < n_stages; it += step) {
         mbar_wait(raw_full(st), ph);
         mbar_wait(op_empty(st), ph ^ 1);
         convert_stage<T, SRC, NB>(raws + st * RAW_BYTES, bs + st * STAGE_BYTES,
@@ -800,271 +973,303 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   Acc acc[NB / 2];
 #pragma unroll
   for (int i = 0; i < NB / 2; ++i) acc[i] = 0;
-  // the pool's gate of rows r0 and r1: a live row's starts open, a dead
-  // row's stays shut
-  float u0 = r0 < nq ? inf : -inf, u1 = r1 < nq ? inf : -inf;
   // the list of the slot row that this thread inserts into (threads 0 and 1
   // of each four: rows r0 and r1), when it is held in registers
   constexpr int HELD = KL > 0 ? KL : 1;
   float held_d[HELD];
   int held_i[HELD];
-#pragma unroll
-  for (int p = 0; p < HELD; ++p) {
-    held_d[p] = SENTINEL;
-    held_i[p] = -1;
-  }
 #if PROBE_CLOCKS
-  long long c_wait = 0, c_mma = 0, c_test = 0, c_pool = 0, c_insert = 0;
+  long long c_wait = 0, c_mma = 0, c_test = 0, c_pool = 0, c_insert = 0,
+            c_between = 0;
+  int n_pieces = 0, tiles_seen = 0;
 #endif
   PROBE_TICK(c_start);
+  // the ring's stage and phase run on across pieces, as the loader's do
   int st = 0, ph = 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int t0 = t_lo + t * NB;
-    const long long row0 = dstart + t0;
-    const int ncol = min(NB, t_hi - t0);
-    // the tile's column scales (lane l: columns l + 32 g), asked for before
-    // the product and used after it
-    float scl[NB / 32];
-    if constexpr (SCALED && !(PROBE_PARTS_OFF & 8)) {
+  for (;;) {
+    const long long dstart = pc.dstart;
+    const int nq = pc.nq, t_lo = pc.t_lo, t_hi = pc.t_hi;
+    const int n_tiles = pc.n_tiles;
+    // the pool's gate of rows r0 and r1: a live row's starts open, a dead
+    // row's stays shut
+    float u0 = r0 < nq ? inf : -inf, u1 = r1 < nq ? inf : -inf;
 #pragma unroll
-      for (int gg = 0; gg < NB / 32; ++gg) {
-        const int c = lane + 32 * gg;
-        scl[gg] = (c < ncol && row0 + c < n_rows) ? a.scales[row0 + c] : 0.0f;
-      }
+    for (int p = 0; p < HELD; ++p) {
+      held_d[p] = SENTINEL;
+      held_i[p] = -1;
     }
-    int prev = 0;
-    for (int s = 0; s < ks; ++s) {
-      PROBE_TICK(c0);
-      mbar_wait(op_full(st), ph);
-      PROBE_TOCK(c_wait, c0);
-      PROBE_TICK(c1);
-      wgmma_fence();
-      if constexpr (!(PROBE_PARTS_OFF & 4)) {
-        // four steps of 32 bytes a slice
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t_lo + t * NB;
+      const long long row0 = dstart + t0;
+      const int ncol = min(NB, t_hi - t0);
+      // the tile's column scales (lane l: columns l + 32 g), asked for before
+      // the product and used after it
+      float scl[NB / 32];
+      if constexpr (SCALED && !(PROBE_PARTS_OFF & 8)) {
 #pragma unroll
-        for (int kk = 0; kk < SLICE_BYTES / 32; ++kk)
-          wgmma_step<T, NB>(acc, adesc + ((s * A_SLICE_BYTES + kk * 32) >> 4),
-                            bdesc + ((st * STAGE_BYTES + kk * 32) >> 4),
-                            (s | kk) != 0);
-      }
-      wgmma_commit();
-      if (s > 0) {
-        // the slice before this one has been read
-        wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(op_empty(prev));
-      }
-      prev = st;
-      if (++st == S) { st = 0; ph ^= 1; }
-      PROBE_TOCK(c_mma, c1);
-    }
-    PROBE_TICK(c2);
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(op_empty(prev));
-    pin(acc);
-    PROBE_TOCK(c_mma, c2);
-    PROBE_TICK(c3);
-    if constexpr ((PROBE_PARTS_OFF & 2) != 0) continue;
-
-    if constexpr (SCALED && !(PROBE_PARTS_OFF & 8)) {
-#pragma unroll
-      for (int gg = 0; gg < NB / 32; ++gg)
-        scw[lane + 32 * gg] = __fdiv_rn(scl[gg], a.levels);
-      __syncwarp();
-    }
-    // Thread (g, tq) of a warp holds, for j < NB / 8, columns 8 j + 2 tq and
-    // + 1 of slot rows r0 (acc[4 j], [4 j + 1]) and r1 (acc[4 j + 2],
-    // [4 j + 3]). It turns them into distances (kept in the sums'
-    // registers), marks in hit0 / hit1 (one bit a column, before the shift
-    // by 2 tq) those under the row's k-th best, and notes whether any
-    // passes its row's pool gate.
-    const float th0 = r0 < nq ? thr[r0] : -inf;
-    const float th1 = r1 < nq ? thr[r1] : -inf;
-    unsigned long long hit0[NW], hit1[NW], pm0[NW], pm1[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) hit0[w] = hit1[w] = pm0[w] = pm1[w] = 0;
-#pragma unroll
-    for (int j = 0; j < NB / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * tq + (e & 1);
-        const float s = sum_of(acc[4 * j + e]);
-        float v = 1.0f - s;
-        if constexpr (SCALED && !(PROBE_PARTS_OFF & 8))
-          v = __fsub_rn(1.0f, __fmul_rn(s, scw[c]));
-        v = c < ncol ? v : inf;
-        keep(acc[4 * j + e], v);
-        const unsigned long long bit = 1ull << ((8 * j + (e & 1)) & 63);
-        if (e & 2) hit1[j / 8] |= v < th1 ? bit : 0;
-        else hit0[j / 8] |= v < th0 ? bit : 0;
-        if constexpr (pooled && !(PROBE_PARTS_OFF & 48)) {
-          // the pool's gate: dead rows' are -inf
-          if (e & 2) pm1[j / 8] |= c < ncol && v <= u1 ? bit : 0;
-          else pm0[j / 8] |= c < ncol && v <= u0 ? bit : 0;
-        } else if constexpr (pooled && (PROBE_PARTS_OFF & 48) == 16) {
-          // no gate: each column folded by the thread that holds it
-          const int r = (e & 2) ? r1 : r0;
-          PoolKey *slot = pool_s + r * POOL +
-                          (((t0 + c) & (POOL - 1)) ^ pool_swz(r));
-          const PoolKey key = make_key(v, int(row0) + c);
-          if (c < ncol && r < nq && key < *slot) *slot = key;
+        for (int gg = 0; gg < NB / 32; ++gg) {
+          const int c = lane + 32 * gg;
+          scl[gg] = (c < ncol && row0 + c < n_rows) ? a.scales[row0 + c] : 0.0f;
         }
       }
-    }
-    unsigned long long some = 0;
+      int prev = 0;
+      for (int s = 0; s < ks; ++s) {
+        PROBE_TICK(c0);
+        mbar_wait(op_full(st), ph);
+        PROBE_TOCK(c_wait, c0);
+        PROBE_TICK(c1);
+        wgmma_fence();
+        if constexpr (!(PROBE_PARTS_OFF & 4)) {
+          // four steps of 32 bytes a slice
 #pragma unroll
-    for (int w = 0; w < NW; ++w) some |= hit0[w] | hit1[w] | pm0[w] | pm1[w];
-    PROBE_TOCK(c_test, c3);
-    // the common case after the first tiles: no column beats its row's k-th
-    // best or passes its row's pool gate
-    if (__any_sync(FULL, some != 0) && !(PROBE_PARTS_OFF & 1)) {
-      PROBE_TICK(c4);
+          for (int kk = 0; kk < SLICE_BYTES / 32; ++kk)
+            wgmma_step<T, NB>(acc, adesc + ((s * A_SLICE_BYTES + kk * 32) >> 4),
+                              bdesc + ((st * STAGE_BYTES + kk * 32) >> 4),
+                              (s | kk) != 0);
+        }
+        wgmma_commit();
+        if (s > 0) {
+          // the slice before this one has been read
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(op_empty(prev));
+        }
+        prev = st;
+        if (++st == S) { st = 0; ph ^= 1; }
+        PROBE_TOCK(c_mma, c1);
+      }
+      PROBE_TICK(c2);
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(op_empty(prev));
+      pin(acc);
+      PROBE_TOCK(c_mma, c2);
+      PROBE_TICK(c3);
+      if constexpr ((PROBE_PARTS_OFF & 2) != 0) continue;
+
+      if constexpr (SCALED && !(PROBE_PARTS_OFF & 8)) {
+#pragma unroll
+        for (int gg = 0; gg < NB / 32; ++gg)
+          scw[lane + 32 * gg] = __fdiv_rn(scl[gg], a.levels);
+        __syncwarp();
+      }
+      // Thread (g, tq) of a warp holds, for j < NB / 8, columns 8 j + 2 tq and
+      // + 1 of slot rows r0 (acc[4 j], [4 j + 1]) and r1 (acc[4 j + 2],
+      // [4 j + 3]). It turns them into distances (kept in the sums'
+      // registers), marks in hit0 / hit1 (one bit a column, before the shift
+      // by 2 tq) those under the row's k-th best, and notes whether any
+      // passes its row's pool gate.
+      const float th0 = r0 < nq ? thr[r0] : -inf;
+      const float th1 = r1 < nq ? thr[r1] : -inf;
+      unsigned long long hit0[NW], hit1[NW], pm0[NW], pm1[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) hit0[w] = hit1[w] = pm0[w] = pm1[w] = 0;
 #pragma unroll
       for (int j = 0; j < NB / 8; ++j) {
-        const int c = 8 * j + 2 * tq;
-        *reinterpret_cast<float2 *>(tile + r0 * LDT + c) =
-            make_float2(kept(acc[4 * j]), kept(acc[4 * j + 1]));
-        *reinterpret_cast<float2 *>(tile + r1 * LDT + c) =
-            make_float2(kept(acc[4 * j + 2]), kept(acc[4 * j + 3]));
-      }
-      // the four threads of a row join their marks; the first of them then
-      // inserts row r0's marked columns, the second row r1's, in column
-      // order, and folds those that passed the row's pool gate
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        hit0[w] <<= 2 * tq;
-        hit1[w] <<= 2 * tq;
-        hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 1);
-        hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 2);
-        hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 1);
-        hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 2);
-        if constexpr (pooled) {
-          pm0[w] <<= 2 * tq;
-          pm1[w] <<= 2 * tq;
-          pm0[w] |= __shfl_xor_sync(FULL, pm0[w], 1);
-          pm0[w] |= __shfl_xor_sync(FULL, pm0[w], 2);
-          pm1[w] |= __shfl_xor_sync(FULL, pm1[w], 1);
-          pm1[w] |= __shfl_xor_sync(FULL, pm1[w], 2);
-        }
-      }
-      __syncwarp();
-      const int r = tq == 0 ? r0 : r1;
-      if (tq < 2 && r < nq) {
-        const float *trow = tile + r * LDT;
-        float th = thr[r];
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          unsigned long long marks = tq == 0 ? hit0[w] : hit1[w];
-          while (marks) {
-            const int c = 64 * w + __ffsll(marks) - 1;
-            marks &= marks - 1;
-            const float v = trow[c];
-            if (v < th) {
-              if constexpr (KL > 0) {
-                th = insert_held<KL>(held_d, held_i, k, v, int(row0) + c);
-              } else {
-                insert_key(list + r, k, make_key(v, int(row0) + c));
-                th = key_dist(list[(k - 1) * QB + r]);
-              }
-            }
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * tq + (e & 1);
+          const float s = sum_of(acc[4 * j + e]);
+          float v = 1.0f - s;
+          if constexpr (SCALED && !(PROBE_PARTS_OFF & 8))
+            v = __fsub_rn(1.0f, __fmul_rn(s, scw[c]));
+          v = c < ncol ? v : inf;
+          keep(acc[4 * j + e], v);
+          const unsigned long long bit = 1ull << ((8 * j + (e & 1)) & 63);
+          if (e & 2) hit1[j / 8] |= v < th1 ? bit : 0;
+          else hit0[j / 8] |= v < th0 ? bit : 0;
+          if constexpr (pooled && !(PROBE_PARTS_OFF & 48)) {
+            // the pool's gate: dead rows' are -inf
+            if (e & 2) pm1[j / 8] |= c < ncol && v <= u1 ? bit : 0;
+            else pm0[j / 8] |= c < ncol && v <= u0 ? bit : 0;
+          } else if constexpr (pooled && (PROBE_PARTS_OFF & 48) == 16) {
+            // no gate: each column folded by the thread that holds it
+            const int r = (e & 2) ? r1 : r0;
+            PoolKey *slot = pool_s + r * POOL +
+                            (((t0 + c) & (POOL - 1)) ^ pool_swz(r));
+            const PoolKey key = make_key(v, int(row0) + c);
+            if (c < ncol && r < nq && key < *slot) *slot = key;
           }
         }
-        thr[r] = th;
-        if constexpr (pooled) {
-          // the row's classes belong to this thread; rows come in
-          // ascending order and only a smaller key is stored, so equal
-          // distances keep the lower row
-          PROBE_TICK(c5);
-          PoolKey *prow = pool_s + r * POOL;
-          const int swz = pool_swz(r);
+      }
+      unsigned long long some = 0;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) some |= hit0[w] | hit1[w] | pm0[w] | pm1[w];
+      PROBE_TOCK(c_test, c3);
+      // the common case after the first tiles: no column beats its row's k-th
+      // best or passes its row's pool gate
+      if (__any_sync(FULL, some != 0) && !(PROBE_PARTS_OFF & 1)) {
+        PROBE_TICK(c4);
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          const int c = 8 * j + 2 * tq;
+          *reinterpret_cast<float2 *>(tile + r0 * LDT + c) =
+              make_float2(kept(acc[4 * j]), kept(acc[4 * j + 1]));
+          *reinterpret_cast<float2 *>(tile + r1 * LDT + c) =
+              make_float2(kept(acc[4 * j + 2]), kept(acc[4 * j + 3]));
+        }
+        // the four threads of a row join their marks; the first of them then
+        // inserts row r0's marked columns, the second row r1's, in column
+        // order, and folds those that passed the row's pool gate
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          hit0[w] <<= 2 * tq;
+          hit1[w] <<= 2 * tq;
+          hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 1);
+          hit0[w] |= __shfl_xor_sync(FULL, hit0[w], 2);
+          hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 1);
+          hit1[w] |= __shfl_xor_sync(FULL, hit1[w], 2);
+          if constexpr (pooled) {
+            pm0[w] <<= 2 * tq;
+            pm1[w] <<= 2 * tq;
+            pm0[w] |= __shfl_xor_sync(FULL, pm0[w], 1);
+            pm0[w] |= __shfl_xor_sync(FULL, pm0[w], 2);
+            pm1[w] |= __shfl_xor_sync(FULL, pm1[w], 1);
+            pm1[w] |= __shfl_xor_sync(FULL, pm1[w], 2);
+          }
+        }
+        __syncwarp();
+        const int r = tq == 0 ? r0 : r1;
+        if (tq < 2 && r < nq) {
+          const float *trow = tile + r * LDT;
+          float th = thr[r];
 #pragma unroll
           for (int w = 0; w < NW; ++w) {
-            unsigned long long marks = tq == 0 ? pm0[w] : pm1[w];
+            unsigned long long marks = tq == 0 ? hit0[w] : hit1[w];
             while (marks) {
               const int c = 64 * w + __ffsll(marks) - 1;
               marks &= marks - 1;
-              const PoolKey key = make_key(trow[c], int(row0) + c);
-              PoolKey *slot = prow + (((t0 + c) & (POOL - 1)) ^ swz);
-              if (key < *slot) *slot = key;
+              const float v = trow[c];
+              if (v < th) {
+                if constexpr (KL > 0) {
+                  th = insert_held<KL>(held_d, held_i, k, v, int(row0) + c);
+                } else {
+                  insert_key(list + r, k, make_key(v, int(row0) + c));
+                  th = key_dist(list[(k - 1) * QB + r]);
+                }
+              }
             }
           }
-          PROBE_TOCK(c_pool, c5);
-        }
-      }
-      __syncwarp();
-      PROBE_TOCK(c_insert, c4);
-    }
-    if constexpr (pooled) {
-      if (t > 0 && ((t + 1) & t) == 0 && !(PROBE_PARTS_OFF & 16)) {
-        // after tiles 2, 4, 8, ...: the warp's 16 rows' gates anew, R rows
-        // side by side (the warp's folds are behind the __syncwarp above)
-        PROBE_TICK(c6);
-        constexpr int R = GATE_ROWS;
-        for (int i0 = 0; i0 < 16 && warp * 16 + i0 < nq; i0 += R) {
-          float u[R];
-          kth_class_best<R>(pool_s + (warp * 16 + i0) * POOL, a.k_out, lane,
-                            u);
+          thr[r] = th;
+          if constexpr (pooled) {
+            // the row's classes belong to this thread; rows come in
+            // ascending order and only a smaller key is stored, so equal
+            // distances keep the lower row
+            PROBE_TICK(c5);
+            PoolKey *prow = pool_s + r * POOL;
+            const int swz = pool_swz(r);
 #pragma unroll
-          for (int i = 0; i < R; ++i) {
-            const bool live = warp * 16 + i0 + i < nq;
-            u0 = live && i0 + i == g ? u[i] : u0;
-            u1 = live && i0 + i == g + 8 ? u[i] : u1;
+            for (int w = 0; w < NW; ++w) {
+              unsigned long long marks = tq == 0 ? pm0[w] : pm1[w];
+              while (marks) {
+                const int c = 64 * w + __ffsll(marks) - 1;
+                marks &= marks - 1;
+                const PoolKey key = make_key(trow[c], int(row0) + c);
+                PoolKey *slot = prow + (((t0 + c) & (POOL - 1)) ^ swz);
+                if (key < *slot) *slot = key;
+              }
+            }
+            PROBE_TOCK(c_pool, c5);
           }
         }
-        PROBE_TOCK(c_pool, c6);
+        __syncwarp();
+        PROBE_TOCK(c_insert, c4);
+      }
+      if constexpr (pooled) {
+        if (t > 0 && ((t + 1) & t) == 0 && !(PROBE_PARTS_OFF & 16)) {
+          // after tiles 2, 4, 8, ...: the warp's 16 rows' gates anew, R rows
+          // side by side (the warp's folds are behind the __syncwarp above)
+          PROBE_TICK(c6);
+          constexpr int R = GATE_ROWS;
+          for (int i0 = 0; i0 < 16 && warp * 16 + i0 < nq; i0 += R) {
+            float u[R];
+            kth_class_best<R>(pool_s + (warp * 16 + i0) * POOL, a.k_out, lane,
+                              u);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              const bool live = warp * 16 + i0 + i < nq;
+              u0 = live && i0 + i == g ? u[i] : u0;
+              u1 = live && i0 + i == g + 8 ? u[i] : u1;
+            }
+          }
+          PROBE_TOCK(c_pool, c6);
+        }
       }
     }
-  }
+    PROBE_TICK(c_out);
 #if PROBE_CLOCKS
-  if (warp == 1 && lane == 0 && blockIdx.x % 97 == 5 && n_tiles > 0)
-    printf("[clocks] cta %d: %d tiles of %d slices, %lld cycles: %lld waiting "
-           "for a stage, %lld in wgmma, %lld testing, %lld writing the tile, "
-           "inserting and folding into the pool, %lld in the pool's folds "
-           "and gates\n",
-           int(blockIdx.x), n_tiles, ks, clock64() - c_start, c_wait, c_mma,
-           c_test, c_insert, c_pool);
-  PROBE_TICK(c_end);
+    ++n_pieces;
+    tiles_seen += n_tiles;
 #endif
 
-  // lists held in registers go to the shared-memory lists, as keys
-  if constexpr (KL > 0) {
-    const int r = tq == 0 ? r0 : r1;
-    if (tq < 2) {
+    // lists held in registers go to the shared-memory lists, as keys
+    if constexpr (KL > 0) {
+      const int r = tq == 0 ? r0 : r1;
+      if (tq < 2) {
 #pragma unroll
-      for (int p = 0; p < KL; ++p)
-        if (p < k) list[p * QB + r] = make_key(held_d[p], held_i[p]);
+        for (int p = 0; p < KL; ++p)
+          if (p < k) list[p * QB + r] = make_key(held_d[p], held_i[p]);
+      }
     }
-  }
-  // each warp writes its own 16 slot rows: with items the item's partial
-  // lists, else the block's final rows
-  __syncwarp();
-  const size_t orow = size_t(flat ? blockIdx.x : blk) * QB;
-  const int ko = flat ? k : a.k_out;
-  for (int i = lane; i < 16 * k; i += 32) {
-    const int r = warp * 16 + i / k, p = i % k;
-    const PoolKey key = list[p * QB + r];
-    a.out_d[(orow + r) * ko + p] = key_dist(key);
-    a.out_i[(orow + r) * ko + p] = int(unsigned(key));
-  }
-  if constexpr (!pooled || (PROBE_PARTS_OFF & 64)) return;
-  if (flat) {
-    // the global pool keeps classes in order: the swizzle is undone here
-    PoolKey *pool_g = a.pool + (size_t(blk) * QB + warp * 16) * POOL;
-    for (int i = lane; i < 16 * POOL; i += 32) {
-      const int r = warp * 16 + i / POOL, c = i % POOL;
-      const PoolKey key = pool_s[r * POOL + (c ^ pool_swz(r))];
-      if (key != EMPTY_KEY) atomicMin(pool_g + i, key);
+    // each warp writes its own 16 slot rows: with items the piece's partial
+    // lists, at the part row of its first item, else the block's final rows
+    __syncwarp();
+    const size_t orow = size_t(pc.first) * QB;
+    const int ko = flat ? k : a.k_out;
+    for (int i = lane; i < 16 * k; i += 32) {
+      const int r = warp * 16 + i / k, p = i % k;
+      const PoolKey key = list[p * QB + r];
+      a.out_d[(orow + r) * ko + p] = key_dist(key);
+      a.out_i[(orow + r) * ko + p] = int(unsigned(key));
     }
-  } else {
-    for (int r = warp * 16; r < warp * 16 + 16; ++r)
-      // a key's low word is its row
-      write_extras(pool_s + r * POOL, reinterpret_cast<const int *>(list + r),
-                   k, a.k_out, a.out_d + (orow + r) * ko,
-                   a.out_i + (orow + r) * ko, 2 * QB);
+    if constexpr (pooled && !(PROBE_PARTS_OFF & 64)) {
+      if (flat) {
+        // the global pool keeps classes in order: the swizzle is undone here
+        PoolKey *pool_g = a.pool + (size_t(pc.blk) * QB + warp * 16) * POOL;
+        for (int i = lane; i < 16 * POOL; i += 32) {
+          const int r = warp * 16 + i / POOL, c = i % POOL;
+          const PoolKey key = pool_s[r * POOL + (c ^ pool_swz(r))];
+          if (key != EMPTY_KEY) atomicMin(pool_g + i, key);
+        }
+      } else {
+        for (int r = warp * 16; r < warp * 16 + 16; ++r)
+          // a key's low word is its row
+          write_extras(pool_s + r * POOL,
+                       reinterpret_cast<const int *>(list + r), k, a.k_out,
+                       a.out_d + (orow + r) * ko, a.out_i + (orow + r) * ko,
+                       2 * QB);
+      }
+    }
+    if (flat && tid == 0) a.written[pc.first] = 1;
+    if (!next_piece<NB>(a, pos, end, pc)) break;
+
+    // The next piece, of another block (or of the same block, past another
+    // CTA's items). The warp's own rows first: lists, thresholds, pool.
+    __syncwarp();
+    for (int i = lane; i < 16 * k; i += 32)
+      list[(i % k) * QB + warp * 16 + i / k] = make_key(SENTINEL, -1);
+    if (lane < 16) thr[warp * 16 + lane] = SENTINEL;
+    if constexpr (pooled)
+      for (int i = lane; i < 16 * POOL; i += 32)
+        pool_s[warp * 16 * POOL + i] = EMPTY_KEY;
+    // Then the queries: every consumer warp has waited for its last wgmma
+    // (wgmma_wait<0> after the last slice), so once all four are here no
+    // wgmma reads the old ones. The loader and the converters run on.
+    asm volatile("bar.sync 2, %0;\n" ::"n"(CONSUMERS) : "memory");
+    for (int i = tid; i < QB; i += CONSUMERS) qrow[i] = a.qidx[pc.blk * QB + i];
+    asm volatile("bar.sync 2, %0;\n" ::"n"(CONSUMERS) : "memory");
+    gather_queries<T, SRC>(as, q, qrow, d, pc.nq, tid, CONSUMERS);
+    fence_async_smem();
+    asm volatile("bar.sync 2, %0;\n" ::"n"(CONSUMERS) : "memory");
+    PROBE_TOCK(c_between, c_out);
   }
 #if PROBE_CLOCKS
-  if (warp == 1 && lane == 0 && blockIdx.x % 97 == 5 && n_tiles > 0)
-    printf("[clocks] cta %d: %lld cycles for the pool's extras or fold\n",
-           int(blockIdx.x), clock64() - c_end);
+  if (warp == 1 && lane == 0 && blockIdx.x % 97 == 5 && tiles_seen > 0)
+    printf("[clocks] cta %d: %d pieces, %d tiles of %d slices, %lld cycles: "
+           "%lld waiting for a stage, %lld in wgmma, %lld testing, %lld "
+           "writing the tile, inserting and folding into the pool, %lld in "
+           "the pool's folds and gates, %lld between pieces (the next "
+           "piece's queries)\n",
+           int(blockIdx.x), n_pieces, tiles_seen, ks, clock64() - c_start,
+           c_wait, c_mma, c_test, c_insert, c_pool, c_between);
 #endif
 }
 
@@ -1124,29 +1329,48 @@ int store_map(CUtensorMap *map, const ProbeArgs &a) {
   return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 
+// With a worklist the grid is persistent: `ctas` CTAs, or as many as the
+// card holds at once at this launch's shared memory (the SMs times the CTAs
+// an SM takes), never more than the items the scratch holds; the kernel
+// caps it again by the true total, which only the device knows.
 template <typename T, int SRC, int NB, int KL, bool POOL_ON>
 int launch_pooled(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
-                  size_t smem, cudaStream_t stream) {
+                  int ctas, size_t smem, cudaStream_t stream) {
+  const auto kernel = probe_kernel_wgmma<T, SRC, NB, KL, POOL_ON>;
+  constexpr int NTHREADS = threads(SRC, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      probe_kernel_wgmma<T, SRC, NB, KL, POOL_ON>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  probe_kernel_wgmma<T, SRC, NB, KL, POOL_ON>
-      <<<n_ctas, threads(SRC, sizeof(T)), smem, stream>>>(map, a);
+  if (a.items != nullptr) {
+    int grid = ctas;
+    if (grid <= 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(
+               &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, NTHREADS, smem)) != cudaSuccess)
+        return int(err);
+      grid = sms * max(per_sm, 1);
+    }
+    n_ctas = min(n_ctas, grid);
+  }
+  kernel<<<n_ctas, NTHREADS, smem, stream>>>(map, a);
   return int(cudaGetLastError());
 }
 
 template <typename T, int SRC, int NB, int KL>
 int launch_held(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
-                size_t smem, cudaStream_t stream) {
+                int ctas, size_t smem, cudaStream_t stream) {
   return a.k_out > a.k
-             ? launch_pooled<T, SRC, NB, KL, true>(map, a, n_ctas, smem, stream)
-             : launch_pooled<T, SRC, NB, KL, false>(map, a, n_ctas, smem,
-                                                    stream);
+             ? launch_pooled<T, SRC, NB, KL, true>(map, a, n_ctas, ctas, smem,
+                                                   stream)
+             : launch_pooled<T, SRC, NB, KL, false>(map, a, n_ctas, ctas,
+                                                    smem, stream);
 }
 
 template <typename T, int SRC, int NB>
-int launch(const ProbeArgs &a, int n_ctas, cudaStream_t stream) {
+int launch(const ProbeArgs &a, int n_ctas, int ctas, cudaStream_t stream) {
   CUtensorMap map;
   const int bad = store_map<T, SRC, NB>(&map, a);
   if (bad != 0) return bad;
@@ -1156,10 +1380,10 @@ int launch(const ProbeArgs &a, int n_ctas, cudaStream_t stream) {
                                  stages(a.d, SRC, QBYTES, a.k, NB, pool));
   // a list of up to 32 entries is held in registers
   if (a.k <= 16)
-    return launch_held<T, SRC, NB, 16>(map, a, n_ctas, smem, stream);
+    return launch_held<T, SRC, NB, 16>(map, a, n_ctas, ctas, smem, stream);
   if (a.k <= 32)
-    return launch_held<T, SRC, NB, 32>(map, a, n_ctas, smem, stream);
-  return launch_held<T, SRC, NB, 0>(map, a, n_ctas, smem, stream);
+    return launch_held<T, SRC, NB, 32>(map, a, n_ctas, ctas, smem, stream);
+  return launch_held<T, SRC, NB, 0>(map, a, n_ctas, ctas, smem, stream);
 }
 
 }  // namespace hopper

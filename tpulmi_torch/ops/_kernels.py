@@ -51,19 +51,21 @@ def _probe_signatures(source: str, launch_args, n_codes: int) -> dict:
 
 
 SIGNATURES = {
-    # q, qidx, data, blocks, items, out_d, out_i, pool, n_ctas, d, n_rows,
-    # k, k_out, span, dtype, loop, stream
+    # q, qidx, data, blocks, items, block_items, written, out_d, out_i,
+    # pool, n_ctas, ctas, n_blocks, d, n_rows, k, k_out, span, dtype, loop,
+    # stream
     "probe_topk": _probe_signatures(
-        "probe_topk", [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _I, _P], 1),
-    # q, qidx, codes, scales, blocks, items, out_d, out_i, pool, n_ctas, d,
-    # n_rows, k, k_out, span, qdtype, bits, loop, stream
+        "probe_topk", [_P] * 10 + [_I] * 4 + [_LL] + [_I] * 5 + [_P], 1),
+    # q, qidx, codes, scales, blocks, items, block_items, written, out_d,
+    # out_i, pool, n_ctas, ctas, n_blocks, d, n_rows, k, k_out, span, qdtype,
+    # bits, loop, stream
     "probe_topk_quant": _probe_signatures(
-        "probe_topk_quant",
-        [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _I, _I, _I, _P], 2),
-    # blocks, block_items, part_d, part_i, pool, out_d, out_i, n_blocks,
-    # n_items, k, k_out, stream
+        "probe_topk_quant", [_P] * 11 + [_I] * 4 + [_LL] + [_I] * 6 + [_P],
+        2),
+    # blocks, block_items, written, part_d, part_i, pool, out_d, out_i,
+    # n_blocks, n_items, k, k_out, stream
     "merge_items": {
-        "merge_items_launch": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
+        "merge_items_launch": ([_P] * 8 + [_I, _I, _I, _I, _P], _I),
         "merge_items_block_slots": ([], _I),
     },
 }

@@ -1,7 +1,10 @@
 """k-means (Lloyd) for index partitioning.
 
 The assignment step is one ``x @ c.T`` product followed by argmin; the
-update step is an ``index_add_``. 25 iterations on at most
+update step sums each cluster's rows as a one-hot ``(n, k)`` matrix times
+``x``, a product whose summing order is fixed, so the same inputs give the
+same centroids to the bit on every run (an ``index_add_`` adds them with
+atomics on CUDA, in whatever order the threads run). 25 iterations on at most
 ``max_points_per_centroid * k`` sampled points (the faiss defaults), squared
 L2 assignment, fixed seed. An empty cluster keeps its previous centroid.
 """
@@ -20,12 +23,12 @@ def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _lloyd_step(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    k = c.shape[0]
+    """One Lloyd iteration on float32 rows `x`: assign, then each cluster's
+    mean, in a fixed order (the one-hot product; its counts are exact)."""
     labels = torch.argmin(_sq_dists(x, c), dim=1)
-    counts = torch.zeros(k, device=x.device).index_add_(
-        0, labels, torch.ones(x.shape[0], device=x.device))
-    sums = torch.zeros((k, x.shape[1]), device=x.device).index_add_(
-        0, labels, x)
+    onehot = torch.nn.functional.one_hot(labels, c.shape[0]).to(x.dtype)
+    counts = onehot.sum(0)
+    sums = onehot.T @ x
     new_c = sums / torch.clamp(counts, min=1.0)[:, None]
     return torch.where(counts[:, None] > 0, new_c, c)
 

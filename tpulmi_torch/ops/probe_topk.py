@@ -39,12 +39,20 @@ configurations of the TPU kernel:
   no id of the prefix repeated), which is all the exact rerank needs.
 - ``wl_pad > 0``, the flat worklist: one work item per live (slot block,
   chunk of ``item_rows`` store rows) pair, block-major, built on the device
-  (`build_worklist`); each item is one CTA that writes partial lists, and a
-  second kernel (csrc/merge_items.cu) merges a block's items in chunk
-  order. The call then also returns the true item total; when it exceeds
-  ``wl_pad`` the trailing items were dropped, the result is invalid and the
-  caller runs again with a larger pad. With ``pair`` an item spans
-  ``2 * item_rows`` rows.
+  (`build_worklist`). The wgmma loop walks it on a persistent grid: each
+  CTA takes a contiguous range of the items, balanced by the tiles they
+  scan (`worklist_pieces` is its schedule in plain Python), keeps a
+  block's queries, lists and pool across the block's consecutive items,
+  and writes the partial lists of each such run, a piece, once, to the
+  rows of the piece's first item, which it marks in ``written``; the
+  staged loop runs one CTA per item and marks each. A second kernel (csrc/merge_items.cu) merges a block's written pieces in
+  chunk order. The call then also returns the true item total; when it
+  exceeds ``wl_pad`` the trailing items were dropped, the result is invalid
+  and the caller runs again with a larger pad. With ``pair`` an item spans
+  ``2 * item_rows`` rows. ``ctas`` (checks only) fixes the persistent
+  grid's CTA count, which is otherwise what the card holds at once; the
+  plain version with ``ctas`` lays out its parts by that schedule, without
+  it as one piece per item.
 
 The kernel has two main loops that compute one function
 (csrc/probe_wgmma.cuh, csrc/probe_common.cuh). `probe_loop` is the rule
@@ -284,14 +292,18 @@ def worklist_scratch_bytes(wl_pad: int, k: int, n_blocks: int,
             + (n_blocks * BLOCK_SLOTS * POOL_CLASSES * 8 if pool else 0))
 
 
-def _variant(k, k_out=0, pair=False, wl_pad=0, item_rows=1024, loop=None):
+def _variant(k, k_out=0, pair=False, wl_pad=0, item_rows=1024, loop=None,
+             ctas=0):
     """Check the variant options; returns (k_out, pool, rows of an item).
     `loop` asks the kernel for one of `LOOPS` instead of `probe_loop`'s
     choice (the checks on the card hold one loop against the other); a
-    plain version has no loops and ignores it."""
+    plain version has no loops and ignores it. `ctas` as in the module
+    docstring."""
     ko = k_out or k
     if loop is not None and loop not in LOOPS:
         raise ValueError(f"loop={loop!r} must be None or one of {LOOPS}")
+    if ctas < 0:
+        raise ValueError(f"ctas={ctas} must not be negative")
     if not k <= ko <= POOL_CLASSES:
         raise ValueError(f"k_out={ko} must lie in [k={k}, {POOL_CLASSES}]")
     if wl_pad < 0:
@@ -362,6 +374,41 @@ def build_worklist(blocks: torch.Tensor, wl_pad: int, span: int):
     return items, block_items, total
 
 
+def worklist_pieces(items: torch.Tensor, total, blocks: torch.Tensor,
+                    span: int, tile_rows: int, ctas: int):
+    """The persistent item kernel's schedule (csrc/probe_wgmma.cuh,
+    `cta_range` and `next_piece`) in plain Python. Item (b, j) starts at
+    tile off_b + j span / tile_rows of the tiles of all items, off_b the
+    tiles of the live blocks before b (an empty bucket's item scans none);
+    with T tiles in all and N = min(total, items) items, CTA c of G =
+    min(ctas, N) takes the items that start in [c T / G, (c + 1) T / G), the
+    last CTA up to N. Within a range, each run of one block's items with
+    consecutive chunks is a piece. Returns (cta, block, first chunk, last
+    chunk) of every piece, in order."""
+    n = min(int(total), int(items.shape[0]))
+    g = min(int(ctas), n)
+    per = span // tile_rows
+    off, tiles = [], 0
+    for _, cnt, live in blocks.tolist():
+        off.append(tiles)
+        tiles += -(-cnt // tile_rows) if live > 0 else 0
+    il = items[:n].tolist()
+    starts = [off[b] + j * per for b, j in il]
+    cuts = [sum(s < c * tiles // g for s in starts) for c in range(g)] + [n]
+    pieces = []
+    for c in range(g):
+        pos, end = cuts[c], cuts[c + 1]
+        while pos < end:
+            blk, c0 = il[pos]
+            c1 = c0
+            pos += 1
+            while pos < end and il[pos] == [blk, c1 + 1]:
+                c1 += 1
+                pos += 1
+            pieces.append((c, blk, c0, c1))
+    return pieces
+
+
 @dataclass
 class WorklistParts:
     """What the worklist's item kernel leaves for the merge kernel."""
@@ -369,9 +416,12 @@ class WorklistParts:
     block_items: torch.Tensor  # (n_blocks, 2) int32
     total: torch.Tensor        # 0-dim int64: the true item total
     part_d: torch.Tensor       # (wl_pad*BLOCK_SLOTS, k) float32 sorted partial
-    part_i: torch.Tensor       # lists of every item, (10000, -1) when short
+    part_i: torch.Tensor       # lists of each written piece, at the rows of
+    #                            its first item; (10000, -1) when short
     keys: Optional[torch.Tensor]  # (n_blocks*BLOCK_SLOTS, 128) int64 pool
     #                               keys, all bits set = empty; None: no pool
+    written: torch.Tensor      # (wl_pad,) int8: 1 where an item starts a
+    #                            written piece; other items' rows are unset
 
 
 _SIGN = -(1 << 63)   # flips a key's top bit: unsigned order as signed order
@@ -449,27 +499,37 @@ def _topk_of(dist: torch.Tensor, k: int, first_row: int):
     return torch.gather(dist, 1, order), (order + first_row).to(torch.int32)
 
 
-def _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span):
-    """The item kernel in plain torch: every kept item's partial lists
-    and, with a pool, the blocks' folded pool keys."""
+def _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span, ctas=0,
+                 tile_rows=64):
+    """The item kernel in plain torch: the partial lists of every piece
+    and, with a pool, the blocks' folded pool keys. Pieces as the
+    persistent grid of `ctas` CTAs with tiles of `tile_rows` takes them
+    (`worklist_pieces`), or with ``ctas=0`` one per item, as the staged
+    loop takes them."""
     dev = qidx.device
     items, block_items, total = build_worklist(blocks, wl_pad, span)
     part_d, part_i = _empty_lists(wl_pad * BLOCK_SLOTS, k, dev)
+    written = torch.zeros(wl_pad, dtype=torch.int8, device=dev)
     keys = (torch.full((qidx.shape[0], POOL_CLASSES), -1, dtype=torch.int64,
                        device=dev) if pool else None)
-    blk = blocks.tolist()
-    for n, (j, c) in enumerate(items.tolist()):
-        if j < 0:
-            break
+    blk, firsts = blocks.tolist(), block_items[:, 0].tolist()
+    if ctas:
+        pieces = [p[1:] for p in worklist_pieces(items, total, blocks, span,
+                                                 tile_rows, ctas)]
+    else:
+        pieces = [(j, c, c) for j, c in items[:int(total)].tolist()]
+    for j, c0, c1 in pieces:
         start, cnt, live = blk[j]
         nq = min(max(live, 0), BLOCK_SLOTS)
-        lo, hi = c * span, min(cnt, (c + 1) * span)
+        first = firsts[j] + c0
+        written[first] = 1
+        lo, hi = c0 * span, min(cnt, (c1 + 1) * span)
         if hi <= lo:
             continue
         slots = slice(j * BLOCK_SLOTS, j * BLOCK_SLOTS + nq)
         dist = dist_of(qidx[slots].long(), start + lo, hi - lo)
         kk = min(k, hi - lo)
-        out = slice(n * BLOCK_SLOTS, n * BLOCK_SLOTS + nq)
+        out = slice(first * BLOCK_SLOTS, first * BLOCK_SLOTS + nq)
         part_d[out, :kk], part_i[out, :kk] = _topk_of(dist, kk, start + lo)
         if pool:
             # lo is a multiple of the class count: classes line up
@@ -478,31 +538,34 @@ def _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span):
                               pool_keys(best, rows))
             old = keys[slots]
             keys[slots] = torch.where((new ^ _SIGN) < (old ^ _SIGN), new, old)
-    return WorklistParts(items, block_items, total, part_d, part_i, keys)
+    return WorklistParts(items, block_items, total, part_d, part_i, keys,
+                         written)
 
 
 def merge_items_plain(blocks: torch.Tensor, parts: WorklistParts, k: int,
                       k_out: int = 0):
     """The merge kernel (csrc/merge_items.cu) in plain torch: per block a
-    stable sort of its items' partial lists laid end to end in chunk order
-    (equal distances keep the earlier item and place, so the lower store
-    row), the first k; then, with ``k_out > k``, the extras from the
-    block's pool keys. Items past the scratch (dropped on overflow) are not
-    read. Returns (out_d, out_i) of shape (n_blocks*BLOCK_SLOTS, k_out or
-    k)."""
+    stable sort of its written pieces' partial lists laid end to end in
+    chunk order (equal distances keep the earlier piece and place, so the
+    lower store row), the first k; then, with ``k_out > k``, the extras
+    from the block's pool keys. Items that start no written piece, and
+    items past the scratch (dropped on overflow), are not read. Returns
+    (out_d, out_i) of shape (n_blocks*BLOCK_SLOTS, k_out or k)."""
     ko = k_out or k
     n_blocks = int(blocks.shape[0])
     n_items = parts.part_d.shape[0] // BLOCK_SLOTS
     out_d, out_i = _empty_lists(n_blocks * BLOCK_SLOTS, k, blocks.device)
     lives = blocks[:, 2].tolist()
+    written = parts.written.bool()
     for j, (first, cnt) in enumerate(parts.block_items.tolist()):
         last = min(first + cnt, n_items)
         nq = min(max(lives[j], 0), BLOCK_SLOTS)
         if last <= first or nq == 0:
             continue
         rows = slice(first * BLOCK_SLOTS, last * BLOCK_SLOTS)
-        d = parts.part_d[rows].view(last - first, BLOCK_SLOTS, k)
-        i = parts.part_i[rows].view(last - first, BLOCK_SLOTS, k)
+        mine = written[first:last]
+        d = parts.part_d[rows].view(last - first, BLOCK_SLOTS, k)[mine]
+        i = parts.part_i[rows].view(last - first, BLOCK_SLOTS, k)[mine]
         d = d.permute(1, 0, 2).reshape(BLOCK_SLOTS, -1)[:nq]
         i = i.permute(1, 0, 2).reshape(BLOCK_SLOTS, -1)[:nq]
         order = torch.sort(d, dim=1, stable=True).indices[:, :k]
@@ -526,7 +589,8 @@ def merge_items(blocks: torch.Tensor, parts: WorklistParts, k: int,
                          f"{POOL_CLASSES}, got k={k}, k_out={ko}")
     if ko > k and parts.keys is None:
         raise ValueError("k_out > k needs the items' pool keys")
-    tensors = [blocks, parts.block_items, parts.part_d, parts.part_i]
+    tensors = [blocks, parts.block_items, parts.written, parts.part_d,
+               parts.part_i]
     tensors += [parts.keys] if parts.keys is not None else []
     if not all(t.is_cuda and t.device == blocks.device and t.is_contiguous()
                for t in tensors):
@@ -547,7 +611,7 @@ def merge_items(blocks: torch.Tensor, parts: WorklistParts, k: int,
     with torch.cuda.device(dev):
         _raise_on(lib.merge_items_launch(
             blocks.data_ptr(), parts.block_items.data_ptr(),
-            parts.part_d.data_ptr(), parts.part_i.data_ptr(),
+            parts.written.data_ptr(), parts.part_d.data_ptr(), parts.part_i.data_ptr(),
             parts.keys.data_ptr() if parts.keys is not None else None,
             out_d.data_ptr(), out_i.data_ptr(), n_blocks,
             parts.part_d.shape[0] // BLOCK_SLOTS, k, ko,
@@ -567,7 +631,9 @@ def _plain_topk(qidx, blocks, k, dist_of, merge=True, **variant):
     ko, pool, span = _variant(k, **variant)
     wl_pad = variant.get("wl_pad", 0)
     if wl_pad:
-        parts = _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span)
+        parts = _plain_items(qidx, blocks, k, dist_of, pool, wl_pad, span,
+                             variant.get("ctas", 0),
+                             128 if variant.get("pair") else 64)
         if not merge:
             return parts
         return (*merge_items_plain(blocks, parts, k, ko), parts.total)
@@ -620,7 +686,7 @@ def _raise_on(err: int, what: str) -> None:
 
 def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             k_out=0, pair=False, wl_pad=0, item_rows=1024, merge=True,
-            loop=None):
+            loop=None, ctas=0):
     """Run the launch entry point of csrc/`source`.cu (its 128-row library
     with `pair`) on the current stream: the inputs' pointers (the last one
     is `blocks`), the worklist, outputs and pool allocated here, the sizes,
@@ -630,7 +696,7 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
     lists go on through `merge_items` (``merge=False`` returns them as they
     are, as `WorklistParts`). Raises on what the kernel cannot take; there
     is no fallback."""
-    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows, loop)
+    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows, loop, ctas)
     dev = inputs[0].device
     if dev.type != "cuda":
         raise ValueError(f"probe kernel runs on CUDA tensors, not {dev}")
@@ -662,7 +728,8 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
     n_blocks = int(blocks.shape[0])
     parts = None
     if wl_pad:
-        # every pool key empty (all bits set); the items fold theirs in
+        # every pool key empty (all bits set), no item written; the pieces
+        # fold their keys in and mark their first items
         parts = WorklistParts(
             *build_worklist(blocks, wl_pad, span),
             torch.empty((wl_pad * BLOCK_SLOTS, k), dtype=torch.float32,
@@ -670,7 +737,8 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             torch.empty((wl_pad * BLOCK_SLOTS, k), dtype=torch.int32,
                         device=dev),
             torch.full((n_blocks * BLOCK_SLOTS, POOL_CLASSES), -1,
-                       dtype=torch.int64, device=dev) if pool else None)
+                       dtype=torch.int64, device=dev) if pool else None,
+            torch.zeros(wl_pad, dtype=torch.int8, device=dev))
         out_d, out_i = parts.part_d, parts.part_i
     else:
         out_d = torch.empty((n_blocks * BLOCK_SLOTS, ko), dtype=torch.float32,
@@ -678,12 +746,15 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
         out_i = torch.empty((n_blocks * BLOCK_SLOTS, ko), dtype=torch.int32,
                             device=dev)
     with torch.cuda.device(dev):
+        wl = ((parts.items, parts.block_items, parts.written) if parts
+              else (None,) * 3)
         _raise_on(getattr(lib, f"{source}_launch")(
             *(t.data_ptr() for t in inputs),
-            parts.items.data_ptr() if parts else None, out_d.data_ptr(),
+            *(t.data_ptr() if parts else None for t in wl), out_d.data_ptr(),
             out_i.data_ptr(),
             parts.keys.data_ptr() if parts and pool else None,
-            wl_pad or n_blocks, d, n_rows, k, ko, span if parts else 0,
+            wl_pad or n_blocks, ctas, n_blocks, d, n_rows, k, ko,
+            span if parts else 0,
             *codes, LOOPS.index(loop),
             torch.cuda.current_stream(dev).cuda_stream), source)
     _loop_launches[loop] += 1

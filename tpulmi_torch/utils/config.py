@@ -79,10 +79,11 @@ class SearchConfig:
     # without pallas_worklist. int8_queries (quantized stores only, ignored
     # on a full-precision one) quantizes the queries per row and runs the
     # int8 x int8 kernel of csrc/probe_topk_quant.cu.
-    # pallas_worklist: one CTA per live (64-slot block, pallas_mc-row chunk)
-    # pair and a second kernel that merges a block's chunks, instead of one
-    # CTA per block; sized per (batch size, probes) from the first batch's
-    # routing and re-run larger on overflow.
+    # pallas_worklist: one work item per live (64-slot block, pallas_mc-row
+    # chunk) pair, walked by a persistent grid, and a second kernel that
+    # merges a block's partial lists, instead of one CTA per block; sized
+    # per (batch size, probes) from the first batch's routing and re-run
+    # larger on overflow.
     # pallas_pair: tiles of 128 store rows instead of 64; declined (logged)
     # when the card's shared memory per block does not hold it.
     # pallas_pool: only when the search reranks: the kernel keeps an exact

@@ -32,7 +32,10 @@ result line.
              undersized worklist (two
              launches are held together to the bit under one main loop;
              under int8 queries every configuration, with and without the
-             pool, equals the staged loop to the bit);
+             pool, equals the staged loop to the bit); the 128-row tile's
+             launch in thread-block clusters (the rule's, and 2 and 4
+             asked for) against its launch without one, to the bit, with
+             and without the pool, and the tile walks its grouping saves;
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
              synthetic corpus with 122 buckets (and a sha256 of what it
              built, the same in every run), then LearnedIndex.search of
@@ -49,7 +52,8 @@ result line.
              worklist, with the 128-row tile, and on the int8 store with
              the host rerank, with the rerank pool, and with every option
              at once; every batch equal to LearnedIndex.search's result,
-             recall@10, the launch count of every kernel, the steady time
+             recall@10, the launch count of every kernel (the 128-row
+             tile's stream must launch it in clusters), the steady time
              per batch beside search's (`--profile`: the device's busy
              share of a stream);
 6. timing  - each kernel, its plain version and one library call for the
@@ -57,10 +61,12 @@ result line.
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
              loop, in turns, and the pool beside the list of k_out it
-             replaces, in turns; the merge kernel beside one stable sort
-             of each slot's item lists; then the
-             one-CTA-per-block kernel against the worklist and the 128-row
-             tile on a skewed store.
+             replaces, in turns; the 128-row tile without a cluster and
+             in clusters of 2 and 4, in turns, and the reads per bucket
+             that each grouping gives; the merge kernel beside one stable
+             sort of each slot's item lists; then the one-CTA-per-block
+             kernel against the worklist and the 128-row tile (in
+             clusters and without, in turns) on a skewed store.
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit as nvidia-smi reports them, and
@@ -371,7 +377,7 @@ def phase_ties(dev, errs):
     shorter than a tile. Each kernel and configuration against its plain
     version (`compare`), then pair by pair."""
     import torch
-    from tpulmi_torch.ops.probe_topk import group_slots
+    from tpulmi_torch.ops.probe_topk import group_slots, probe_cluster
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     counts = [300, 50, 129, 1000, 130]
@@ -411,10 +417,18 @@ def phase_ties(dev, errs):
         for name, fn, plain, args, tail, own, tol, _ in store_kinds(
                 q, qf, data, layout, kinds):
             n_pairs = 0
-            for opts in ({}, dict(pair=True), dict(wl_pad=256, item_rows=128),
+            for opts in ({}, dict(pair=True), dict(pair=True, cluster=1),
+                         dict(pair=True, cluster=2),
+                         dict(wl_pad=256, item_rows=128),
                          dict(wl_pad=256, item_rows=128, pair=True),
                          dict(wl_pad=256, item_rows=128, ctas=7),
                          dict(wl_pad=256, item_rows=128, pair=True, ctas=7)):
+                if opts.get("cluster", 1) > 1 and probe_cluster(
+                        1 if name.startswith("probe_topk_int8q")
+                        else data.element_size(),
+                        int(name[-1]) if name[-1] in "48" else 0, d, k,
+                        False, 128) == 1:
+                    continue     # this launch takes no cluster
                 kern, loop = ran_loop(lambda: fn(*args, k, *tail, **opts))
                 torch.cuda.synchronize()
                 if opts.get("wl_pad", 0) and int(kern[2]) > opts["wl_pad"]:
@@ -423,7 +437,9 @@ def phase_ties(dev, errs):
                               own, layout, nq * p, tol)
                 if name.startswith("probe_topk_int8q") and loop == "wgmma":
                     # exact integer sums: the staged loop's result to the bit
-                    staged = fn(*args, k, *tail, loop="staged", **opts)
+                    staged = fn(*args, k, *tail, loop="staged",
+                                **{n: v for n, v in opts.items()
+                                   if n != "cluster"})
                     torch.cuda.synchronize()
                     if not (torch.equal(staged[0][live], kern[0][live]) and
                             torch.equal(staged[1][live], kern[1][live])):
@@ -452,7 +468,8 @@ def phase_ties(dev, errs):
             log(f"[kernels] {name} d={d} {dtype}: equal rows in a tile and "
                 f"across tile and item edges, a ragged tile past the store's "
                 f"end: {loop} loop, lower row first in {n_pairs} pairs (dense, "
-                f"128-row tile, worklist, both; the worklist also on 7 CTAs); "
+                f"128-row tile, also in clusters of 2 where it takes one, "
+                f"worklist, both; the worklist also on 7 CTAs); "
                 f"max |err| "
                 f"{errs[name]:.3g}")
     return errs
@@ -571,9 +588,11 @@ def phase_variants(dev, errs):
     """The further configurations of the probe kernel, each against its
     plain version and, to the bit, against the one-CTA-per-block kernel."""
     import torch
-    from tpulmi_torch.ops.probe_topk import (common_loop, group_slots,
+    from tpulmi_torch.ops.probe_topk import (CLUSTER_SIZES, cluster_reads,
+                                             common_loop, group_slots,
                                              merge_items, merge_items_plain,
-                                             probe_loop, worklist_pieces)
+                                             probe_cluster, probe_loop,
+                                             worklist_pieces)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rng = torch.Generator().manual_seed(SEED + 1)
@@ -645,6 +664,32 @@ def phase_variants(dev, errs):
             note("probe_pair", compare(fn(*args, k, *tail, pair=True),
                                        plain(*args, k, *tail, pair=True),
                                        own, layout, nq * p, tol), what)
+            # its launch in clusters (the rule's, and each size asked for)
+            # against the launch without one, with and without the pool
+            clustered = []
+            for extra in ({}, dict(k_out=k_out)):
+                rule = probe_cluster(qbytes, bits, d, k, bool(extra), 128)
+                if rule == 1:
+                    continue
+                alone = fn(*args, k, *tail, pair=True, cluster=1, **extra)
+                for c in (None,) + CLUSTER_SIZES[1:]:
+                    opts = {} if c is None else dict(cluster=c)
+                    got, loop = ran_loop(lambda: fn(*args, k, *tail,
+                                                    pair=True, **opts,
+                                                    **extra))
+                    same(got, alone, f"cluster {c or rule} {extra}, {what}")
+                clustered.append(f"{'pool' if extra else 'list'} "
+                                 f"({loop} loop, the rule's {rule})")
+            if clustered:
+                reads = {c: cluster_reads(layout.blocks, c)
+                         for c in CLUSTER_SIZES}
+                log(f"[kernels] {what}: the 128-row tile in clusters of "
+                    f"{', '.join(str(c) for c in CLUSTER_SIZES[1:])} equals "
+                    f"its launch without one to the bit: "
+                    f"{', '.join(clustered)}; tile walks over "
+                    f"{reads[1]['buckets']} probed buckets "
+                    + ", ".join(f"{r['groups']} at C={c}"
+                                for c, r in reads.items()))
             # the worklist: item kernel, then merge kernel
             wants = {paired: worklist_total(layout, counts,
                                             mc * (2 if paired else 1))
@@ -1020,7 +1065,8 @@ def phase_serving(index, stores, ds, dev, gt, profile):
         ("default", full, {}, ("probe_topk",)),
         ("worklist", full, dict(pallas_worklist=True),
          ("probe_topk", "probe_worklist", "merge_items")),
-        ("pair", full, dict(pallas_pair=True), ("probe_topk", "probe_pair")),
+        ("pair", full, dict(pallas_pair=True),
+         ("probe_topk", "probe_pair", "probe_cluster")),
         ("int8 store, host rerank", int8, {}, ("probe_topk_quant_int8",)),
         ("int8 store, host rerank, pool", int8, dict(pallas_pool=True),
          ("probe_topk_quant_int8", "probe_pool")),
@@ -1133,11 +1179,13 @@ def phase_timing(index, stores, ds, dev, name):
     Returns the numbers of each variant by name."""
     import torch
     from tpulmi_torch.ops.distance import l2_normalize
-    from tpulmi_torch.ops.probe_topk import (BLOCK_SLOTS, bucket_runs,
-                                             build_worklist, group_slots,
+    from tpulmi_torch.ops.probe_topk import (BLOCK_SLOTS, CLUSTER_SIZES,
+                                             bucket_runs, build_worklist,
+                                             cluster_reads, group_slots,
                                              merge_items, merge_items_plain,
                                              probe_topk, probe_topk_int8q,
                                              probe_topk_int8q_plain,
+                                             probe_cluster,
                                              probe_topk_plain,
                                              probe_topk_quant,
                                              probe_topk_quant_plain)
@@ -1238,12 +1286,30 @@ def phase_timing(index, stores, ds, dev, name):
     results["probe_topk"]["max_abs_err"] = max(
         results["probe_topk"]["max_abs_err"], f32_err)
 
-    # the 128-row tile: K1's function, K1's bound
+    # the 128-row tile: K1's function, K1's bound; its launch in clusters
+    # (the rule's), then in turns without one and in clusters of 2 and 4
+    rule = probe_cluster(2, 0, d, k, False, 128)
     results["probe_pair"] = measure(
-        "probe_topk with the 128-row tile (bf16)",
+        f"probe_topk with the 128-row tile (bf16, clusters of {rule})",
         lambda: probe_topk(*args, pair=True),
         lambda: probe_topk_plain(*args, pair=True), library,
         own_full(q, data), DIST_TOL, bound(d * 2, n_q * d * 2, peak_flops))
+    order = CLUSTER_SIZES + CLUSTER_SIZES[::-1]
+    turns = [cuda_ms(lambda c=c: probe_topk(*args, pair=True, cluster=c), 20)
+             for c in order]
+    by_c = {c: (turns[i] + turns[-1 - i]) / 2
+            for i, c in enumerate(CLUSTER_SIZES)}
+    reads = {c: cluster_reads(layout.blocks, c) for c in CLUSTER_SIZES}
+    results["probe_pair"]["cluster_ms"] = by_c
+    log(f"[timing] the 128-row tile by CTAs a cluster at probes={p} (ms): "
+        + ", ".join(f"C={c} {t:.4f}" for c, t in by_c.items())
+        + f" (turns {', '.join(f'{t:.4f}' for t in turns)}); the rule's "
+        f"C={rule}")
+    log(f"[timing] reads per bucket at probes={p} ({reads[1]['buckets']} "
+        f"probed buckets, {reads[1]['bucket_rows']} rows): "
+        + ", ".join(f"C={c} {r['groups'] / r['buckets']:.3f} "
+                    f"({r['rows_read'] / r['bucket_rows']:.3f} by rows)"
+                    for c, r in reads.items()))
 
     # the worklist at pallas_mc = 1024 rows an item: the item kernel, the
     # merge kernel, and the whole call beside K1
@@ -1423,7 +1489,8 @@ def phase_timing_skewed(dev):
     the worklist should matter: a bf16 store of the main path's width with
     one bucket of 25 times the mean, probed in proportion to bucket size."""
     import torch
-    from tpulmi_torch.ops.probe_topk import group_slots, probe_topk
+    from tpulmi_torch.ops.probe_topk import (cluster_reads, group_slots,
+                                             probe_cluster, probe_topk)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rng = torch.Generator().manual_seed(SEED + 2)
@@ -1441,7 +1508,8 @@ def phase_timing_skewed(dev):
     n_items = worklist_total(layout, counts, 1024)
     wl = dict(wl_pad=-(-int(n_items * 1.15) // 1024) * 1024, item_rows=1024)
     dense = probe_topk(*args)
-    for opts in (wl, dict(pair=True), dict(pair=True, **wl)):
+    alone = dict(pair=True, cluster=1)
+    for opts in (wl, dict(pair=True), alone, dict(pair=True, **wl)):
         out = probe_topk(*args, **opts)
         torch.cuda.synchronize()
         if not (torch.equal(out[0], dense[0]) and torch.equal(out[1],
@@ -1449,13 +1517,21 @@ def phase_timing_skewed(dev):
             raise AssertionError(f"skewed store: {opts} differs from the "
                                  f"one-CTA-per-block kernel")
     ms = [cuda_ms(lambda o=o: probe_topk(*args, **o), 10)
-          for o in ({}, wl, dict(pair=True), dict(pair=True, **wl))]
+          for o in ({}, wl, dict(pair=True), alone, alone, dict(pair=True),
+                    dict(pair=True, **wl))]
+    rule = probe_cluster(2, 0, D_SEARCH, 10, False, 128)
+    reads = {c: cluster_reads(layout.blocks, c) for c in (1, rule)}
     log(f"[timing] skewed store (bucket 0: {int(sizes[0])} rows, the others' "
         f"mean {mean:.0f}; "
         f"{int(layout.slot_counts[0])} of {2 * N_QUERIES} slots probe it; "
         f"{n_items} items), bf16, whole probe call (ms): one CTA per block "
-        f"{ms[0]:.4f}, worklist {ms[1]:.4f}, 128-row tile {ms[2]:.4f}, "
-        f"worklist with the 128-row tile {ms[3]:.4f}")
+        f"{ms[0]:.4f}, worklist {ms[1]:.4f}, 128-row tile "
+        f"{(ms[2] + ms[5]) / 2:.4f} in clusters of the rule's, "
+        f"{(ms[3] + ms[4]) / 2:.4f} without (turns "
+        f"{', '.join(f'{t:.4f}' for t in ms[2:6])}), worklist with the "
+        f"128-row tile {ms[6]:.4f}; tile walks "
+        f"{reads[1]['groups']} without clusters, {reads[rule]['groups']} in "
+        f"clusters of {rule}")
 
 
 def phase_stages(index, ds, dev, p=2, reps=5):

@@ -12,17 +12,20 @@ import pytest
 import torch
 
 from tpulmi_torch.buckets import build_bucket_store
-from tpulmi_torch.ops.probe_topk import (apply_query_scale, build_worklist,
+from tpulmi_torch.ops.probe_topk import (CLUSTER_CTAS, apply_query_scale,
+                                         build_worklist, cluster_reads,
                                          common_loop, group_slots,
                                          launch_counts,
                                          loop_launch_counts, pool_extras,
-                                         pool_pairs, probe_loop, probe_topk,
+                                         pool_pairs, probe_cluster,
+                                         probe_loop, probe_topk,
                                          probe_topk_int8q,
                                          probe_topk_int8q_plain,
                                          probe_topk_plain, probe_topk_quant,
                                          probe_topk_quant_plain,
                                          worklist_pieces)
-from tpulmi_torch.ops.quantize import quantize_rows, quantize_store
+from tpulmi_torch.ops.quantize import (quantize_rows, quantize_rows_int4,
+                                       quantize_store)
 
 pytestmark = pytest.mark.cuda
 
@@ -597,3 +600,129 @@ def test_persistent_worklist_equals_dense(rng, card, kind, ctas):
             *_, total = fn(*args, k, *tail, wl_pad=max(want // 2, 1),
                            ctas=ctas, **opts)
             assert int(total) == want
+
+
+# ----------------------------------------- the 128-row tile in clusters
+# the variants whose 128-row tile takes the wgmma loop, and so the cluster:
+# queries' dtype (int8: int8 query codes) and the store's code bits
+CLUSTER_KINDS = {"bf16": (torch.bfloat16, 0), "f16": (torch.float16, 0),
+                 "bf16-int8": (torch.bfloat16, 8),
+                 "bf16-int4": (torch.bfloat16, 4),
+                 "int8q-int8": (torch.int8, 8),
+                 "int8q-int4": (torch.int8, 4)}
+CLUSTER_TWINS = (31, 63, 127)   # across box edges (32 rows) and tile edges
+
+
+def _cluster_store(rng, d, dev):
+    """40 buckets of 60 to 400 rows in store order, but bucket 0 of 25
+    times their mean, bucket 3 empty and bucket 7 of 5 rows; the last ends
+    with the store in a ragged tile. Bucket rows j, j + 1 (j in
+    CLUSTER_TWINS) are equal. 600 queries, noisy copies of twins, probe
+    their twin's bucket first (a third of them the long one) and another
+    second: fifty the empty bucket, a fifth dumped."""
+    counts = rng.integers(60, 400, size=40)
+    counts[0], counts[3], counts[7] = 25 * int(counts.mean()), 0, 5
+    counts[-1] = 130
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    x = rng.normal(size=(offsets[-1], d)).astype(np.float32)
+    lo = np.array([o + j for o, c in zip(offsets, counts)
+                   for j in CLUSTER_TWINS if j + 1 < c])
+    x[lo + 1] = x[lo]
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    n_q = 600
+    pick = rng.choice(lo, size=n_q)
+    pick[: n_q // 3] = rng.choice(lo[lo < counts[0]], size=n_q // 3)
+    qv = x[pick] + 0.05 * rng.normal(size=(n_q, d)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    home = np.searchsorted(offsets[1:], pick, side="right")
+    second = rng.integers(0, 40, size=n_q)
+    second[n_q // 3: n_q // 3 + 50] = 3
+    second = np.where(rng.random(n_q) < 0.2, 40, second)
+    probes = np.stack([home, second], 1).astype(np.int32)
+    lay = group_slots(torch.from_numpy(probes).to(dev),
+                      torch.from_numpy(offsets[:-1].astype(np.int32)).to(dev),
+                      torch.from_numpy(counts.astype(np.int32)).to(dev))
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(qv).to(dev), lay,
+            probes.size, lo)
+
+
+def _cluster_variant(x, qv, lay, kind):
+    """(wrapper, plain version, arguments up to k, after k, tolerance,
+    bytes of a query value, code bits) of a CLUSTER_KINDS entry."""
+    dtype, bits = CLUSTER_KINDS[kind]
+    if not bits:
+        return (probe_topk, probe_topk_plain,
+                (qv.to(dtype), lay.qidx, x.to(dtype), lay.blocks), (), 1e-4,
+                2, 0)
+    codes, scales = (quantize_rows_int4 if bits == 4 else quantize_rows)(x)
+    tail = (lay.qidx, codes, scales, lay.blocks)
+    if dtype == torch.int8:
+        return (probe_topk_int8q, probe_topk_int8q_plain,
+                (*quantize_rows(qv), *tail), (bits,), 1e-5, 1, bits)
+    return (probe_topk_quant, probe_topk_quant_plain, (qv.to(dtype), *tail),
+            (bits,), 1e-4, 2, bits)
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["list", "pool"])
+@pytest.mark.parametrize("kind", list(CLUSTER_KINDS))
+def test_cluster_equals_one_cta_a_block(rng, card, kind, pool):
+    """The 128-row tile's launch in clusters (the rule's, and 2 and 4 each
+    asked for) equals its launch without a cluster (cluster=1) to the bit,
+    with and without the pool, on a store with a bucket of 25 times the
+    mean (its blocks fill clusters), an empty probed bucket, a bucket
+    smaller than k, dumped slots, and equal rows across box and tile edges
+    and in a ragged last tile past the store's end: the lower row first.
+    It equals its plain version within the tolerance (the exact prefix),
+    and under int8 queries the staged loop to the bit. The grouping reads
+    the long bucket fewer times than one CTA a block."""
+    d, k = 256, 10
+    x, qv, lay, n_slots, lo = _cluster_store(rng, d, card)
+    fn, plain, args, tail, tol, qbytes, bits = _cluster_variant(x, qv, lay,
+                                                                kind)
+    extra = dict(k_out=2 * k) if pool else {}
+    assert probe_loop(qbytes, bits, d, k, pool, 128) == "wgmma"
+    assert probe_cluster(qbytes, bits, d, k, pool, 128) == CLUSTER_CTAS
+    reads = [cluster_reads(lay.blocks, c)["groups"] for c in (1, 2, 4)]
+    assert reads[0] > reads[1] > reads[2]
+    live = lay.slot_of_row < n_slots
+    one = fn(*args, k, *tail, pair=True, cluster=1, **extra)
+    before = launch_counts()["probe_cluster"]
+    for c in (None, 2, 4):
+        opts = {} if c is None else dict(cluster=c)
+        got = fn(*args, k, *tail, pair=True, **opts, **extra)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][live], one[0][live]), c
+        assert torch.equal(got[1][live], one[1][live]), c
+    assert launch_counts()["probe_cluster"] == before + 3
+    _check((one[0][:, :k], one[1][:, :k]), plain(*args, k, *tail), lay,
+           n_slots, tol)
+    if qbytes == 1:
+        staged = fn(*args, k, *tail, pair=True, loop="staged", **extra)
+        torch.cuda.synchronize()
+        assert torch.equal(staged[0][live], one[0][live])
+        assert torch.equal(staged[1][live], one[1][live])
+    ids = one[1][live][:, :k].long()
+    hi_of = torch.full((x.shape[0] + 1,), -1, device=card)
+    hi_of[torch.from_numpy(lo).to(card)] = torch.from_numpy(lo + 1).to(card)
+    follows = hi_of[torch.clamp(ids[:, :-1], min=0)]
+    is_lo = (ids[:, :-1] >= 0) & (follows >= 0)
+    assert int(is_lo.sum()) >= 500
+    assert bool((ids[:, 1:] == follows)[is_lo].all())
+
+
+def test_cluster_refused_where_it_does_not_apply(rng, card):
+    """A cluster is the wgmma loop's one-CTA-per-block launch: asked for
+    with the staged loop or a worklist it raises; the 64-row libraries
+    refuse it (they are built without it); nothing falls back."""
+    x, qv, lay, _, _ = _cluster_store(rng, 256, card)
+    args = (qv.bfloat16(), lay.qidx, x.bfloat16(), lay.blocks, 10)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="cluster"):
+        probe_topk(*args, pair=True, cluster=2, loop="staged")
+    with pytest.raises(ValueError, match="cluster"):
+        probe_topk(*args, pair=True, cluster=4, wl_pad=4096)
+    with pytest.raises(ValueError, match="cluster="):
+        probe_topk(*args, pair=True, cluster=3)
+    assert launch_counts() == before
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        probe_topk(*args, cluster=2)

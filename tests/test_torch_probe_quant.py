@@ -188,7 +188,8 @@ def test_wrappers_take_plain_versions_on_cpu(rng):
     assert set(before) == {"probe_topk", "probe_topk_quant_int8",
                            "probe_topk_quant_int4", "probe_topk_int8q_int8",
                            "probe_topk_int8q_int4", "probe_worklist",
-                           "merge_items", "probe_pair", "probe_pool"}
+                           "merge_items", "probe_pair", "probe_pool",
+                           "probe_cluster"}
     with pytest.raises(ValueError, match="k <="):
         probe_topk_quant(q, lay.qidx, ts.data_sorted, ts.scales, lay.blocks,
                          129, 4)

@@ -68,8 +68,9 @@
 // pool behind a gate), which takes away the staged loop's exposed latency,
 // its re-staging of the queries and its round trip of the tile; `loop_of`
 // below is the rule that chooses, and every configuration here (tile
-// height, worklist, pool) runs in either. In both a bucket is still read
-// once per 64-slot block, from L2. Beside 96 KB of resident bfloat16
+// height, worklist, pool) runs in either. In both a bucket is read once
+// per 64-slot block, from L2 (the 128-row tile's wgmma launch: once per
+// group of CTAs of a thread-block cluster). Beside 96 KB of resident bfloat16
 // queries (d = 768) the pool's 64 KB leave the wgmma loop rings of 3 to 5
 // stages with the 64-row tile and none with the 128-row tile over int4
 // codes, which there keeps the staged loop; int8 queries take half the
@@ -662,20 +663,37 @@ inline size_t loop_smem_bytes(int loop, int query_bytes, int src, int d, int k,
              : smem_bytes(kpl_of(k), nb, pool);
 }
 
+// The CTAs of a thread-block cluster that a launch takes (1: none), a
+// function of its main loop, tile height and worklist alone (the wrapper,
+// ops/probe_topk.py::probe_cluster, holds the same rule): clusters of
+// hopper::CLUSTER_CTAS for the 128-row tile's one-CTA-per-block launch in
+// the wgmma loop, whose CTAs on one bucket then share each store tile
+// (probe_wgmma.cuh, "Clusters"); none for the worklist's persistent grid,
+// the 64-row tile and the staged loop.
+inline int cluster_of(int loop, int nb, bool worklist) {
+  return loop == LOOP_WGMMA && nb == 128 && !worklist ? hopper::CLUSTER_CTAS
+                                                       : 1;
+}
+
 // The list holds 32 KPL entries a slot; the smallest that holds k is used.
 // `loop`: LOOP_STAGED or LOOP_WGMMA to ask for that loop (the wgmma loop is
 // refused where the rule would not choose it), anything else for the rule.
 // `ctas`: the wgmma loop's worklist grid (0: as many as the card holds).
+// `cluster`: CTAs of a cluster, 0 for cluster_of's; above 1 only the wgmma
+// loop without a worklist takes one (else the launch is refused).
 template <typename T, int SRC, int NB>
-int launch_k(const ProbeArgs &a, int n_ctas, int ctas, int loop,
+int launch_k(const ProbeArgs &a, int n_ctas, int ctas, int loop, int cluster,
              cudaStream_t s) {
   const int rule = loop_of(sizeof(T), SRC, a.d, a.k, a.k_out > a.k, NB);
   if (loop == LOOP_WGMMA && rule != LOOP_WGMMA)
     return int(cudaErrorInvalidValue);
   if (loop != LOOP_STAGED && loop != LOOP_WGMMA) loop = rule;
+  if (cluster == 0) cluster = cluster_of(loop, NB, a.items != nullptr);
+  if (cluster < 1 || (cluster > 1 && loop != LOOP_WGMMA))
+    return int(cudaErrorInvalidValue);
   if constexpr (sizeof(T) <= 2) {
     if (loop == LOOP_WGMMA)
-      return hopper::launch<T, SRC, NB>(a, n_ctas, ctas, s);
+      return hopper::launch<T, SRC, NB>(a, n_ctas, ctas, cluster, s);
   }
   switch (kpl_of(a.k)) {
     case 1: return launch<T, SRC, 1, NB>(a, n_ctas, s);

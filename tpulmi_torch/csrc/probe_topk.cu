@@ -59,9 +59,11 @@
 // first version at a few percent of that: exposed load latency (the ring
 // keeps several stages in flight), the query rows staged again for every
 // store tile (they are resident), WMMA from shared memory, and the product
-// tile written and read back for every tile. What is left is that a bucket
-// is read once per 64-slot block, about three times at 2 probes: the floor
-// is what L2 delivers for those reads, not the bound above. One CTA then
+// tile written and read back for every tile. A bucket is still read once
+// per 64-slot block, about three times at 2 probes; reading it once per
+// cluster group (the 128-row tile) made it no faster, so those reads are
+// not the floor: the wgmmas beside shared memory's traffic and the
+// epilogue are (probe_wgmma.cuh). One CTA then
 // fills an SM, so the blocks run in waves and the longest bucket sets the
 // tail; the worklist (`items`) evens that out.
 
@@ -93,6 +95,12 @@ long long probe_topk_smem_bytes(int loop, int dtype, int d, int k, int pool) {
                                            probe::SRC_SAME, d, k, pool != 0,
                                            PROBE_NB);
 }
+// The CTAs of a cluster that a launch of these sizes takes by the rule (1:
+// none); `worklist` != 0 for a launch with items.
+int probe_topk_cluster(int dtype, int d, int k, int pool, int worklist) {
+  return probe::cluster_of(
+      probe_topk_loop(dtype, d, k, pool), PROBE_NB, worklist != 0);
+}
 
 // Launch on `stream`: one CTA per block of `blocks` (`n_ctas` = `n_blocks`
 // of them), or, with `items` (n_ctas, 2; `block_items` (n_blocks, 2)),
@@ -104,14 +112,17 @@ long long probe_topk_smem_bytes(int loop, int dtype, int d, int k, int pool) {
 // marks each. `k_out` > k asks for the pool (k_out = k: none). `dtype` is
 // the type of q and data: 0 bfloat16, 1 float16, 2 float32. `loop`: 0 or 1
 // asks for that main loop (1 is refused where probe_topk_loop gives 0),
-// anything else leaves it to the rule. Returns the CUDA error code of the
-// launch (0 = ok).
+// anything else leaves it to the rule. `cluster`: the CTAs of a cluster, 0
+// for probe_topk_cluster's (above 1 only for the wgmma loop without items;
+// a cluster the card cannot hold is refused). Returns the CUDA error code
+// of the launch (0 = ok).
 int probe_topk_launch(const void *q, const void *qidx, const void *data,
                       const void *blocks, const void *items,
                       const void *block_items, void *written, void *out_d,
                       void *out_i, void *pool, int n_ctas, int ctas,
                       int n_blocks, int d, long long n_rows, int k, int k_out,
-                      int span, int dtype, int loop, void *stream) {
+                      int span, int dtype, int loop, int cluster,
+                      void *stream) {
   using namespace probe;
   if (n_ctas <= 0) return 0;
   const ProbeArgs a{q, static_cast<const int *>(qidx), data, nullptr,
@@ -128,11 +139,13 @@ int probe_topk_launch(const void *q, const void *qidx, const void *data,
   switch (dtype) {
     case 0:
       return launch_k<__nv_bfloat16, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop,
-                                                      s);
+                                                      cluster, s);
     case 1:
-      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop, s);
+      return launch_k<__half, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop,
+                                                cluster, s);
     case 2:
-      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop, s);
+      return launch_k<float, SRC_SAME, PROBE_NB>(a, n_ctas, ctas, loop,
+                                               cluster, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -77,13 +77,13 @@ using namespace probe;
 
 template <typename T>
 int launch_src(ProbeArgs a, int n_ctas, int ctas, int bits, int loop,
-               cudaStream_t s) {
+               int cluster, cudaStream_t s) {
   if (bits == 8) {
     a.levels = 127.0f;
-    return launch_k<T, SRC_INT8, PROBE_NB>(a, n_ctas, ctas, loop, s);
+    return launch_k<T, SRC_INT8, PROBE_NB>(a, n_ctas, ctas, loop, cluster, s);
   }
   a.levels = 7.0f;
-  return launch_k<T, SRC_INT4, PROBE_NB>(a, n_ctas, ctas, loop, s);
+  return launch_k<T, SRC_INT4, PROBE_NB>(a, n_ctas, ctas, loop, cluster, s);
 }
 
 int query_bytes(int qdtype) { return qdtype == 2 ? 4 : (qdtype == 3 ? 1 : 2); }
@@ -109,14 +109,21 @@ long long probe_topk_quant_smem_bytes(int loop, int qdtype, int bits, int d,
                                            src_of(bits), d, k, pool != 0,
                                            PROBE_NB);
 }
+// The CTAs of a cluster that a launch of these sizes takes by the rule, as
+// probe_topk_cluster.
+int probe_topk_quant_cluster(int qdtype, int bits, int d, int k, int pool,
+                             int worklist) {
+  return probe::cluster_of(probe_topk_quant_loop(qdtype, bits, d, k, pool),
+                           PROBE_NB, worklist != 0);
+}
 
 // Launch on `stream`; `n_ctas`, `items`, `block_items`, `written`, `ctas`,
 // `n_blocks`, `pool`, `k_out` and `span` as in probe_topk_launch.
 // `qdtype` is the type of q: 0 bfloat16, 1 float16, 2 float32, 3 int8 codes
 // (int8 x int8). `bits` is the store's code width: 8 (codes is (n_rows, d)
 // int8) or 4 (codes is (n_rows, d/2) packed bytes). `d` is the logical
-// width; `loop` as in probe_topk_launch. Returns the CUDA error code (0 =
-// ok).
+// width; `loop` and `cluster` as in probe_topk_launch. Returns the CUDA
+// error code (0 = ok).
 int probe_topk_quant_launch(const void *q, const void *qidx,
                             const void *codes, const void *scales,
                             const void *blocks, const void *items,
@@ -124,7 +131,7 @@ int probe_topk_quant_launch(const void *q, const void *qidx,
                             void *out_d, void *out_i, void *pool, int n_ctas,
                             int ctas, int n_blocks, int d, long long n_rows,
                             int k, int k_out, int span, int qdtype, int bits,
-                            int loop, void *stream) {
+                            int loop, int cluster, void *stream) {
   if (n_ctas <= 0) return 0;
   const ProbeArgs a{q, static_cast<const int *>(qidx), codes,
                     static_cast<const float *>(scales),
@@ -140,10 +147,15 @@ int probe_topk_quant_launch(const void *q, const void *qidx,
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (qdtype) {
-    case 0: return launch_src<__nv_bfloat16>(a, n_ctas, ctas, bits, loop, s);
-    case 1: return launch_src<__half>(a, n_ctas, ctas, bits, loop, s);
-    case 2: return launch_src<float>(a, n_ctas, ctas, bits, loop, s);
-    case 3: return launch_src<signed char>(a, n_ctas, ctas, bits, loop, s);
+    case 0:
+      return launch_src<__nv_bfloat16>(a, n_ctas, ctas, bits, loop, cluster,
+                                       s);
+    case 1:
+      return launch_src<__half>(a, n_ctas, ctas, bits, loop, cluster, s);
+    case 2:
+      return launch_src<float>(a, n_ctas, ctas, bits, loop, cluster, s);
+    case 3:
+      return launch_src<signed char>(a, n_ctas, ctas, bits, loop, cluster, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -116,11 +116,16 @@
 // plan does not fit takes the staged loop, by probe_common.cuh::loop_of and
 // never by a failed launch.
 //
-// What bounds it now. A bucket is read once per 64-slot block, so about
-// three times at 2 probes, from L2; with wgmma reading both operands from
-// shared memory (4 KB for 32 cycles of the tensor cores at m64n64), the
-// TMA writes and, over codes, the converters' reads and writes, shared
-// memory is as busy as the tensor cores. One CTA fills an SM, so the
+// What bounds it now. Without a cluster a bucket is read once per 64-slot
+// block, so about three times at 2 probes, from L2; the 128-row tile's
+// clusters (below) read it once per group, and were no faster for it: the
+// loop's time with its wgmmas left out rose with the cluster's size, and a
+// consumer warp waits for a stage for a tenth of its cycles or less, so
+// L2's re-reads are not what holds it (PERF.md). With wgmma reading
+// both operands from shared memory (4 KB for 32 cycles of the tensor cores
+// at m64n64), the TMA writes and, over codes, the converters' reads and
+// writes, shared memory is as busy as the tensor cores. One CTA fills an
+// SM, so the
 // one-CTA-per-block launch runs in waves whose tail the longest bucket sets;
 // the persistent worklist has no such tail (every CTA takes about as many
 // items), and pays instead for a piece's partial lists, the merge, and a
@@ -154,6 +159,14 @@
 #ifndef PROBE_CLOCKS
 #define PROBE_CLOCKS 0
 #endif
+
+// The thread-block cluster (see "Clusters" above the kernel) is compiled
+// into the 128-row tile's kernels only; -DPROBE_CLUSTER_ALL=1 compiles it
+// into the 64-row tile's too, so that time_probe can time them with it.
+#ifndef PROBE_CLUSTER_ALL
+#define PROBE_CLUSTER_ALL 0
+#endif
+
 #if PROBE_CLOCKS
 #include <cstdio>
 #define PROBE_TICK(t) const long long t = clock64()
@@ -179,6 +192,17 @@ constexpr size_t SMEM_LIMIT = 232448;
 // is in flight hides their latency; where converters fill it from the raw
 // ring, more than 8 stages of either gained nothing on the card.
 constexpr int MAX_STAGES = 12, MAX_CODE_STAGES = 8, MIN_STAGES = 2;
+// CTAs of a cluster where the rule (cluster_of) gives one; a stage is then
+// loaded as CLUSTER_CTAS boxes of NB / CLUSTER_CTAS rows.
+constexpr int CLUSTER_CTAS = 2;
+template <int NB>
+__host__ __device__ constexpr bool clustered_tile() {
+  return NB == 128 || PROBE_CLUSTER_ALL != 0;
+}
+// The cluster sizes a launch may ask for.
+__host__ __device__ constexpr bool cluster_ok(int c) {
+  return c == 1 || c == 2 || c == 4;
+}
 
 // Features of one slice for queries of `qb` bytes a value.
 __host__ __device__ constexpr int slice_of(int qb) { return SLICE_BYTES / qb; }
@@ -288,6 +312,67 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap *map
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+// The same box, written at `dst` and counted on the barrier at `bar` in
+// every CTA of the cluster whose bit `mask` holds (both addresses are this
+// CTA's, and stand for the same offsets in the others).
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap *map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+// The CTAs of this CTA's cluster and its rank there (1 and 0 when the launch
+// has no cluster).
+__device__ __forceinline__ int cluster_ctas() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return int(n);
+}
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+// Every thread of every CTA of the cluster meets here; what a thread wrote
+// before (an mbarrier's init among it) is seen by all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// Arrive on the barrier at this CTA's offset `bar` in CTA `cta` of the
+// cluster (this one too). CLUSTER_SCOPE: every earlier memory operation of
+// the thread, its arrives on peers among them, is seen by the cluster
+// first; else by the CTA (as CUTLASS's cluster barriers arrive), which is
+// what handing back a stage that wgmma has finished reading needs: a
+// release at the cluster's scope waits for the thread's outstanding memory
+// operations, and cost ~2 us a stage on an H100 (PERF.md).
+template <bool CLUSTER_SCOPE>
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, int cta) {
+  if constexpr (CLUSTER_SCOPE) {
+    asm volatile(
+        "{\n"
+        ".reg .b32 remote;\n"
+        "mapa.shared::cluster.u32 remote, %0, %1;\n"
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+        "}\n" ::"r"(bar),
+        "r"(cta)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .b32 remote;\n"
+        "mapa.shared::cluster.u32 remote, %0, %1;\n"
+        "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+        "}\n" ::"r"(bar),
+        "r"(cta)
+        : "memory");
+  }
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -668,14 +753,15 @@ __device__ __forceinline__ int block_tiles(const ProbeArgs &a, int b) {
 // take part: a prefix sum of the blocks' tiles over the threads, then two
 // sums of the items that start before each bound, through `red` (2 (warps
 // + 1) words of shared memory). Without a worklist the CTA's own block.
-// False for a CTA without items, which has nothing to do.
+// False for a CTA without items, or past the last block (a cluster launch
+// rounds the grid up to whole clusters), which has nothing to do.
 template <int NB, int NTHREADS>
 __device__ __forceinline__ bool cta_range(const ProbeArgs &a, long long *red,
                                           int &pos, int &end) {
   if (a.items == nullptr) {
     pos = blockIdx.x;
     end = pos + 1;
-    return true;
+    return pos < a.n_blocks;
   }
   constexpr int NWARPS = NTHREADS / 32;
   const int *last = a.block_items + 2 * (a.n_blocks - 1);
@@ -778,6 +864,38 @@ __device__ __forceinline__ bool next_piece(const ProbeArgs &a, int &pos,
   return true;
 }
 
+// The CTAs of this CTA's cluster that share its store tiles: ranks
+// [first, first + size), this one the j-th; a contiguous run of ranks whose
+// blocks have live slots and the same store rows (the first row and the
+// count in `blocks`), so they walk the same tiles. A block without live
+// slots or rows, and every block outside a cluster, is a group of its own.
+struct Group {
+  int first, size, j;
+  __device__ uint16_t mask() const {
+    return uint16_t(((1u << size) - 1u) << first);
+  }
+};
+
+__device__ __forceinline__ Group cluster_group(const ProbeArgs &a, int C) {
+  const int rank = C > 1 ? cluster_rank() : 0;
+  Group g{rank, 1, 0};
+  if (C == 1) return g;
+  const long long base = (long long)blockIdx.x - rank;
+  auto rows_of = [&](int r, int &start, int &cnt) {
+    const long long b = base + r;
+    if (b >= a.n_blocks) return false;
+    start = __ldg(a.blocks + 3 * b);
+    cnt = __ldg(a.blocks + 3 * b + 1);
+    return __ldg(a.blocks + 3 * b + 2) > 0 && cnt > 0;
+  };
+  int s0, c0, s, c;
+  if (!rows_of(rank, s0, c0)) return g;
+  int lo = rank, hi = rank + 1;
+  while (lo > 0 && rows_of(lo - 1, s, c) && s == s0 && c == c0) --lo;
+  while (hi < C && rows_of(hi, s, c) && s == s0 && c == c0) ++hi;
+  return Group{lo, hi - lo, rank - lo};
+}
+
 // The resident queries of a block (`qrow`: the query of each slot row),
 // gathered by `n` threads, `gt` this thread's place among them: chunk ch of
 // slice s of slot row r holds features [f0, f0 + EPC) of its query, zeros
@@ -812,6 +930,38 @@ __device__ __forceinline__ void gather_queries(unsigned char *as, const T *q,
   cp_async_wait();
 }
 
+// Clusters. The 128-row tile's one-CTA-per-block launch runs as clusters of
+// C CTAs (cluster_of gives C; the launch's tensor map then has boxes of
+// NB / C rows, and a stage is C such boxes). CTA b still owns block b. The
+// CTAs of a cluster whose blocks share a bucket (`Group`) walk the same
+// tiles, so each store tile is read once for the group: its j-th loader
+// loads boxes j, j + G, ... of every stage with one TMA multicast to the
+// whole group, which lands at the same offset in each CTA and completes the
+// bytes on each one's full barrier; each loader arms its own barrier for
+// the whole stage. A stage is refilled only when every CTA of the group has
+// released it: each consumer warp (over codes that are not the operand,
+// each converter, since the raw ring is what is multicast and each CTA
+// converts its own stages) arrives on the empty barrier of every CTA of
+// the group, whose count is G times its own. So no CTA's stage can run a
+// phase ahead of a peer's, and a parity wait stays within two phases. A
+// box past the bucket's last row is not loaded (nor counted). The edges of
+// a cluster's life:
+//   - every thread of every CTA meets at one cluster barrier after the
+//     mbarriers are initialised, before any multicast or remote arrive;
+//   - no CTA of a group exits while a peer may still arrive on its
+//     barriers: each arriving warp, after its last remote arrive, arrives
+//     on the `done` barrier of every CTA of the group (at the cluster's
+//     scope, so its arrives before land first), and the consumers wait
+//     for all of them before they exit. A multicast into a CTA is
+//     waited for by its own consumers. A CTA outside any group (an empty
+//     block, a group of one, a CTA past the last block) meets no peer
+//     after the start.
+// The epilogue, the lists and the pool are those of the launch without a
+// cluster, so the result is the same to the bit. It is slower than the
+// launch without one (2 CTAs by 8-9%, 4 by 22-23% on the 300K store,
+// PERF.md): each stage waits for the slowest CTA of its group, and the
+// reads it saves were not what held the loop.
+//
 // T: the type of the queries and of the operand stages: bfloat16 or
 // float16, or signed char for int8 query codes (SRC_INT8 or SRC_INT4 only).
 // KL: the capacity of a slot row's list when the thread that inserts into
@@ -860,18 +1010,40 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   int *qrow = reinterpret_cast<int *>(thr + QB);
   float *sc = reinterpret_cast<float *>(qrow + QB);  // (consumer warps, NB)
   // barriers of stage i: operand stage full, operand stage empty, raw stage
-  // full, raw stage empty
+  // full, raw stage empty; then the group's `done`
   const uint32_t bar0 = smem_addr(bars);
   auto op_full = [&](int i) { return bar0 + 8 * i; };
   auto op_empty = [&](int i) { return bar0 + 8 * (MAX_STAGES + i); };
   auto raw_full = [&](int i) { return bar0 + 8 * (2 * MAX_STAGES + i); };
   auto raw_empty = [&](int i) { return bar0 + 8 * (3 * MAX_STAGES + i); };
+  const uint32_t done = bar0 + 8 * (4 * MAX_STAGES);
+  // CTAs of the cluster (1: none) and this CTA's group in it
+  const int C = clustered_tile<NB>() ? cluster_ctas() : 1;
 
   // the range, worked out in the distance tile's memory, unused till then
   int pos0, end;
   if (!cta_range<NB, NTHREADS>(a, reinterpret_cast<long long *>(tile), pos0,
-                               end))
+                               end)) {
+    if (C > 1) cluster_sync();   // the peers' start
     return;
+  }
+  const Group grp = clustered_tile<NB>() ? cluster_group(a, C)
+                                         : Group{0, 1, 0};
+  // A stage handed back by a whole warp, to every CTA of the group: lane r
+  // arrives on the group's r-th CTA, all at once, and only ever on that
+  // one (which the end's `done` relies on).
+  auto give_back = [&](uint32_t bar) {
+    if (grp.size == 1) {
+      if (lane == 0) mbar_arrive(bar);
+    } else if (lane < grp.size) {
+      mbar_arrive_at<false>(bar, grp.first + lane);
+    }
+  };
+  // A warp's last arrive: on each CTA of the group's `done`, at the
+  // cluster's scope, after the lane's arrives on that CTA.
+  auto say_done = [&]() {
+    if (lane < grp.size) mbar_arrive_at<true>(done, grp.first + lane);
+  };
   int pos = pos0;
   Piece pc;
   next_piece<NB>(a, pos, end, pc);   // a range holds at least one item
@@ -879,10 +1051,12 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   if (tid == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(op_full(i), 1);
-      mbar_init(op_empty(i), CONSUMER_WARPS);
+      // the ring the loaders fill is released by the whole group
+      mbar_init(op_empty(i), CONSUMER_WARPS * (RAW ? 1 : grp.size));
       mbar_init(raw_full(i), 1);
-      mbar_init(raw_empty(i), 1);
+      mbar_init(raw_empty(i), grp.size);
     }
+    mbar_init(done, grp.size * (CONSUMER_WARPS + (RAW ? CONVERTER_WARPS : 0)));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < QB * k; i += NTHREADS) list[i] = make_key(SENTINEL, -1);
@@ -893,27 +1067,42 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   if (pooled)
     for (int i = tid; i < QB * POOL; i += NTHREADS) pool_s[i] = EMPTY_KEY;
   __syncthreads();
+  if (C > 1) cluster_sync();   // every peer's barriers are initialised
 
   if (warp == CONSUMER_WARPS) {
     // ---------------------------------------------------------- the loader
     // It starts at once: the ring fills while the other warps gather. It
     // runs through every piece of the CTA's range without a pause, so the
     // ring is full when the consumers come back from a piece's end. Its
-    // stage and phase run on across pieces, as the consumers' do.
+    // stage and phase run on across pieces, as the consumers' do. In a
+    // cluster a stage is C boxes of NB / C rows, of which this loader loads
+    // every G-th into the whole group.
     if (lane != 0) return;
     const uint32_t dst0 = smem_addr(RAW ? raws : bs);
     constexpr int BYTES = RAW ? RAW_BYTES : STAGE_BYTES;
     constexpr int STEP = RAW ? RAWB : SL;   // elements of the map
+    const int box_rows = NB / C, box_bytes = BYTES / C;
+    const uint16_t mask = grp.mask();
     int st = 0, ph = 0;
     Piece lp;
     for (int lpos = pos0; next_piece<NB>(a, lpos, end, lp);) {
       for (int t = 0; t < lp.n_tiles; ++t) {
-        const int row = int(lp.dstart) + lp.t_lo + t * NB;
+        const int t0 = lp.t_lo + t * NB;
+        const int row = int(lp.dstart) + t0;
+        // the boxes that hold a row of the bucket
+        const int boxes = min(C, (lp.t_hi - t0 + box_rows - 1) / box_rows);
         for (int s = 0; s < ks; ++s) {
           mbar_wait(RAW ? raw_empty(st) : op_empty(st), ph ^ 1);
           const uint32_t full = RAW ? raw_full(st) : op_full(st);
-          mbar_expect_tx(full, BYTES);
-          tma_load_2d(dst0 + st * BYTES, &map, full, s * STEP, row);
+          mbar_expect_tx(full, boxes * box_bytes);
+          for (int i = grp.j; i < boxes; i += grp.size) {
+            const uint32_t dst = dst0 + st * BYTES + i * box_bytes;
+            if (grp.size > 1)
+              tma_load_2d_multicast(dst, &map, full, s * STEP,
+                                    row + i * box_rows, mask);
+            else
+              tma_load_2d(dst, &map, full, s * STEP, row + i * box_rows);
+          }
           if (++st == S) { st = 0; ph ^= 1; }
         }
       }
@@ -952,13 +1141,12 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
         // every lane's writes are fenced for wgmma, then one lane arrives
         fence_async_smem();
         __syncwarp();
-        if (lane == 0) {
-          mbar_arrive(op_full(st));
-          mbar_arrive(raw_empty(st));
-        }
+        if (lane == 0) mbar_arrive(op_full(st));
+        give_back(raw_empty(st));
         st += step;
         if (st >= S) { st -= S; ph ^= 1; }
       }
+      if (grp.size > 1) say_done();
     }
     return;
   }
@@ -969,6 +1157,15 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
   const float inf = __int_as_float(0x7f800000);
   const uint64_t adesc = operand_desc(smem_addr(as));
   const uint64_t bdesc = operand_desc(smem_addr(bs));
+  // an operand stage read: back to the group's loaders, or, where
+  // converters fill the operand ring, to this CTA's converters
+  auto release = [&](uint32_t bar) {
+    if constexpr (RAW) {
+      if (lane == 0) mbar_arrive(bar);
+    } else {
+      give_back(bar);
+    }
+  };
   float *scw = sc + warp * NB;
   Acc acc[NB / 2];
 #pragma unroll
@@ -1031,7 +1228,7 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
         if (s > 0) {
           // the slice before this one has been read
           wgmma_wait<1>();
-          if (lane == 0) mbar_arrive(op_empty(prev));
+          release(op_empty(prev));
         }
         prev = st;
         if (++st == S) { st = 0; ph ^= 1; }
@@ -1039,7 +1236,7 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
       }
       PROBE_TICK(c2);
       wgmma_wait<0>();
-      if (lane == 0) mbar_arrive(op_empty(prev));
+      release(op_empty(prev));
       pin(acc);
       PROBE_TOCK(c_mma, c2);
       PROBE_TICK(c3);
@@ -1271,13 +1468,21 @@ __global__ void __launch_bounds__(threads(SRC, sizeof(T)))
            int(blockIdx.x), n_pieces, tiles_seen, ks, clock64() - c_start,
            c_wait, c_mma, c_test, c_insert, c_pool, c_between);
 #endif
+  if (grp.size > 1) {
+    // the warp's last arrive on a peer is behind it; the CTA exits once
+    // every peer's arriving warps have said the same
+    say_done();
+    mbar_wait(done, 0);
+  }
 }
 
 // The tensor map over the store that the loader's TMA loads go through:
 // rows of `d` values of T (SRC_SAME) or of code bytes. Where the loads land
-// in the operand ring, boxes of NB rows x 128 bytes (64 values, or 128 int8
-// codes under int8 queries) in the 128-byte swizzle; else boxes of NB rows
-// x the raw ring's bytes as they lie. cuTensorMapEncodeTiled lives in libcuda; the runtime hands out
+// in the operand ring, boxes of NB / `cluster` rows x 128 bytes (64 values,
+// or 128 int8 codes under int8 queries) in the 128-byte swizzle; else boxes
+// of NB / `cluster` rows x the raw ring's bytes as they lie. A box of a
+// stage of `cluster` boxes starts at a multiple of 1 KB (the swizzle's
+// period) or lies as the rows do, so the stage's layout is the same. cuTensorMapEncodeTiled lives in libcuda; the runtime hands out
 // its address, so nothing links against libcuda. Returns a CUDA error code.
 using EncodeTiled = CUresult (*)(CUtensorMap *, CUtensorMapDataType,
                                  cuuint32_t, void *, const cuuint64_t *,
@@ -1304,7 +1509,7 @@ inline EncodeTiled encode_tiled() {
 }
 
 template <typename T, int SRC, int NB>
-int store_map(CUtensorMap *map, const ProbeArgs &a) {
+int store_map(CUtensorMap *map, const ProbeArgs &a, int cluster) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   if (a.n_rows < 1 || reinterpret_cast<uintptr_t>(a.data) % 16 != 0)
@@ -1319,7 +1524,8 @@ int store_map(CUtensorMap *map, const ProbeArgs &a) {
   const cuuint64_t dims[2] = {width, cuuint64_t(a.n_rows)};
   const cuuint64_t strides[1] = {width * (CODES ? 1 : sizeof(T))};
   const cuuint32_t box[2] = {
-      cuuint32_t(RAWB > 0 ? RAWB : slice_of(sizeof(T))), cuuint32_t(NB)};
+      cuuint32_t(RAWB > 0 ? RAWB : slice_of(sizeof(T))),
+      cuuint32_t(NB / cluster)};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult res = encode(
       map, type, 2, const_cast<void *>(a.data), dims, strides, box, steps,
@@ -1332,10 +1538,14 @@ int store_map(CUtensorMap *map, const ProbeArgs &a) {
 // With a worklist the grid is persistent: `ctas` CTAs, or as many as the
 // card holds at once at this launch's shared memory (the SMs times the CTAs
 // an SM takes), never more than the items the scratch holds; the kernel
-// caps it again by the true total, which only the device knows.
+// caps it again by the true total, which only the device knows. Without
+// one, one CTA a block, in clusters of `cluster` CTAs (the grid rounded up
+// to whole clusters) when it is above 1; a cluster shape that the card
+// cannot hold at once is refused (cudaErrorInvalidConfiguration), never
+// launched otherwise.
 template <typename T, int SRC, int NB, int KL, bool POOL_ON>
 int launch_pooled(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
-                  int ctas, size_t smem, cudaStream_t stream) {
+                  int ctas, int cluster, size_t smem, cudaStream_t stream) {
   const auto kernel = probe_kernel_wgmma<T, SRC, NB, KL, POOL_ON>;
   constexpr int NTHREADS = threads(SRC, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
@@ -1355,24 +1565,53 @@ int launch_pooled(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
     }
     n_ctas = min(n_ctas, grid);
   }
-  kernel<<<n_ctas, NTHREADS, smem, stream>>>(map, a);
+  if (cluster == 1) {
+    kernel<<<n_ctas, NTHREADS, smem, stream>>>(map, a);
+    return int(cudaGetLastError());
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned((n_ctas + cluster - 1) / cluster * cluster));
+  cfg.blockDim = dim3(unsigned(NTHREADS));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fits = 0;
+  err = cudaOccupancyMaxActiveClusters(&fits, (const void *)kernel, &cfg);
+  if (err != cudaSuccess) return int(err);
+  if (fits == 0) return int(cudaErrorInvalidConfiguration);
+  void *args[] = {const_cast<CUtensorMap *>(&map),
+                  const_cast<ProbeArgs *>(&a)};
+  err = cudaLaunchKernelExC(&cfg, (const void *)kernel, args);
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
 
 template <typename T, int SRC, int NB, int KL>
 int launch_held(const CUtensorMap &map, const ProbeArgs &a, int n_ctas,
-                int ctas, size_t smem, cudaStream_t stream) {
+                int ctas, int cluster, size_t smem, cudaStream_t stream) {
   return a.k_out > a.k
-             ? launch_pooled<T, SRC, NB, KL, true>(map, a, n_ctas, ctas, smem,
-                                                   stream)
+             ? launch_pooled<T, SRC, NB, KL, true>(map, a, n_ctas, ctas,
+                                                   cluster, smem, stream)
              : launch_pooled<T, SRC, NB, KL, false>(map, a, n_ctas, ctas,
-                                                    smem, stream);
+                                                    cluster, smem, stream);
 }
 
+// `cluster`: CTAs of a cluster (1: none), for a launch without a worklist
+// of a kernel that has the cluster path (clustered_tile).
 template <typename T, int SRC, int NB>
-int launch(const ProbeArgs &a, int n_ctas, int ctas, cudaStream_t stream) {
+int launch(const ProbeArgs &a, int n_ctas, int ctas, int cluster,
+           cudaStream_t stream) {
+  if (!cluster_ok(cluster) ||
+      (cluster > 1 && (!clustered_tile<NB>() || a.items != nullptr)))
+    return int(cudaErrorInvalidValue);
   CUtensorMap map;
-  const int bad = store_map<T, SRC, NB>(&map, a);
+  const int bad = store_map<T, SRC, NB>(&map, a, cluster);
   if (bad != 0) return bad;
   const bool pool = a.k_out > a.k;
   constexpr int QBYTES = sizeof(T);
@@ -1380,10 +1619,13 @@ int launch(const ProbeArgs &a, int n_ctas, int ctas, cudaStream_t stream) {
                                  stages(a.d, SRC, QBYTES, a.k, NB, pool));
   // a list of up to 32 entries is held in registers
   if (a.k <= 16)
-    return launch_held<T, SRC, NB, 16>(map, a, n_ctas, ctas, smem, stream);
+    return launch_held<T, SRC, NB, 16>(map, a, n_ctas, ctas, cluster, smem,
+                                       stream);
   if (a.k <= 32)
-    return launch_held<T, SRC, NB, 32>(map, a, n_ctas, ctas, smem, stream);
-  return launch_held<T, SRC, NB, 0>(map, a, n_ctas, ctas, smem, stream);
+    return launch_held<T, SRC, NB, 32>(map, a, n_ctas, ctas, cluster, smem,
+                                       stream);
+  return launch_held<T, SRC, NB, 0>(map, a, n_ctas, ctas, cluster, smem,
+                                    stream);
 }
 
 }  // namespace hopper

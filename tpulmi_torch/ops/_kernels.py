@@ -47,20 +47,22 @@ def _probe_signatures(source: str, launch_args, n_codes: int) -> dict:
             # type codes, d, k, pool -> main loop
             f"{source}_loop": ([_I] * (n_codes + 3), _I),
             # loop, type codes, d, k, pool -> bytes
-            f"{source}_smem_bytes": ([_I] * (n_codes + 4), _LL)}
+            f"{source}_smem_bytes": ([_I] * (n_codes + 4), _LL),
+            # type codes, d, k, pool, worklist -> CTAs of a cluster
+            f"{source}_cluster": ([_I] * (n_codes + 4), _I)}
 
 
 SIGNATURES = {
     # q, qidx, data, blocks, items, block_items, written, out_d, out_i,
     # pool, n_ctas, ctas, n_blocks, d, n_rows, k, k_out, span, dtype, loop,
-    # stream
+    # cluster, stream
     "probe_topk": _probe_signatures(
-        "probe_topk", [_P] * 10 + [_I] * 4 + [_LL] + [_I] * 5 + [_P], 1),
+        "probe_topk", [_P] * 10 + [_I] * 4 + [_LL] + [_I] * 6 + [_P], 1),
     # q, qidx, codes, scales, blocks, items, block_items, written, out_d,
     # out_i, pool, n_ctas, ctas, n_blocks, d, n_rows, k, k_out, span, qdtype,
-    # bits, loop, stream
+    # bits, loop, cluster, stream
     "probe_topk_quant": _probe_signatures(
-        "probe_topk_quant", [_P] * 11 + [_I] * 4 + [_LL] + [_I] * 6 + [_P],
+        "probe_topk_quant", [_P] * 11 + [_I] * 4 + [_LL] + [_I] * 7 + [_P],
         2),
     # blocks, block_items, written, part_d, part_i, pool, out_d, out_i,
     # n_blocks, n_items, k, k_out, stream

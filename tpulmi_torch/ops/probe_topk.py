@@ -53,6 +53,16 @@ configurations of the TPU kernel:
   grid's CTA count, which is otherwise what the card holds at once; the
   plain version with ``ctas`` lays out its parts by that schedule, without
   it as one piece per item.
+- ``cluster``: the 128-row tile's one-CTA-per-block launch in the wgmma
+  loop runs as thread-block clusters of `CLUSTER_CTAS` CTAs
+  (`cluster_of`), in which the CTAs of one bucket's blocks read each store
+  tile once, by TMA multicast, where each block read it before
+  (`cluster_groups` is the grouping in plain Python). ``cluster`` (checks
+  and timing) forces the CTAs of a cluster: 1 for none, 2 or 4; the 64-row
+  libraries take more than 1 only when built with ``PROBE_CLUSTER_ALL``.
+  The result does not depend on it, so the plain versions ignore it. The
+  clusters are slower than the launch without one on an H100 (PERF.md):
+  what holds the loop is not the reads they save.
 
 The kernel has two main loops that compute one function
 (csrc/probe_wgmma.cuh, csrc/probe_common.cuh). `probe_loop` is the rule
@@ -233,6 +243,106 @@ def probe_loop(query_bytes: int, code_bits: int, d: int, k: int, pool: bool,
     return "wgmma" if fits else "staged"
 
 
+# thread-block clusters (probe_wgmma.cuh): the CTAs of a cluster where the
+# rule gives one, and the sizes a launch may ask for
+CLUSTER_CTAS = 2
+CLUSTER_SIZES = (1, 2, 4)
+
+
+def cluster_of(loop: str, tile_rows: int, worklist: bool) -> int:
+    """The CTAs of a cluster that a launch takes, 1 for none
+    (probe_common.cuh::cluster_of): `CLUSTER_CTAS` for the 128-row tile's
+    one-CTA-per-block launch in the wgmma loop, whose CTAs on one bucket
+    then read each store tile once; none for the worklist's persistent
+    grid, the 64-row tile and the staged loop."""
+    wgmma_dense = loop == "wgmma" and not worklist
+    return CLUSTER_CTAS if wgmma_dense and tile_rows == 128 else 1
+
+
+def probe_cluster(query_bytes: int, code_bits: int, d: int, k: int,
+                  pool: bool, tile_rows: int, worklist: bool = False) -> int:
+    """`cluster_of` under the main loop that `probe_loop` gives these
+    sizes: what the C entry points ``*_cluster`` report."""
+    return cluster_of(probe_loop(query_bytes, code_bits, d, k, pool,
+                                 tile_rows), tile_rows, worklist)
+
+
+@dataclass(frozen=True)
+class ClusterGroup:
+    """CTAs of one cluster that share each store tile
+    (probe_wgmma.cuh::Group): ranks [first, first + size) of cluster
+    `cluster` (CTAs ``cluster * C + rank``), whose blocks have live slots
+    and the same store rows [start, start + rows)."""
+    cluster: int
+    first: int
+    size: int
+    start: int
+    rows: int
+
+    @property
+    def mask(self) -> int:
+        """The multicast's CTA mask: one bit a rank of the group."""
+        return ((1 << self.size) - 1) << self.first
+
+    def blocks(self, cluster_ctas: int) -> range:
+        base = self.cluster * cluster_ctas + self.first
+        return range(base, base + self.size)
+
+
+def block_rows(blocks: torch.Tensor):
+    """(first store row, rows) of every block whose slots scan rows, else
+    None: a block without live slots or of an empty bucket joins no
+    group."""
+    return [(start, cnt) if live > 0 and cnt > 0 else None
+            for start, cnt, live in blocks.tolist()]
+
+
+def cta_group(rows, block: int, cluster_ctas: int):
+    """The kernel's `cluster_group` for CTA `block` of a launch in clusters
+    of `cluster_ctas` (`rows`: `block_rows` of its blocks; a CTA past the
+    last block has no block): (first rank, size, place) of its group; a
+    block without rows, and every block outside a cluster, alone."""
+    rank = block % cluster_ctas
+    if cluster_ctas == 1 or block >= len(rows) or rows[block] is None:
+        return rank, 1, 0
+    base, lo, hi = block - rank, rank, rank + 1
+
+    def same(r):
+        b = base + r
+        return b < len(rows) and rows[b] == rows[block]
+
+    while lo > 0 and same(lo - 1):
+        lo -= 1
+    while hi < cluster_ctas and same(hi):
+        hi += 1
+    return lo, hi - lo, rank - lo
+
+
+def cluster_groups(blocks: torch.Tensor, cluster_ctas: int):
+    """Every group of a one-CTA-per-block launch of `blocks` in clusters of
+    `cluster_ctas`, in block order: each reads its bucket's tiles once, so
+    a bucket is read once per group (without clusters, once per live
+    block)."""
+    rows = block_rows(blocks)
+    groups = []
+    for b, r in enumerate(rows):
+        first, size, place = cta_group(rows, b, cluster_ctas)
+        if r is not None and place == 0:
+            groups.append(ClusterGroup(b // cluster_ctas, first, size, *r))
+    return groups
+
+
+def cluster_reads(blocks: torch.Tensor, cluster_ctas: int) -> dict:
+    """What one launch reads of the store: `groups` tile walks (one a group)
+    over `buckets` probed buckets, `rows_read` store rows against the
+    `bucket_rows` that each bucket read once would take."""
+    groups = cluster_groups(blocks, cluster_ctas)
+    buckets = {(g.start, g.rows) for g in groups}
+    return {"groups": len(groups), "buckets": len(buckets),
+            "rows_read": sum(g.rows for g in groups),
+            "bucket_rows": sum(rows for _, rows in buckets)}
+
+
 def common_loop(query_bytes: int, code_bits: int, d: int, launches):
     """The `loop` option under which every launch of `launches` ((k, pool,
     tile rows) each) takes one and the same main loop: None when the rule
@@ -293,17 +403,20 @@ def worklist_scratch_bytes(wl_pad: int, k: int, n_blocks: int,
 
 
 def _variant(k, k_out=0, pair=False, wl_pad=0, item_rows=1024, loop=None,
-             ctas=0):
+             ctas=0, cluster=0):
     """Check the variant options; returns (k_out, pool, rows of an item).
     `loop` asks the kernel for one of `LOOPS` instead of `probe_loop`'s
     choice (the checks on the card hold one loop against the other); a
-    plain version has no loops and ignores it. `ctas` as in the module
-    docstring."""
+    plain version has no loops and ignores it. `ctas` and `cluster` as in
+    the module docstring."""
     ko = k_out or k
     if loop is not None and loop not in LOOPS:
         raise ValueError(f"loop={loop!r} must be None or one of {LOOPS}")
     if ctas < 0:
         raise ValueError(f"ctas={ctas} must not be negative")
+    if cluster and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster} must be 0 (the rule's) or one "
+                         f"of {CLUSTER_SIZES}")
     if not k <= ko <= POOL_CLASSES:
         raise ValueError(f"k_out={ko} must lie in [k={k}, {POOL_CLASSES}]")
     if wl_pad < 0:
@@ -672,9 +785,10 @@ def probe_topk_plain(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
 
 
 # launches by kernel configuration, beside the wrappers' own counts: the
-# worklist's item kernel and its merge kernel, the 128-row tile, the pool
+# worklist's item kernel and its merge kernel, the 128-row tile, the pool,
+# launches in clusters of more than one CTA
 _launches = {"probe_worklist": 0, "merge_items": 0, "probe_pair": 0,
-             "probe_pool": 0}
+             "probe_pool": 0, "probe_cluster": 0}
 # launches of the probe kernel by the main loop they took
 _loop_launches = {name: 0 for name in LOOPS}
 
@@ -686,17 +800,19 @@ def _raise_on(err: int, what: str) -> None:
 
 def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             k_out=0, pair=False, wl_pad=0, item_rows=1024, merge=True,
-            loop=None, ctas=0):
+            loop=None, ctas=0, cluster=0):
     """Run the launch entry point of csrc/`source`.cu (its 128-row library
     with `pair`) on the current stream: the inputs' pointers (the last one
     is `blocks`), the worklist, outputs and pool allocated here, the sizes,
     then `codes` (the entry point's type codes: the queries' type and, for
-    a quantized store, its code width) and the main loop (`probe_loop`'s
-    choice unless `loop` names one). With a worklist the items' partial
-    lists go on through `merge_items` (``merge=False`` returns them as they
-    are, as `WorklistParts`). Raises on what the kernel cannot take; there
-    is no fallback."""
-    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows, loop, ctas)
+    a quantized store, its code width), the main loop (`probe_loop`'s
+    choice unless `loop` names one) and the CTAs of a cluster
+    (`cluster_of`'s unless `cluster` names them). With a worklist the
+    items' partial lists go on through `merge_items` (``merge=False``
+    returns them as they are, as `WorklistParts`). Raises on what the
+    kernel cannot take; there is no fallback."""
+    ko, pool, span = _variant(k, k_out, pair, wl_pad, item_rows, loop, ctas,
+                              cluster)
     dev = inputs[0].device
     if dev.type != "cuda":
         raise ValueError(f"probe kernel runs on CUDA tensors, not {dev}")
@@ -713,6 +829,12 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
         raise ValueError(f"the wgmma loop does not take this launch "
                          f"(d={d}, k={k}, pool={pool}, tile of {tile_rows})")
     loop = loop or rule
+    worklist = bool(wl_pad)
+    if cluster > 1 and (loop != "wgmma" or worklist):
+        raise ValueError(f"a cluster of {cluster} CTAs takes the wgmma loop's "
+                         f"one-CTA-per-block launch, not the {loop} loop"
+                         f"{' with a worklist' if worklist else ''}")
+    cluster = cluster or cluster_of(loop, tile_rows, worklist)
     if (getattr(lib, f"{source}_block_slots")() != BLOCK_SLOTS
             or getattr(lib, f"{source}_tile_rows")() != tile_rows
             or LOOPS[getattr(lib, f"{source}_loop")(*codes, d, k, int(pool))]
@@ -720,10 +842,14 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             or getattr(lib, f"{source}_smem_bytes")(
                 LOOPS.index(loop), *codes, d, k, int(pool))
             != smem_bytes(k, tile_rows, pool, loop, d, code_bits,
-                          query_bytes=query_bytes)):
+                          query_bytes=query_bytes)
+            or getattr(lib, f"{source}_cluster")(*codes, d, k, int(pool),
+                                                 int(worklist))
+            != probe_cluster(query_bytes, code_bits, d, k, pool, tile_rows,
+                             worklist)):
         raise RuntimeError("csrc/probe_common.cuh and ops/probe_topk.py "
-                           "differ on block, tile or shared-memory sizes "
-                           "or on the main loop")
+                           "differ on block, tile or shared-memory sizes, "
+                           "on the main loop or on the cluster")
     blocks = inputs[-1]
     n_blocks = int(blocks.shape[0])
     parts = None
@@ -755,12 +881,13 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             parts.keys.data_ptr() if parts and pool else None,
             wl_pad or n_blocks, ctas, n_blocks, d, n_rows, k, ko,
             span if parts else 0,
-            *codes, LOOPS.index(loop),
+            *codes, LOOPS.index(loop), cluster,
             torch.cuda.current_stream(dev).cuda_stream), source)
     _loop_launches[loop] += 1
     _launches["probe_worklist"] += int(parts is not None)
     _launches["probe_pair"] += int(pair)
     _launches["probe_pool"] += int(pool)
+    _launches["probe_cluster"] += int(cluster > 1)
     if parts is None:
         return out_d, out_i
     if not merge:
@@ -937,7 +1064,8 @@ probe_topk_int8q.launches_by_bits = {8: 0, 4: 0}
 def launch_counts() -> dict:
     """Kernel launches so far: the probe kernel by store and query type (in
     any configuration), then by configuration: worklist launches of it,
-    launches of the items' merge kernel, of the 128-row tile, with a pool."""
+    launches of the items' merge kernel, of the 128-row tile, with a pool,
+    in clusters."""
     return {
         "probe_topk": probe_topk.launches,
         "probe_topk_quant_int8": probe_topk_quant.launches_by_bits[8],

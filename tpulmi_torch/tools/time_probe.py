@@ -3,7 +3,7 @@
     python3 -m tpulmi_torch.tools.time_probe [--off BITS] [--clocks]
                                              [--rounds N] [--match TEXT]
                                              [--store main|skewed]
-                                             [--orders]
+                                             [--orders] [--cluster 2,4]
 
 A synthetic store of the main path's shape (about 300K unit rows of 768
 features in 122 buckets of 960 to 3,960 rows, 10k queries at 2 probes drawn
@@ -47,6 +47,15 @@ builds it with PROBE_CLOCKS=1: one warp of every 97th CTA prints where its
 cycles went (on the worklist's persistent grid, over all of its pieces),
 and each configuration is launched twice only (the times printed then mean
 little).
+
+``--cluster 2,4`` times every one-CTA-per-block configuration of the wgmma
+loop, with either tile, in thread-block clusters of each listed size and
+without one, in turns (1, 2, 4, 4, 2, 1), each result checked against the
+launch without a cluster to the bit (not with ``--off``), and prints the
+tile walks that each grouping gives. The libraries are then built with
+PROBE_CLUSTER_ALL=1, so that the 64-row tile, which launches without a
+cluster, can be timed in one too; it combines with ``--off``,
+``--clocks`` and either store.
 """
 
 import argparse
@@ -122,7 +131,12 @@ def main(argv=None):
     ap.add_argument("--match", default="")
     ap.add_argument("--store", choices=("main", "skewed"), default="main")
     ap.add_argument("--orders", action="store_true")
+    ap.add_argument("--cluster", default="",
+                    help="cluster sizes to time in turns, e.g. 2,4")
     args = ap.parse_args(argv)
+    sizes_c = [int(c) for c in args.cluster.split(",") if c]
+    if any(c not in probe.CLUSTER_SIZES[1:] for c in sizes_c):
+        ap.error(f"--cluster takes sizes of {probe.CLUSTER_SIZES[1:]}")
     if not torch.cuda.is_available():
         print("time_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -130,6 +144,8 @@ def main(argv=None):
         _kernels.NVCC_FLAGS += (f"-DPROBE_PARTS_OFF={args.off}",)
     if args.clocks:
         _kernels.NVCC_FLAGS += ("-DPROBE_CLOCKS=1",)
+    if sizes_c:
+        _kernels.NVCC_FLAGS += ("-DPROBE_CLUSTER_ALL=1",)
     start = time.perf_counter()
     _kernels.build(_kernels.LIBRARIES)      # all at once, not one by one
     print(f"[build] {len(_kernels.LIBRARIES)} kernel libraries in "
@@ -163,6 +179,13 @@ def main(argv=None):
           f"{int((lay.blocks[:, 2] > 0).sum())} live blocks, {items} work "
           f"items; {flops / 1e9:.2f} GFLOP; parts off: {args.off}",
           flush=True)
+    if sizes_c:
+        reads = {c: probe.cluster_reads(lay.blocks, c)
+                 for c in [1] + sizes_c}
+        print(f"tile walks over {reads[1]['buckets']} probed buckets: "
+              + ", ".join(f"C={c} {r['groups']} ({r['groups'] / r['buckets']:.3f}"
+                          f" a bucket, {r['rows_read'] / r['bucket_rows']:.3f}"
+                          f" by rows)" for c, r in reads.items()), flush=True)
 
     data = x.bfloat16()
     launches = [("full precision", probe.probe_topk,
@@ -192,7 +215,14 @@ def main(argv=None):
                 fn(*a, **opts)
                 after = probe.loop_launch_counts()
                 loop = [n for n in after if after[n] != before[n]][0]
-                ms = cuda_ms(lambda: fn(*a, **opts), 1 if args.clocks else 20)
+                reps = 1 if args.clocks else 20
+                if sizes_c and loop == "wgmma" and "wl_pad" not in opts:
+                    print(f"round {rnd}: {name}, {loop}"
+                          f"{', ' + label if label else ''}: "
+                          + time_clusters(fn, a, opts, sizes_c, reps,
+                                          check=not args.off), flush=True)
+                    continue
+                ms = cuda_ms(lambda: fn(*a, **opts), reps)
                 print(f"round {rnd}: {name}, {loop}"
                       f"{', ' + label if label else ''}: {ms:.4f} ms = "
                       f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
@@ -200,6 +230,27 @@ def main(argv=None):
                     print(f"round {rnd}: {name}, {loop}, {label}: "
                           + time_orders(fn, a, opts, ctas), flush=True)
     return 0
+
+
+def time_clusters(fn, a, opts, sizes_c, reps, check):
+    """One configuration without a cluster and in clusters of each of
+    `sizes_c`, in turns (1, ..., last, last, ..., 1); with `check`, each
+    cluster's result against the launch without one, to the bit."""
+    order = [1] + sizes_c
+    if check:
+        alone = fn(*a, **opts, cluster=1)
+        for c in sizes_c:
+            got = fn(*a, **opts, cluster=c)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], alone[0])
+                    and torch.equal(got[1], alone[1])):
+                raise AssertionError(f"{opts} in clusters of {c} differs "
+                                     f"from the launch without one")
+    turns = [cuda_ms(lambda c=c: fn(*a, **opts, cluster=c), reps)
+             for c in order + order[::-1]]
+    return ", ".join(
+        f"C={c} {(turns[i] + turns[-1 - i]) / 2:.4f} ms" for i, c in
+        enumerate(order)) + f" (turns {', '.join(f'{t:.4f}' for t in turns)})"
 
 
 ORDERS = ("block-major", "grouped", "strided")

@@ -9,7 +9,8 @@ stops after phase 2 (a short check of a changed kernel) and prints no
 result line.
 
 1. build   - compile every CUDA kernel library of tpulmi_torch/csrc with
-             nvcc, all at once;
+             nvcc, all at once, and beside them the native host library
+             (tpulmi_torch/csrc/layout.cpp) with g++;
 2. kernels - each kernel against its plain PyTorch version on the card, on
              random bfloat16, float16 and float32 stores and on their int8
              and packed-int4 quantizations with float and int8 queries (the
@@ -56,7 +57,26 @@ result line.
              tile's stream must launch it in clusters), the steady time
              per batch beside search's (`--profile`: the device's busy
              share of a stream);
-6. timing  - each kernel, its plain version and one library call for the
+6. hoststore - LearnedIndex.build_with_host_store on the main data: its
+             pred, ids, offsets and counts equal to build's to the bit and
+             its float32 rows within 1e-6, a bfloat16 host store's recall
+             within 0.002 of build's; then 2M rows made by
+             synthetic_dataset_big (3.1 GB of bfloat16 in a temporary
+             cache): an int8 host-store build (native gather, overlapped
+             upload) with its stage seconds and store bytes, the same
+             layout down the source-sequential path from the memory map
+             (the blocking upload timed), a search at 4 probes with the
+             native rerank (recall@10 against a float32 oracle), and
+             rerank_dot against the gather + bmm path on the same
+             candidates; the library's build and call counters;
+7. prune   - SearchConfig(backend="xla", prune_after=1) against the
+             unpruned xla scan at 7 probes, to the bit, in float32 and
+             bfloat16 on the main index after compute_bounds, on its int8
+             store, and on an index of tight clusters (cluster_std 0.3),
+             where rows must be skipped; rows scanned of nominal and ms
+             of each; the scan's ids equal to the kernel's outside ties,
+             and no kernel launched by it;
+8. timing  - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -96,6 +116,7 @@ KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
                   "probe_wgmma": "tpulmi_torch/csrc/probe_wgmma.cuh",
                   "merge_items": "tpulmi_torch/csrc/merge_items.cu"}
 N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
+BIG_N = 2_000_000   # rows of the host-store phase's realistic size
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -142,12 +163,25 @@ def cuda_ms(fn, reps: int) -> float:
 
 # ------------------------------------------------------------------ phases
 def phase_build():
+    import threading
+
+    from tpulmi_torch.native import native_layout
     from tpulmi_torch.ops import _kernels
 
     t0 = time.perf_counter()
+    # the host library (g++) builds beside the CUDA libraries (nvcc)
+    host = threading.Thread(target=native_layout.available)
+    host.start()
     paths = _kernels.build(_kernels.LIBRARIES)
     log(f"[build] {len(paths)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f}s")
+    host.join()
+    if not native_layout.available():
+        raise AssertionError("the native host library did not build")
+    info = native_layout.build_info
+    log(f"[build] native host library (tpulmi_torch/csrc/layout.cpp, g++ "
+        f"{info.get('flags', '(already built)')}) in "
+        f"{info.get('seconds', 0.0):.2f}s")
     for name, info in _kernels.build_info.items():
         # ptxas reports every instantiation: keep the most registers any of
         # them uses and the lines of those that spill
@@ -1149,27 +1183,394 @@ def phase_serving(index, stores, ds, dev, gt, profile):
     return totals
 
 
-def oracle(ds, dev, k=10, bf16_inputs=False):
-    """Exact top-k ids (0-based), off the main path: float32 matmul and
-    topk on the card. `bf16_inputs` rounds both operands to bfloat16 first
-    (products summed in float32), which is what the JAX package's oracle
-    computes on a TPU at JAX's default matmul precision."""
+def host_cpu_line() -> str:
+    """The host's CPU model, architecture and thread count, for host
+    times."""
+    import os
+    import platform
+
+    model = "model not reported"
+    try:
+        for line in open("/proc/cpuinfo"):
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    return (f"CPU '{model}' ({platform.machine()}), {os.cpu_count()} "
+            f"threads")
+
+
+def exact_ids(queries, corpus, dev, k=10, bf16_inputs=False, chunk=65536):
+    """Exact top-k ids (0-based) of `queries` over a host corpus (float32
+    rows, or bfloat16 bit patterns as uint16), off the main path: float32
+    products and topk on the card, streamed in chunks. `bf16_inputs`
+    rounds both operands to bfloat16 first (products summed in float32),
+    which is what the JAX package's oracle computes on a TPU at JAX's
+    default matmul precision."""
+    import numpy as np
     import torch
 
-    qs = torch.as_tensor(ds["queries_search"], device=dev)
-    xs = torch.as_tensor(ds["data_search"], device=dev)
+    qs = torch.as_tensor(queries, device=dev)
     if bf16_inputs:
-        qs, xs = (x.to(torch.bfloat16).float() for x in (qs, xs))
+        qs = qs.to(torch.bfloat16).float()
     best_s = torch.full((qs.shape[0], k), -2.0, device=dev)
     best_i = torch.zeros((qs.shape[0], k), dtype=torch.int64, device=dev)
-    for s in range(0, xs.shape[0], 65536):
-        sims = qs @ xs[s:s + 65536].T
+    for s in range(0, corpus.shape[0], chunk):
+        part = np.ascontiguousarray(corpus[s:s + chunk])
+        if part.dtype == np.uint16:
+            xs = torch.from_numpy(part.view(np.int16)).to(dev).view(
+                torch.bfloat16).float()
+        else:
+            xs = torch.from_numpy(part).to(dev)
+        if bf16_inputs:
+            xs = xs.to(torch.bfloat16).float()
+        sims = qs @ xs.T
         cat_s = torch.cat([best_s, sims], 1)
         cat_i = torch.cat([best_i, torch.arange(
             s, s + sims.shape[1], device=dev).expand(qs.shape[0], -1)], 1)
         best_s, top = torch.topk(cat_s, k, dim=1)
         best_i = torch.gather(cat_i, 1, top)
     return best_i.cpu().numpy()
+
+
+def equal_but_ties(ids_a, d_a, ids_b, d_b, queries, corpus, tol,
+                   bf16=False):
+    """Raise unless two (Q, k) results agree but for ties: distances within
+    `tol` place by place, and every id that only one list holds lies, by
+    its distance recomputed on the host (float32 sums; of bfloat16-rounded
+    inputs with `bf16`), within `tol` of the row's kth distance (a tie
+    across the cut). Returns the number of rows whose ids differ."""
+    import numpy as np
+    import torch
+
+    def rounded(x):
+        x = np.asarray(x, np.float32)
+        return (torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                if bf16 else x)
+
+    gap = float(np.abs(d_a - d_b).max())
+    if not gap <= tol:
+        raise AssertionError(f"distances differ by {gap}")
+    rows = np.where((ids_a != ids_b).any(axis=1))[0]
+    for r in rows:
+        only = np.setxor1d(ids_a[r], ids_b[r]) - 1     # 1-based ids
+        if only.size:
+            q = rounded(queries[r] / np.linalg.norm(queries[r]))
+            exact = 1.0 - rounded(corpus[only]) @ q
+            if not np.all(np.abs(exact - d_a[r, -1]) <= tol):
+                raise AssertionError(
+                    f"row {r}: ids {only} at {exact}, kth {d_a[r, -1]}")
+    return len(rows)
+
+
+def phase_hoststore(index, ds, dev, gt):
+    """Host-store builds (the JAX package's large-scale build): the native
+    host library; build_with_host_store on the main data against build
+    (pred, layout, store rows) and in bfloat16 (recall); then a realistic
+    size, BIG_N rows made by synthetic_dataset_big into a temporary cache:
+    an int8 host-store build (native gather, overlapped upload), the same
+    layout again down the source-sequential path, a search at 4 probes
+    with the native rerank against a float32 oracle, and the rerank's two
+    paths on the same candidates. Returns the launch counts of the phase's
+    searches."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import LearnedIndex
+    from tpulmi_torch.data import synthetic_dataset_big
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.hoststore import _slab_upload_serial, layout_host_store
+    from tpulmi_torch.native import native_layout
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+
+    if not native_layout.available():
+        raise AssertionError("the native host library is not available")
+    info = native_layout.build_info
+    log(f"[hoststore] native library: built in "
+        f"{info.get('seconds', 0.0):.2f}s ({info.get('flags', '?')}); host "
+        f"{host_cpu_line()}")
+    cfg = index.config
+    host = (ds["queries_nav"], ds["queries_search"])
+    main_ids = index.search(*host, n_buckets=2, k=10)[1]
+    main_recall = recall_at_k(main_ids - 1, gt, 10)
+    reset_launch_counts()
+    native_layout.reset_calls()
+
+    # ---- the main data: equal to build ----
+    ref = index.built
+    li = LearnedIndex(cfg, device=dev)
+    torch.cuda.synchronize()
+    pred, secs = li.build_with_host_store(ds["data_nav"], ds["data_search"],
+                                          store_dtype="float32")
+    st = li.built.store
+    if not np.array_equal(pred, ref.pred_categories.cpu().numpy()):
+        raise AssertionError("build_with_host_store's pred differs from "
+                             "build's")
+    for name in ("ids_sorted", "offsets", "counts"):
+        if not torch.equal(getattr(st, name), getattr(ref.store, name)):
+            raise AssertionError(f"host store {name} differs from build's")
+    row_err = float((st.data_sorted - ref.store.data_sorted).abs().max())
+    if not row_err <= 1e-6:
+        raise AssertionError(f"host store rows differ by {row_err}")
+    stages = li.last_build_stages
+    log(f"[hoststore] main data, float32 store: build_with_host_store "
+        f"{secs:.3f}s (nav {stages['nav']:.3f}s, layout + upload "
+        f"{stages['layout_upload']:.3f}s) against build; pred, ids, offsets"
+        f" and counts equal to the bit, rows within {row_err:.2e}")
+    li = LearnedIndex(cfg, device=dev)
+    li.build_with_host_store(ds["data_nav"], ds["data_search"],
+                             store_dtype="bfloat16")
+    if li.built.store.data_sorted.dtype != torch.bfloat16:
+        raise AssertionError("the bfloat16 host store is not bfloat16")
+    ids = li.search(*host, n_buckets=2, k=10)[1]
+    rec = recall_at_k(ids - 1, gt, 10)
+    log(f"[hoststore] main data, bfloat16 store: recall@10 {rec:.4f} at 2 "
+        f"probes (build's float32 store: {main_recall:.4f})")
+    if not abs(rec - main_recall) <= 0.002:
+        raise AssertionError(f"bfloat16 host store recall {rec} is more "
+                             f"than 0.002 from {main_recall}")
+    del li, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a realistic size ----
+    with tempfile.TemporaryDirectory() as cache:
+        t = time.perf_counter()
+        big = synthetic_dataset_big(n=BIG_N, n_queries=N_QUERIES,
+                                    d_nav=D_NAV, d_search=D_SEARCH,
+                                    n_clusters=N_CAT, seed=SEED,
+                                    cache_dir=cache)
+        gen_s = time.perf_counter() - t
+        corpus = big["data_search"]
+        log(f"[hoststore] synthetic_dataset_big: {BIG_N} x {D_SEARCH} "
+            f"bfloat16 ({corpus.nbytes / 1e9:.2f} GB on disk) + nav "
+            f"{big['data_nav'].nbytes / 1e9:.2f} GB made in {gen_s:.1f}s")
+        li = LearnedIndex(cfg, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred, secs = li.build_with_host_store(
+            big["data_nav"], corpus, normalized=True, store_dtype="int8",
+            overlap_upload=True)
+        stages = li.last_build_stages
+        st = li.built.store
+        store_bytes = (st.data_sorted.numel() * st.data_sorted.element_size()
+                       + st.scales.numel() * 4 + st.ids_sorted.numel() * 4)
+        scatter_calls = native_layout.calls["scatter_rows"]
+        if not scatter_calls > 0:
+            raise AssertionError("the int8 host store did not take the "
+                                 "native gather")
+        log(f"[hoststore] {BIG_N} rows, int8 store, native gather, "
+            f"overlapped upload: build {secs:.2f}s = nav stages "
+            f"{stages['nav']:.2f}s + waiting for the corpus copy "
+            f"{stages['materialize_wait']:.2f}s + layout and upload "
+            f"{stages['layout_upload']:.2f}s; store on the card "
+            f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
+            f"{store_bytes / 1e9:.3f} GB")
+
+        # the same layout down the source-sequential path, from the map
+        os.environ["TPULMI_MATERIALIZE_MAX_FRAC"] = "0"
+        try:
+            t = time.perf_counter()
+            seq = layout_host_store(pred, corpus, int(st.n_categories),
+                                    row_align=cfg.row_align,
+                                    store_dtype="int8", normalized=True)
+            seq_s = time.perf_counter() - t
+        finally:
+            del os.environ["TPULMI_MATERIALIZE_MAX_FRAC"]
+        for name in ("ids_sorted", "offsets", "counts"):
+            if not np.array_equal(getattr(seq, name),
+                                  getattr(st, name).cpu().numpy()):
+                raise AssertionError(f"the source-sequential layout's "
+                                     f"{name} differ from the gather's")
+        t = time.perf_counter()
+        seq_dev = _slab_upload_serial(seq.data_sorted, 262_144, dev)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t
+        codes = st.data_sorted.to(torch.int16) - seq_dev.to(torch.int16)
+        off = int((codes != 0).sum())
+        if int(codes.abs().max()) > 1:
+            raise AssertionError("the two layouts' int8 codes differ by "
+                                 "more than the rounding")
+        log(f"[hoststore] source-sequential layout of the memory map: "
+            f"{seq_s:.2f}s; blocking slab upload of its "
+            f"{seq.data_sorted.nbytes / 1e9:.3f} GB: {up_s:.3f}s; ids, "
+            f"offsets, counts equal to the gather's, {off} of "
+            f"{codes.numel()} codes one apart (nearbyintf(x * 127 / amax) "
+            f"against rint(x / amax * 127))")
+        del seq, seq_dev, codes
+        gc.collect()
+
+        # search at 4 probes with the native rerank
+        big_host = (big["queries_nav"], big["queries_search"])
+        seen = {}
+        plain_rerank = li._rerank_host
+
+        def keep_candidates(dists, ids, *a, **kw):
+            seen["ids"] = ids.copy()
+            t = time.perf_counter()
+            out = plain_rerank(dists, ids, *a, **kw)
+            seen["s"] = time.perf_counter() - t
+            return out
+
+        li._rerank_host = keep_candidates
+        before = native_layout.calls["rerank_dot"]
+        li.search(*big_host, n_buckets=4, k=10)      # first call of a shape
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dists, ids = li.search(*big_host, n_buckets=4, k=10)
+        search_s = time.perf_counter() - t
+        del li._rerank_host
+        if not native_layout.calls["rerank_dot"] > before:
+            raise AssertionError("the rerank did not take rerank_dot")
+        if dists.shape != (N_QUERIES, 10) or not np.isfinite(dists).all():
+            raise AssertionError(f"bad big result {dists.shape}")
+        t = time.perf_counter()
+        gt_big = exact_ids(big["queries_search"], corpus.bits, dev)
+        oracle_s = time.perf_counter() - t
+        rec = recall_at_k(ids - 1, gt_big, 10)
+        log(f"[hoststore] {BIG_N} rows, int8 + native rerank, 4 probes: "
+            f"recall@10 {rec:.4f} against a float32 oracle on the card "
+            f"({oracle_s:.2f}s); search {search_s:.4f}s, of which rerank "
+            f"{seen['s']:.4f}s")
+        if not rec >= RECALL_GATE:
+            raise AssertionError(f"big recall@10 {rec} under the gate")
+
+        # the rerank's two paths on the same candidates, every candidate
+        # kept so that a tie across the kth place shows
+        cand = seen["ids"]
+        qs = big["queries_search"]
+        k_all = cand.shape[1]
+        t = time.perf_counter()
+        nd, ni = li._rerank_host(None, cand, None, k_all, host_queries=qs)
+        native_s = time.perf_counter() - t
+        native_layout.available = lambda: False
+        try:
+            t = time.perf_counter()
+            bd, bi = li._rerank_host(None, cand, None, k_all,
+                                     host_queries=qs)
+            bmm_s = time.perf_counter() - t
+        finally:
+            del native_layout.available
+        n_rows = equal_but_ties(ni[:, :10] + 1, nd[:, :10], bi[:, :10] + 1,
+                                bd[:, :10], qs, li._host_corpus[0], 1e-6)
+        log(f"[hoststore] rerank of {cand.shape[0]} x {cand.shape[1]} "
+            f"candidates (bfloat16 corpus): rerank_dot {native_s:.4f}s, "
+            f"gather + bmm {bmm_s:.4f}s ({bmm_s / native_s:.1f}x); ids equal"
+            f" but for ties within 1e-6 ({n_rows} rows differ; max |d| "
+            f"{float(np.abs(nd - bd).max()):.2e}); host {host_cpu_line()}")
+        del li, big, corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = launch_counts()
+    for name in ("probe_topk", "probe_topk_quant_int8"):
+        if not launches[name] > 0:
+            raise AssertionError(f"the phase's searches launched no {name}")
+    log(f"[hoststore] native calls {native_layout.calls}; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    return launches
+
+
+def phase_prune(index, stores, ds, dev):
+    """The xla backend's bucket scan and its threshold prune
+    (SearchConfig(backend="xla", prune_after=1)) at 7 probes: on the main
+    index after compute_bounds, in float32 and bfloat16, and on its int8
+    store with bounds computed on the codes; then on an index of tight
+    clusters (cluster_std 0.3) at the main size, where the bound can bite.
+    Pruned results must equal the unpruned scan to the bit; the xla scan's
+    ids must equal K1's except at ties. The scan launches no kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import LearnedIndex, SearchConfig
+    from tpulmi_torch.data import synthetic_dataset
+    from tpulmi_torch.ops.probe_topk import launch_counts
+
+    p = 7
+
+    def timed(li, host, scfg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = li.search(*host, n_buckets=p, k=10, search_config=scfg)
+        return out, (time.perf_counter() - t) * 1e3
+
+    def compare(li, host, corpus, label, dtypes, must_prune):
+        t = time.perf_counter()
+        li.compute_bounds()
+        torch.cuda.synchronize()
+        bounds_s = time.perf_counter() - t
+        ratios = []
+        for cd in dtypes:
+            base = SearchConfig(k=10, n_buckets=p, backend="xla",
+                                compute_dtype=cd)
+            before = sum(launch_counts().values())
+            timed(li, host, base)                   # first call of a shape
+            (d0, i0), ms0 = timed(li, host, base)
+            (d1, i1), ms1 = timed(li, host, SearchConfig(
+                k=10, n_buckets=p, backend="xla", compute_dtype=cd,
+                prune_after=1))
+            scan, nominal = li.last_scan_rows, li.last_nominal_rows
+            if sum(launch_counts().values()) != before:
+                raise AssertionError(f"{label}, {cd}: the xla scan "
+                                     f"launched a probe kernel")
+            if not (np.array_equal(i1, i0) and np.array_equal(d1, d0)):
+                raise AssertionError(f"{label}, {cd}: pruned differs from "
+                                     f"the unpruned scan")
+            if must_prune and not scan < nominal:
+                raise AssertionError(f"{label}, {cd}: nothing was pruned")
+            ratios.append(scan / nominal)
+            msg = ""
+            if not li.built.store.is_quantized:
+                # the kernel's search (K1 for bf16) against the xla scan
+                dk, ik = li.search(*host, n_buckets=p, k=10,
+                                   search_config=SearchConfig(
+                                       k=10, n_buckets=p, compute_dtype=cd))
+                n_rows = equal_but_ties(ik, dk, i0, d0, host[1], corpus,
+                                        DIST_TOL, bf16=cd == "bfloat16")
+                msg = (f"; ids equal to the kernel's but for ties ({n_rows}"
+                       f" rows differ; max |d| "
+                       f"{float(np.abs(dk - d0).max()):.2e})")
+            log(f"[prune] {label}, {cd or 'float32'}, {p} probes: pruned "
+                f"equal to the unpruned scan to the bit; rows scanned "
+                f"{scan} of {nominal} ({scan / nominal:.4f}); unpruned "
+                f"{ms0:.1f} ms, pruned {ms1:.1f} ms{msg}")
+        log(f"[prune] {label}: compute_bounds {bounds_s:.3f}s")
+        return ratios
+
+    host = (ds["queries_nav"], ds["queries_search"])
+    full = index.built.store
+    compare(index, host, ds["data_search"], "main index", (None, "bfloat16"),
+            False)
+    index.built.store = stores[8]
+    index._search_programs = {}
+    compare(index, host, ds["data_search"],
+            "main index, int8 store (bounds of the codes)", (None,), False)
+    index.built.store = full
+    index._search_programs = {}
+
+    tight = synthetic_dataset(n=N, n_queries=N_QUERIES, d_nav=D_NAV,
+                              d_search=D_SEARCH, n_clusters=N_CAT, seed=SEED,
+                              cluster_std=0.3)
+    li = LearnedIndex(index.config, device=dev)
+    li.build(tight["data_nav"], tight["data_search"])
+    compare(li, (tight["queries_nav"], tight["queries_search"]),
+            tight["data_search"], "tight clusters (cluster_std 0.3)",
+            (None, "bfloat16"), True)
+    del li, tight
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[prune] the xla scans launched no probe kernel")
+
+
+def oracle(ds, dev, k=10, bf16_inputs=False):
+    """Exact top-k ids (0-based) of the main data (`exact_ids`)."""
+    return exact_ids(ds["queries_search"], ds["data_search"], dev, k,
+                     bf16_inputs=bf16_inputs)
 
 
 def phase_timing(index, stores, ds, dev, name):
@@ -1624,6 +2025,8 @@ def main(args) -> int:
     quant_launches, stores = phase_quantized(index, ds, dev, gt, f32_recall)
     serving_launches = phase_serving(index, stores, ds, dev, gt,
                                      "--profile" in args)
+    phase_hoststore(index, ds, dev, gt)
+    phase_prune(index, stores, ds, dev)
     timing = phase_timing(index, stores, ds, dev, name)
     phase_timing_skewed(dev)
     if "--profile" in args:

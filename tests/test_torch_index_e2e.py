@@ -185,10 +185,14 @@ def test_auto_backend_follows_the_store(compute_dtype, k):
 
 def test_unported_options_are_refused(synthetic_small, port_index):
     ds = synthetic_small
-    with pytest.raises(NotImplementedError, match="prune_after"):
-        port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4],
-                          search_config=SearchConfig(prune_after=1))
     d, i = port_index.search(ds["queries_nav"][:4], ds["queries_search"][:4])
+    # prune_after is ported: the xla scan prunes (tests/test_torch_prune.py);
+    # the kernel's search, as the JAX package's, ignores it
+    dp, ip = port_index.search(ds["queries_nav"][:4],
+                               ds["queries_search"][:4],
+                               search_config=SearchConfig(prune_after=1))
+    np.testing.assert_array_equal(ip, i)
+    np.testing.assert_array_equal(dp, d)
     # the worklist, the 128-row tile and the pool are ported: each is
     # accepted and changes no result (the pool applies to a reranked
     # search only)

@@ -726,3 +726,110 @@ def test_cluster_refused_where_it_does_not_apply(rng, card):
     assert launch_counts() == before
     with pytest.raises(RuntimeError, match="CUDA error"):
         probe_topk(*args, cluster=2)
+
+
+# ------------------------------------------------- host-store builds, prune
+def _host_build_data():
+    from tpulmi_torch.data import synthetic_dataset
+
+    return synthetic_dataset(n=20000, n_queries=300, d_nav=32, d_search=128,
+                             n_clusters=16, seed=5)
+
+
+def _as_bits(t):
+    t = t.detach().cpu()
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.int8: torch.int8}[t.dtype])
+
+
+@pytest.mark.parametrize("store_dtype", ["bfloat16", "float32", "int8",
+                                         "int4"])
+def test_host_store_build_on_card_equals_cpu_layout(card, store_dtype):
+    """build_with_host_store on the card: `build`'s pred to the bit, and
+    the store on the card is the host layout of that pred, byte for
+    byte."""
+    from tpulmi_torch import IndexConfig, LearnedIndex
+    from tpulmi_torch.hoststore import host_tensor, layout_host_store
+
+    ds = _host_build_data()
+    cfg = IndexConfig(n_categories=16, epochs=2, row_align=256)
+    ref = LearnedIndex(cfg, device=card)
+    want_pred, _ = ref.build(ds["data_nav"], ds["data_search"])
+    li = LearnedIndex(cfg, device=card)
+    pred, _ = li.build_with_host_store(ds["data_nav"], ds["data_search"],
+                                       store_dtype=store_dtype,
+                                       overlap_upload=True)
+    np.testing.assert_array_equal(pred, want_pred)
+    arrays = layout_host_store(pred, ds["data_search"], 16, row_align=256,
+                               store_dtype=store_dtype)
+    st = li.built.store
+    assert st.data_sorted.device.type == "cuda"
+    assert torch.equal(_as_bits(st.data_sorted),
+                       _as_bits(host_tensor(arrays.data_sorted)))
+    for name in ("ids_sorted", "offsets", "counts"):
+        np.testing.assert_array_equal(getattr(st, name).cpu().numpy(),
+                                      getattr(arrays, name))
+    if arrays.scales is not None:
+        np.testing.assert_array_equal(st.scales.cpu().numpy(), arrays.scales)
+    d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=3)
+    assert d.shape == (300, 10) and np.isfinite(d).all()
+
+
+def test_overlapped_upload_equals_blocking_on_card(card):
+    """The uploader thread's slabs on the copy stream give the blocking
+    upload's bytes, also when the caller runs on a stream of its own."""
+    from tpulmi_torch.hoststore import layout_and_upload
+
+    rng = np.random.default_rng(3)
+    pred = rng.integers(0, 9, size=30000).astype(np.int32)
+    x = rng.normal(size=(30000, 96)).astype(np.float32)
+    for store_dtype in ("bfloat16", "int8"):
+        kw = dict(device=card, row_align=128, store_dtype=store_dtype,
+                  chunk=4000)
+        a_b, dev_b = layout_and_upload(pred, x, 9, overlap=False,
+                                       slab_rows=1000, **kw)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            a_o, dev_o = layout_and_upload(pred, x, 9, overlap=True,
+                                           slab_rows=777, **kw)
+            got = _as_bits(dev_o)
+        assert torch.equal(got, _as_bits(dev_b))
+        np.testing.assert_array_equal(a_o.ids_sorted, a_b.ids_sorted)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_xla_prune_equals_unpruned_on_card(card, kind):
+    """The xla scan's threshold prune on the card: the unpruned scan's
+    distances and ids to the bit, with rows skipped."""
+    from dataclasses import replace
+
+    from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
+
+    rng = np.random.default_rng(11)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(
+            np.float32)
+
+    n, q, c = 20000, 256, 16
+    cents, cents_nav = unit(rng.normal(size=(c, 24))), unit(
+        rng.normal(size=(c, 12)))
+    a, aq = rng.integers(0, c, size=n), rng.integers(0, c, size=q)
+    data = unit(cents[a] + 0.03 * rng.normal(size=(n, 24)))
+    nav = (cents_nav[a] + 0.03 * rng.normal(size=(n, 12))).astype(np.float32)
+    qs = unit(cents[aq] + 0.03 * rng.normal(size=(q, 24)))
+    qn = (cents_nav[aq] + 0.03 * rng.normal(size=(q, 12))).astype(np.float32)
+    li = LearnedIndex(IndexConfig(n_categories=c, epochs=4, row_align=1),
+                      device=card)
+    li.build(nav, data)
+    if kind == "int8":
+        li.quantize()
+    li.compute_bounds(chunk=4096)
+    base = SearchConfig(k=10, backend="xla", compute_dtype=None
+                        if kind != "bfloat16" else "bfloat16")
+    d0, i0 = li.search(qn, qs, n_buckets=8, k=10, search_config=base)
+    d1, i1 = li.search(qn, qs, n_buckets=8, k=10,
+                       search_config=replace(base, prune_after=1))
+    np.testing.assert_array_equal(i1, i0)
+    np.testing.assert_array_equal(d1, d0)
+    assert li.last_scan_rows < li.last_nominal_rows

@@ -15,6 +15,15 @@ With ``row_align > 1`` every bucket starts on a multiple of ``row_align``
 rows (sentinel rows fill the gaps), and the store holds the static worst case
 ``n + n_categories*row_align`` rows, rounded, plus ``pad_rows`` — the same
 row count as the JAX package's store.
+
+`compute_bucket_bounds` adds per-bucket pruning bounds: the unit centroid
+``c_b``, ``cos r_b`` = the least ``x̂ . c_b`` over the bucket's rows, and the
+largest row norm ``m_b``. For a unit query q and any row x of bucket b,
+
+    q . x <= m_b * max(0, cos(max(0, theta_qc - r_b))),  cos theta_qc = q . c_b
+
+the spherical-cap bound behind the threshold prune of
+`tpulmi_torch.search._probe_search_core`.
 """
 
 from dataclasses import dataclass, field
@@ -44,6 +53,12 @@ class BucketStore:
     # float32 store (the JAX package casts the store on every search call).
     _casts: Dict[torch.dtype, torch.Tensor] = field(
         default_factory=dict, repr=False, compare=False)
+    # per-bucket pruning bounds (compute_bucket_bounds), float32: unit
+    # centroids (n_categories, d), cos r_b (n_categories,), and the largest
+    # row norm (n_categories,); None until computed
+    bucket_centroids: Optional[torch.Tensor] = None
+    bucket_cos_r: Optional[torch.Tensor] = None
+    bucket_max_norm: Optional[torch.Tensor] = None
 
     @property
     def n_categories(self) -> int:
@@ -62,6 +77,10 @@ class BucketStore:
     def q_levels(self) -> float:
         """Dequantization divisor: x ~ codes * (scales / q_levels)."""
         return 7.0 if self.quant_bits == 4 else 127.0
+
+    @property
+    def has_bounds(self) -> bool:
+        return self.bucket_centroids is not None
 
     @property
     def dim(self) -> int:
@@ -141,6 +160,76 @@ def build_bucket_store(labels, data_search, n_categories: int,
         data_sorted=data_sorted, ids_sorted=ids_sorted, offsets=offsets,
         counts=counts, n=int(data_search.shape[0]), pad_rows=int(pad_rows),
         row_align=int(max(row_align, 1)))
+
+
+def compute_bucket_bounds(store: BucketStore,
+                          chunk: int = 65536) -> BucketStore:
+    """The store with its per-bucket pruning bounds (see the module
+    docstring), from two streaming passes over fixed-size row chunks: the
+    first sums each bucket's rows and takes their largest norm, the second
+    the least cosine of a row to its unit centroid. A quantized store is
+    dequantized chunk by chunk, so the bound holds for the distances the
+    scan computes from the codes. Sentinel rows (id -1) count nowhere; an
+    empty bucket gets max norm 0, which makes its bound 1 (always pruned).
+
+    Bucket sums are one-hot products, in a fixed order (as the build's
+    k-means update), so the bounds are the same in every run."""
+    from dataclasses import replace
+
+    from tpulmi_torch.ops.quantize import unpack_int4
+
+    dev = store.device
+    rows_total = int(store.data_sorted.shape[0])
+    chunk = min(chunk, rows_total)
+    n_chunks = -(-rows_total // chunk)
+    n_cat, d = store.n_categories, store.dim
+    offsets = store.offsets.to(torch.int64)
+    cats = torch.arange(n_cat, device=dev)
+
+    def load(j):
+        nominal = j * chunk
+        start = min(nominal, rows_total - chunk)
+        rows = store.data_sorted[start:start + chunk]
+        if store.packed:
+            rows = unpack_int4(rows)
+        rows = rows.float()
+        if store.is_quantized:
+            s = store.scales[start:start + chunk]
+            rows = rows * (s / store.q_levels)[:, None]
+        rid = store.ids_sorted[start:start + chunk]
+        gidx = start + torch.arange(chunk, device=dev)
+        # real rows only, and never twice: a clamped tail chunk re-reads
+        # rows of the chunk before it
+        valid = (rid >= 0) & (gidx >= nominal)
+        labels = torch.clamp(
+            torch.searchsorted(offsets, gidx, right=True) - 1, 0, n_cat - 1)
+        return rows, labels, valid
+
+    c_sum = torch.zeros((n_cat, d), dtype=torch.float32, device=dev)
+    max_norm = torch.zeros((n_cat,), dtype=torch.float32, device=dev)
+    for j in range(n_chunks):
+        rows, labels, valid = load(j)
+        w = valid.float()
+        onehot = (labels[None, :] == cats[:, None]).float() * w[None, :]
+        c_sum += onehot @ rows
+        max_norm = max_norm.scatter_reduce(
+            0, labels, torch.linalg.vector_norm(rows, dim=1) * w, "amax")
+    centroids = c_sum / torch.clamp(
+        torch.linalg.vector_norm(c_sum, dim=1, keepdim=True), min=1e-12)
+
+    cos_r = torch.full((n_cat,), float("inf"), dtype=torch.float32,
+                       device=dev)
+    for j in range(n_chunks):
+        rows, labels, valid = load(j)
+        rhat = rows / torch.clamp(
+            torch.linalg.vector_norm(rows, dim=1, keepdim=True), min=1e-12)
+        cosv = (rhat * centroids[labels]).sum(dim=1)
+        cosv = torch.where(valid, cosv, torch.full_like(cosv, float("inf")))
+        cos_r = cos_r.scatter_reduce(0, labels, cosv, "amin")
+    cos_r = torch.clamp(torch.where(torch.isfinite(cos_r), cos_r,
+                                    torch.ones_like(cos_r)), -1.0, 1.0)
+    return replace(store, bucket_centroids=centroids, bucket_cos_r=cos_r,
+                   bucket_max_norm=max_norm)
 
 
 def bucket_stats(store: BucketStore) -> Tuple[int, int, float]:

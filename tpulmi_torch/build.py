@@ -6,6 +6,10 @@ on the build device, with no host round trips between them.
     3. full-data argmax predict (chunked)
     4. bucket-store layout (stable argsort -> CSR, row_align padding)
 
+``include_store=False`` runs stages 1-3 only, the same ops as the full
+build, so that its ``pred_categories`` equal the full build's to the bit:
+the store is then laid out on the host (`LearnedIndex.build_with_host_store`).
+
 The stages keep the JAX package's fused-build semantics: the stratified
 k-means sample ``arange(n_train)*stride + randint(stride)``, initial
 centroids at every ``(n_train // k)``-th sample point, the
@@ -129,9 +133,15 @@ def fused_build(
     train_sample_cap: int = 8_388_608,
     seed: int = 2023,
     stage_inputs: Optional[StageInputs] = None,
+    include_store: bool = True,
 ) -> BuildResult:
     """Build on the device `data_nav` lies on. `data_search` is laid out
-    in float32 (normalized unless ``normalize_search=False``)."""
+    in float32 (normalized unless ``normalize_search=False``).
+
+    ``include_store=False`` stops after the predict: `data_search` is not
+    read (it may be None), the store arrays come back empty, and ``counts``
+    and ``offsets`` are the raw (unaligned) bucket sizes and their
+    exclusive sum, as in the JAX package's navigation-only program."""
     dev = data_nav.device
     n, d_nav = data_nav.shape
     plan = build_plan(n, kmeans_train_points=kmeans_train_points,
@@ -166,6 +176,17 @@ def fused_build(
     with torch.no_grad():
         pred = _chunked(lambda b: torch.argmax(model(b), dim=1), data_nav,
                         chunk).to(torch.int32)
+
+    if not include_store:
+        counts = torch.bincount(pred.long(), minlength=n_categories).to(
+            torch.int32)
+        offsets = torch.cat([counts.new_zeros(1),
+                             torch.cumsum(counts, 0).to(torch.int32)])
+        return BuildResult(
+            centroids, model, losses, pred,
+            torch.zeros((0, 1), dtype=torch.float32, device=dev),
+            torch.zeros((0,), dtype=torch.int32, device=dev), offsets,
+            counts, 0)
 
     # ---- 4. bucket store ----
     data_search = data_search.float()

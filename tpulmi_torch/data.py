@@ -1,9 +1,10 @@
 """Host-side data layer (numpy and h5py only): normalization, SISAP h5
-loading, the SISAP result writer, and the synthetic clustered dataset.
+loading, the SISAP result writer, and the synthetic clustered datasets.
 
 `synthetic_dataset` gives the same arrays as the JAX package's for the same
-arguments and seed. Fetching the SISAP files is not part of this package:
-`load_dataset` reads them from ``data_dir``.
+arguments and seed, and `synthetic_dataset_big(backend="host")` the same
+files: the two packages read each other's caches. Fetching the SISAP files
+is not part of this package: `load_dataset` reads them from ``data_dir``.
 """
 
 import os
@@ -11,6 +12,10 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
+
+from tpulmi_torch.utils.logging import get_logger
+
+log = get_logger("tpulmi_torch.data")
 
 def normalize(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     """L2-normalize rows (float32)."""
@@ -135,4 +140,151 @@ def synthetic_dataset(
         "queries_nav": normalize(queries_nav),
         "queries_search": normalize(queries_search),
         "cluster_assignments": assignments,
+    }
+
+
+def synthetic_dataset_big(
+    n: int,
+    n_queries: int,
+    d_nav: int = 96,
+    d_search: int = 768,
+    n_clusters: int = 122,
+    seed: int = 2023,
+    cluster_std: float = 0.9,
+    skew: float = 1.5,
+    cache_dir: str = ".bench_cache",
+    chunk: int = 1_000_000,
+    backend: str = "host",
+) -> Dict[str, object]:
+    """Multi-million-row variant of `synthetic_dataset`, generated on the
+    host in chunks straight into an on-disk ``.npy`` cache: the search
+    vectors as bfloat16 (stored as uint16 bits), the navigation view as
+    float32. Returns memory maps: ``data_search`` as a
+    `tpulmi_torch.hoststore.HostBF16` over the cache file, ``data_nav`` as a
+    float32 memory map; the queries as float32 arrays (the search queries
+    rounded through bfloat16 and normalized again). All views are
+    L2-normalized.
+
+    The generator streams, file names, tag and format are the JAX package's
+    ``backend="host"`` ones, so each package reads the other's cache, and a
+    killed generation resumes at its first unwritten chunk. Statistically it
+    matches `synthetic_dataset`, but per-chunk random streams give other
+    values. ``backend="device"`` (the JAX package's generator on the
+    accelerator, through ``jax.random``) is not ported: it loads an
+    existing cache and raises NotImplementedError where it would generate.
+    """
+    from tpulmi_torch.hoststore import HostBF16
+
+    os.makedirs(cache_dir, exist_ok=True)
+    tag = f"big_n{n}_q{n_queries}_dn{d_nav}_ds{d_search}_c{n_clusters}_s{seed}"
+    if backend == "host":
+        tag += "_h"
+    paths = {k: os.path.join(cache_dir, f"{tag}_{k}.npy")
+             for k in ("data_nav", "data_search", "queries_nav",
+                       "queries_search")}
+    if all(os.path.exists(p) for p in paths.values()):
+        log.info("loaded cached big dataset %s", tag)
+        return {
+            "data_nav": np.load(paths["data_nav"], mmap_mode="r"),
+            "data_search": HostBF16(np.load(paths["data_search"],
+                                            mmap_mode="r")),
+            "queries_nav": np.load(paths["queries_nav"]),
+            "queries_search": np.load(paths["queries_search"]),
+        }
+    if backend != "host":
+        raise NotImplementedError(
+            f"synthetic_dataset_big(backend={backend!r}) generates with "
+            "jax.random and is not ported (ROADMAP.md); use backend='host'")
+    return _synthetic_big_host(n, n_queries, d_nav, d_search, n_clusters, seed,
+                               cluster_std, skew, chunk, paths)
+
+
+def _synthetic_big_host(n, n_queries, d_nav, d_search, n_clusters, seed,
+                        cluster_std, skew, chunk, paths):
+    """The chunked host generator of `synthetic_dataset_big`: writes the
+    ``.npy`` cache as memory maps and returns read-only maps of it."""
+    from tpulmi_torch.hoststore import (HostBF16, bf16_bits_to_f32,
+                                        f32_to_bf16_bits)
+
+    rng = np.random.default_rng(seed)
+    weights = rng.random(n_clusters) ** skew
+    weights /= weights.sum()
+    assignments = rng.choice(n_clusters, size=n, p=weights).astype(np.int32)
+    q_assign = rng.choice(n_clusters, size=n_queries, p=weights).astype(
+        np.int32)
+
+    centers = rng.normal(size=(n_clusters, d_search)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    proj = rng.normal(size=(d_search, d_nav)).astype(np.float32) / np.sqrt(
+        d_search)
+    noise_scale = np.float32(cluster_std / np.sqrt(d_search))
+
+    def gen_chunk(stream_key, assign_chunk):
+        rs = np.random.default_rng([seed, 11, stream_key])
+        x = centers[assign_chunk]
+        x += noise_scale * rs.standard_normal(x.shape, dtype=np.float32)
+        x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True),
+                        np.float32(1e-12))
+        nav = x @ proj
+        nav /= np.maximum(np.linalg.norm(nav, axis=1, keepdims=True),
+                          np.float32(1e-12))
+        return x, nav
+
+    # Per-chunk random streams do not depend on the order chunks finish in,
+    # so a killed generation resumes at the first unwritten chunk (the
+    # sidecar marker records the rows done).
+    marker = paths["data_search"] + ".progress"
+    done_rows = 0
+    if (os.path.exists(marker) and os.path.exists(paths["data_search"])
+            and os.path.exists(paths["data_nav"])):
+        try:
+            with open(marker) as f:
+                done_rows = min(int(f.read().strip() or 0), n)
+        except (OSError, ValueError):
+            done_rows = 0
+    resume = done_rows > 0
+    try:
+        ds_mm = np.lib.format.open_memmap(
+            paths["data_search"], mode="r+" if resume else "w+",
+            dtype=np.uint16, shape=(n, d_search))
+        dn_mm = np.lib.format.open_memmap(
+            paths["data_nav"], mode="r+" if resume else "w+",
+            dtype=np.float32, shape=(n, d_nav))
+    except ValueError:  # a stale file of another shape or dtype
+        done_rows = 0
+        ds_mm = np.lib.format.open_memmap(
+            paths["data_search"], mode="w+", dtype=np.uint16,
+            shape=(n, d_search))
+        dn_mm = np.lib.format.open_memmap(
+            paths["data_nav"], mode="w+", dtype=np.float32, shape=(n, d_nav))
+    if done_rows:
+        log.info("big datagen (host): resuming at %d/%d rows", done_rows, n)
+    for i, lo in enumerate(range(0, n, chunk)):
+        hi = min(lo + chunk, n)
+        if hi <= done_rows:
+            continue
+        x, nav = gen_chunk(i, assignments[lo:hi])
+        ds_mm[lo:hi] = f32_to_bf16_bits(x)
+        dn_mm[lo:hi] = nav
+        with open(marker, "w") as f:
+            f.write(str(hi))
+        log.info("big datagen (host): %d/%d rows", hi, n)
+    ds_mm.flush()
+    dn_mm.flush()
+    del ds_mm, dn_mm
+    if os.path.exists(marker):
+        os.remove(marker)
+
+    qx, qnav = gen_chunk(1_000_003, q_assign)  # no chunk has this index
+    # the queries go through bfloat16 and are normalized again in float32
+    qx = bf16_bits_to_f32(f32_to_bf16_bits(qx))
+    qx /= np.maximum(np.linalg.norm(qx, axis=1, keepdims=True), 1e-12)
+    np.save(paths["queries_nav"], qnav)
+    np.save(paths["queries_search"], qx)
+    return {
+        "data_nav": np.load(paths["data_nav"], mmap_mode="r"),
+        "data_search": HostBF16(np.load(paths["data_search"],
+                                        mmap_mode="r")),
+        "queries_nav": qnav,
+        "queries_search": qx,
     }

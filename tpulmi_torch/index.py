@@ -13,6 +13,11 @@
 - ``search_stream(batches, ...)``: the serving loop: `search`'s results per
   batch, in order, with the next batches' copies and kernels queued on the
   card while a batch's results are fetched and reranked.
+- ``build_with_host_store(data_nav, data_search_host, ...)``: the build for
+  corpora whose store is laid out on the host (`tpulmi_torch.hoststore`)
+  and copied to the card in slabs; the navigation stages are `build`'s.
+- ``compute_bounds()``: per-bucket bounds for the threshold prune of the
+  ``backend="xla"`` scan (``SearchConfig.prune_after``).
 - ``save`` / ``load``: ``state.npz`` (numpy, no pickle) and ``meta.json``;
   the rerank corpus is recorded by fingerprint and reattached or asked for.
 
@@ -21,8 +26,11 @@ without one is an error; the CPU is used only when asked for. External ids
 are 1-based (SISAP convention); everything internal is 0-based.
 """
 
+import gc
 import hashlib
 import json
+import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -36,12 +44,14 @@ import torch
 
 from tpulmi_torch.buckets import (BucketStore, bucket_stats,
                                   build_bucket_store)
+from tpulmi_torch.hoststore import HostBF16, host_dtype
 from tpulmi_torch.models.train import BucketClassifier
+from tpulmi_torch.native import native_layout
 from tpulmi_torch.ops.distance import SENTINEL_DIST, l2_normalize
 from tpulmi_torch.ops import probe_topk as probe
 from tpulmi_torch.ops.kmeans import kmeans
 from tpulmi_torch.search import (make_search_program, route_probes,
-                                 routing_logits)
+                                 routing_logits, size_class)
 from tpulmi_torch.serving import QueryStager
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
 from tpulmi_torch.utils.logging import get_logger
@@ -55,6 +65,8 @@ _DTYPES = {None: torch.float32, "float32": torch.float32,
 # one CUDA kernel serves them all
 _EXTRACT_MODES = ("scalar", "group", "group2")
 CHECKPOINT_VERSION = 2
+# the store's pruning bounds, saved when present
+_BOUNDS = ("bucket_centroids", "bucket_cos_r", "bucket_max_norm")
 
 
 def _host_mem_available():
@@ -67,6 +79,33 @@ def _host_mem_available():
     except OSError:
         pass
     return None
+
+
+class _materialize_async:
+    """`ensure_in_ram` on a thread of its own, so that the one-time copy of
+    a memory-mapped corpus into RAM runs beside the navigation stages of a
+    host-store build."""
+
+    def __init__(self, arr):
+        from tpulmi_torch.hoststore import ensure_in_ram
+
+        self._out = {}
+
+        def run():
+            try:
+                self._out["arr"] = ensure_in_ram(arr)
+            except BaseException as e:  # noqa: BLE001 - raised in result()
+                self._out["err"] = e
+
+        self._th = threading.Thread(target=run, name="corpus-mat",
+                                    daemon=True)
+        self._th.start()
+
+    def result(self):
+        self._th.join()
+        if "err" in self._out:
+            raise self._out["err"]
+        return self._out["arr"]
 
 
 @dataclass
@@ -98,6 +137,12 @@ class LearnedIndex:
         self._host_corpus = None
         self._rerank_meta = None     # a restored checkpoint's rerank contract
         self._rerank_shadow = None   # (corpus, its float16 copy)
+        # (Q, n_buckets) -> slots per bucket the xla scan was sized for
+        self._qpb_pads = {}
+        # rows the xla scan streamed, and would have streamed unpruned, in
+        # the last search that counts them (pruning, or probe_mass on xla);
+        # None after any other search
+        self.last_scan_rows = self.last_nominal_rows = None
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -149,8 +194,15 @@ class LearnedIndex:
         log.info("modular build: N=%d buckets=%d size max/mean/min="
                  "%d/%.0f/%d; final loss %.4f; build %.3fs", store.n,
                  n_categories, mx, mean, mn, float(losses[-1]), build_time)
-        self.built = BuiltIndex(centroids, classifier, store, pred, cfg, mx)
+        self._set_built(BuiltIndex(centroids, classifier, store, pred, cfg,
+                                   mx))
         return pred.cpu().numpy(), build_time
+
+    def _set_built(self, built: BuiltIndex) -> None:
+        """Install a new build; the search programs made for an earlier one
+        hold its router and are dropped."""
+        self.built = built
+        self._search_programs = {}
 
     def _build_fused(self, data_nav, data_search, n_categories, epochs, lr,
                      model_type) -> Tuple[np.ndarray, float]:
@@ -186,9 +238,150 @@ class LearnedIndex:
         log.info("fused build: N=%d buckets=%d size max/mean/min=%d/%.0f/%d;"
                  " final loss %.4f; build %.3fs", store.n, n_categories, mx,
                  mean, mn, float(result.losses[-1]), build_time)
-        self.built = BuiltIndex(result.centroids, classifier, store,
-                                result.pred_categories, cfg, mx)
+        self._set_built(BuiltIndex(result.centroids, classifier, store,
+                                   result.pred_categories, cfg, mx))
         return result.pred_categories.cpu().numpy(), build_time
+
+    # ------------------------------------------------------ build (host store)
+    def build_with_host_store(self, data_nav, data_search_host,
+                              normalized: bool = False,
+                              store_dtype: str = "bfloat16",
+                              overlap_upload: bool = False, mesh=None
+                              ) -> Tuple[np.ndarray, float]:
+        """The large-scale build: the navigation stages (k-means, router,
+        predict) run on the index's device, exactly as in `build`, but the
+        search store is laid out on the host and copied to the card once:
+        for corpora whose store and source copy do not both fit the card.
+
+        `data_search_host` stays a host array: float32, float16, or
+        bfloat16 as a `tpulmi_torch.hoststore.HostBF16`, possibly a memory
+        map (copied into RAM beside the navigation stages where the host
+        has room; else laid out source-sequentially). `store_dtype` is
+        "bfloat16", "float32", "int8" or "int4"; with a quantized store,
+        `search` reranks the candidates against `data_search_host`.
+        ``overlap_upload=True`` copies finished slabs of the store while
+        the layout writes its tail (`hoststore.layout_and_upload`).
+
+        ``mesh`` (a store sharded over several cards) is not ported yet
+        (ROADMAP.md A7) and raises. Returns (pred_categories, seconds);
+        the seconds of each stage are kept in ``self.last_build_stages``."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "build_with_host_store(mesh=...) shards the store over "
+                "several cards: not ported to tpulmi_torch yet "
+                "(ROADMAP.md A7)")
+        from tpulmi_torch.build import fused_build
+
+        cfg = self.config
+        start = time.perf_counter()
+        n_categories = cfg.n_categories
+        # the memory map -> RAM copy of the corpus runs beside the
+        # navigation stages
+        mat_thread = _materialize_async(data_search_host)
+        data_nav = self._tensor(data_nav)
+        n, d_nav = int(data_nav.shape[0]), int(data_nav.shape[1])
+        if n < n_categories:   # the reference's small-data fallback
+            n_categories = max(n // 5, 2)
+        result = fused_build(
+            data_nav, None, model_type=cfg.model_type, lr=cfg.lr,
+            n_categories=n_categories, kmeans_iters=cfg.kmeans_iters,
+            kmeans_train_points=(cfg.kmeans_max_points_per_centroid
+                                 * n_categories),
+            epochs=cfg.epochs, batch_size=cfg.batch_size,
+            row_align=cfg.row_align,
+            reference_step_semantics=cfg.reference_step_semantics,
+            max_train_steps=cfg.max_train_steps, seed=cfg.seed,
+            include_store=False)
+        pred = result.pred_categories.cpu().numpy()
+        t_nav = time.perf_counter() - start
+        log.info("host-store build: nav stages %.1fs (final loss %.4f)",
+                 t_nav, float(result.losses[-1]))
+        # park the router and centroids on the host while the store lands:
+        # a store near the card's size needs one free region
+        model = result.model.to("cpu")
+        centroids = result.centroids.cpu()
+        del data_nav, result
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        t_mat = time.perf_counter()
+        data_search_host = mat_thread.result()
+        t_mat = time.perf_counter() - t_mat
+        store, arrays, data_search_host = self._host_store_to_built(
+            pred, data_search_host, n_categories, store_dtype=store_dtype,
+            normalized=normalized, overlap_upload=overlap_upload, mesh=mesh)
+        t_layout = time.perf_counter() - start - t_nav
+        log.info("host-store build: layout+upload %.1fs", t_layout)
+        classifier = BucketClassifier(
+            d_nav, n_categories, lr=cfg.lr, model_type=cfg.model_type,
+            seed=cfg.seed, device=self.device, model=model.to(self.device))
+        build_time = time.perf_counter() - start
+        log.info("host-store build: total %.1fs", build_time)
+        self.last_build_stages = {"nav": t_nav, "materialize_wait": t_mat,
+                                  "layout_upload": t_layout,
+                                  "total": build_time}
+        self._set_built(BuiltIndex(
+            centroids.to(self.device), classifier, store,
+            torch.as_tensor(pred, device=self.device), cfg,
+            int(arrays.counts.max()) if arrays.counts.size else 0))
+        # keep the host corpus for the exact rerank of a quantized store. A
+        # corpus that stayed on disk through the layout is copied into RAM
+        # now if it fits a wider share (the store, navigation and staging
+        # copies are gone): a rerank gather over a disk memory map is slow
+        from tpulmi_torch.hoststore import ensure_in_ram
+
+        data_search_host = ensure_in_ram(data_search_host, max_frac=float(
+            os.environ.get("TPULMI_RERANK_MATERIALIZE_MAX_FRAC", "0.6")))
+        self._host_corpus = (data_search_host, normalized)
+        return pred, build_time
+
+    def _host_store_to_built(self, pred, data_search_host, n_categories, *,
+                             store_dtype, normalized, overlap_upload, mesh):
+        """Lay the store out on the host and land it on the index's device
+        (`hoststore.layout_and_upload`): one flat store. Returns (store,
+        host arrays, data_search_host). ``mesh`` (a sharded store) is not
+        ported (ROADMAP.md A7)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "a host-laid-out store sharded over a mesh is not ported to "
+                "tpulmi_torch yet (ROADMAP.md A7)")
+        from tpulmi_torch.hoststore import ensure_in_ram, layout_and_upload
+
+        cfg = self.config
+        data_search_host = ensure_in_ram(data_search_host)
+        arrays, data_sorted_dev = layout_and_upload(
+            pred, data_search_host, n_categories, device=self.device,
+            row_align=cfg.row_align, store_dtype=store_dtype,
+            normalized=normalized, overlap=overlap_upload)
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        store = BucketStore(
+            data_sorted=data_sorted_dev, ids_sorted=dev(arrays.ids_sorted),
+            offsets=dev(arrays.offsets), counts=dev(arrays.counts),
+            n=arrays.n, pad_rows=arrays.pad_rows, row_align=arrays.row_align,
+            scales=(dev(arrays.scales) if arrays.scales is not None
+                    else None),
+            quant_bits=arrays.quant_bits)
+        sync(self.device)
+        return store, arrays, data_search_host
+
+    def compute_bounds(self, chunk: int = 65536) -> None:
+        """Per-bucket pruning bounds (`buckets.compute_bucket_bounds`: unit
+        centroid, cap radius, largest row norm) for the threshold prune of
+        the ``backend="xla"`` scan (`SearchConfig.prune_after`). Two
+        streaming passes over the store; call again after `quantize` or a
+        new build."""
+        if self.built is None:
+            raise ValueError("Index is not built, call `build` first.")
+        from tpulmi_torch.buckets import compute_bucket_bounds
+
+        store = compute_bucket_bounds(self.built.store, chunk=chunk)
+        sync(self.device)
+        self.built = replace(self.built, store=store)
+        self._search_programs = {}
 
     # --------------------------------------------------------------- quantize
     def quantize(self, host_corpus=None, normalized: bool = False,
@@ -230,7 +423,13 @@ class LearnedIndex:
 
         ``rerank_dtype="float16"`` gathers from a cached float16 shadow of
         the corpus: half the gathered bytes for ~4e-4 relative distance
-        error, an order below the int8 error the rerank erases."""
+        error, an order below the int8 error the rerank erases.
+
+        When the native library (`tpulmi_torch.native`) has loaded and the
+        corpus (or its shadow) is a C-contiguous float32, float16 or
+        bfloat16 array, its fused ``rerank_dot`` reads each candidate row
+        once and dots it on the fly, as the JAX package does; otherwise the
+        rows are gathered and multiplied with ``torch.bmm``."""
         corpus, normalized = self._host_corpus
         q, k_eff = ids.shape
         d = int(np.asarray(corpus[:1]).shape[1])
@@ -266,6 +465,17 @@ class LearnedIndex:
                         f"only {avail / 2**30:.1f} GiB host RAM is available")
                 shadow = (corpus, np.asarray(corpus, np.float16))
                 self._rerank_shadow = shadow
+            src = shadow[1]
+        else:
+            src = corpus if isinstance(corpus, (np.ndarray, HostBF16)) \
+                else None
+        if (src is not None
+                and str(src.dtype) in ("float32", "float16", "bfloat16")
+                and src.flags["C_CONTIGUOUS"] and native_layout.available()):
+            sims = native_layout.rerank_dot(src, ids, qs,
+                                            normalized=normalized)
+            return self._rerank_order(1.0 - sims, ids, k)
+        if rerank_dtype == "float16":
             # the gathered rows stay float16: torch's CPU half bmm sums in
             # float32, and an upcast of the block costs more than the
             # halved gather saves
@@ -278,7 +488,13 @@ class LearnedIndex:
                 np.linalg.norm(rows, axis=2, keepdims=True), 1e-12)
         qcol = torch.from_numpy(qs.astype(rows.dtype)).unsqueeze(2)
         sims = torch.bmm(torch.from_numpy(rows), qcol).float().numpy()[:, :, 0]
-        exact = np.where(ids < 0, SENTINEL_DIST, 1.0 - sims)
+        return self._rerank_order(1.0 - sims, ids, k)
+
+    @staticmethod
+    def _rerank_order(exact, ids, k: int):
+        """The k smallest exact distances of each row, stable; empty places
+        (id -1) keep the sentinel distance."""
+        exact = np.where(ids < 0, SENTINEL_DIST, exact)
         order = np.argsort(exact, axis=1, kind="stable")[:, :k]
         return (np.take_along_axis(exact, order, axis=1).astype(np.float32),
                 np.take_along_axis(ids, order, axis=1))
@@ -299,6 +515,9 @@ class LearnedIndex:
         if self.built is None:
             raise ValueError("Index is not built, call `build` first.")
         scfg = search_config or SearchConfig(k=k, n_buckets=n_buckets)
+        # the scan counters are this call's: a search that does not count
+        # leaves them None, and the batched loop below sums its parts'
+        self.last_scan_rows = self.last_nominal_rows = None
         if queries_search is None:
             queries_search = queries_nav
         if queries_search_host is None and isinstance(queries_search,
@@ -309,13 +528,20 @@ class LearnedIndex:
 
         bq = scfg.batch_queries
         if bq and queries_nav.shape[0] > bq:
-            parts = [self.search(
-                queries_nav[lo:lo + bq], queries_search[lo:lo + bq],
-                n_buckets=n_buckets, k=k, search_config=scfg,
-                queries_search_host=(queries_search_host[lo:lo + bq]
-                                     if queries_search_host is not None
-                                     else None))
-                for lo in range(0, queries_nav.shape[0], bq)]
+            parts, counted = [], []
+            for lo in range(0, queries_nav.shape[0], bq):
+                parts.append(self.search(
+                    queries_nav[lo:lo + bq], queries_search[lo:lo + bq],
+                    n_buckets=n_buckets, k=k, search_config=scfg,
+                    queries_search_host=(queries_search_host[lo:lo + bq]
+                                         if queries_search_host is not None
+                                         else None)))
+                if self.last_scan_rows is not None:
+                    counted.append((self.last_scan_rows,
+                                    self.last_nominal_rows))
+            if counted:
+                self.last_scan_rows = sum(c[0] for c in counted)
+                self.last_nominal_rows = sum(c[1] for c in counted)
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
 
@@ -337,12 +563,9 @@ class LearnedIndex:
         """Resolve the static decisions of one probe search into a mutable
         plan shared by `search` (with its overflow re-run) and
         `search_stream` (which dispatches ahead of the fetch): backend,
-        compute dtype, rerank depth, and the probe kernel's configuration
-        (rerank pool, tile height, worklist length)."""
-        if scfg.prune_after > 0:
-            raise NotImplementedError(
-                "SearchConfig options not ported to tpulmi_torch yet: "
-                "['prune_after']")
+        compute dtype, rerank depth, the probe kernel's configuration
+        (rerank pool, tile height, worklist length), and the xla scan's
+        padding classes and pruning."""
         if scfg.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {scfg.compute_dtype!r}")
         if scfg.pallas_extract not in _EXTRACT_MODES:
@@ -358,7 +581,7 @@ class LearnedIndex:
             # raises on what it does not take
             backend = ("cuda" if self.built.store.device.type == "cuda"
                        else "torch")
-        elif backend not in ("cuda", "torch"):
+        elif backend not in ("cuda", "torch", "xla"):
             raise ValueError(f"unknown backend {backend!r}")
         store = self.built.store
         quantized = bool(getattr(store, "is_quantized", False))
@@ -380,7 +603,10 @@ class LearnedIndex:
             q=q, backend=backend, compute_dtype=compute_dtype, k=k,
             rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair, wl_pad=0,
             item_rows=scfg.pallas_mc,
-            int8_queries=int8_queries)
+            int8_queries=int8_queries, pruning=False, want_stats=False)
+        if backend == "xla":
+            self._plan_xla(plan, store, n_buckets, scfg)
+            return plan
         # the worklist: sized from this batch's routing at a shape's first
         # use (one more routing pass and a host read), then cached
         if scfg.pallas_worklist:
@@ -391,6 +617,33 @@ class LearnedIndex:
                 self._wl_pads[(q, n_buckets)] = wl_pad or -1
             plan.wl_pad = max(wl_pad, 0)
         return plan
+
+    def _plan_xla(self, plan, store, n_buckets: int,
+                  scfg: SearchConfig) -> None:
+        """The xla scan's part of a plan. Padding classes: data_chunk and
+        max_chunks follow the store; qpb_pad the routing of this batch,
+        from a 4x-mean guess (or the value a search of this shape
+        validated), re-run larger when the scan reports more slots in one
+        bucket. Threshold pruning: past the first probe ranks, with bounds
+        computed (`compute_bounds`); the scan counts rows when it prunes or
+        truncates (``probe_mass``)."""
+        n_slots = plan.q * n_buckets
+        max_bucket = max(self.built.max_bucket, 1)
+        plan.data_chunk = min(scfg.data_chunk, size_class(max_bucket),
+                              int(store.data_sorted.shape[0]))
+        plan.max_chunks = max(-(-max_bucket // plan.data_chunk), 1)
+        plan.qpb_pad = scfg.queries_per_bucket_pad or self._qpb_pads.get(
+            (plan.q, n_buckets), size_class(min(
+                n_slots, max(4 * n_slots // store.n_categories, 128))))
+        plan.pruning = (scfg.prune_after > 0 and store.has_bounds
+                        and n_buckets > scfg.prune_after)
+        plan.want_stats = plan.pruning or scfg.probe_mass is not None
+        if scfg.prune_eps is not None:
+            plan.prune_eps = float(scfg.prune_eps)
+        elif scfg.compute_dtype == "bfloat16":
+            plan.prune_eps = 5e-3   # bf16 inputs round similarities ~2e-3
+        else:
+            plan.prune_eps = 1e-4
 
     def _wl_pad_for(self, total: int, plan, n_buckets: int) -> int:
         """The worklist length for `total` items: 15% headroom for the
@@ -434,10 +687,20 @@ class LearnedIndex:
 
     def _dispatch_program(self, plan, n_buckets: int, scfg: SearchConfig):
         """The search function for the plan's static configuration, made
-        once and kept."""
+        once and kept. On the xla scan, rounds the plan's qpb_pad up to
+        whole query chunks in place."""
         key = (plan.backend, n_buckets, plan.k_eff, plan.compute_dtype,
                scfg.probe_mass, scfg.fetch_dtype, plan.int8_queries,
                plan.pool_k, plan.pair, plan.wl_pad, plan.item_rows)
+        xla = {}
+        if plan.backend == "xla":
+            query_chunk = min(scfg.query_chunk, plan.qpb_pad)
+            plan.qpb_pad = -(-plan.qpb_pad // query_chunk) * query_chunk
+            xla = dict(qpb_pad=plan.qpb_pad, data_chunk=plan.data_chunk,
+                       max_chunks=plan.max_chunks, query_chunk=query_chunk,
+                       prune_after=scfg.prune_after if plan.pruning else 0,
+                       prune_eps=plan.prune_eps)
+            key += tuple(xla.values())
         program = self._search_programs.get(key)
         if program is None:
             program = make_search_program(
@@ -447,30 +710,42 @@ class LearnedIndex:
                 fetch_dtype=_DTYPES[scfg.fetch_dtype]
                 if scfg.fetch_dtype else None,
                 int8_queries=plan.int8_queries, pool_k=plan.pool_k,
-                pair=plan.pair, wl_pad=plan.wl_pad, item_rows=plan.item_rows)
+                pair=plan.pair, wl_pad=plan.wl_pad, item_rows=plan.item_rows,
+                **xla)
             self._search_programs[key] = program
         return program
 
     def _fetch_result(self, out, plan):
         """A program's result on the host: (dists, ids, max_slots[, the
-        worklist's item total]); waits for the card. When the plan reranks,
-        the quantized distances stay on the card (dists is None): the
-        rerank recomputes every kept candidate's distance."""
+        worklist's item total | scanned rows, nominal rows]); waits for the
+        card. When the plan reranks, the quantized distances stay on the
+        card (dists is None): the rerank recomputes every kept candidate's
+        distance."""
         dists, ids, *counts = out
         return (None if plan.rerank else dists.cpu().float().numpy(),
                 ids.cpu().numpy(), *(int(c) for c in counts))
 
     def _absorb_result(self, plan, n_buckets: int, got):
         """Hold a fetched result against its plan. Returns (dists, ids),
-        or "retry" after growing an overflowed worklist (whose trailing
-        items were dropped) for a re-run. The slot layout itself is sized
-        for the worst case and cannot overflow; the busiest bucket's slot
-        count is kept for callers."""
-        dists, ids, max_slots, *wl_total = got
-        if plan.wl_pad and wl_total[0] > plan.wl_pad:
-            plan.wl_pad = self._wl_pad_for(wl_total[0], plan, n_buckets)
+        or "retry" after growing an overflowed pad for a re-run: the
+        worklist (whose trailing items were dropped) or, on the xla scan,
+        the slots per bucket (qpb_pad; slots past it were not scanned). The
+        kernel's slot layout is sized for the worst case and cannot
+        overflow; the busiest bucket's slot count is kept for callers, and
+        the xla scan's row counters in ``last_scan_rows`` /
+        ``last_nominal_rows``."""
+        dists, ids, max_slots, *extra = got
+        if plan.wl_pad and extra[0] > plan.wl_pad:
+            plan.wl_pad = self._wl_pad_for(extra[0], plan, n_buckets)
             self._wl_pads[(plan.q, n_buckets)] = plan.wl_pad or -1
             return "retry"
+        if plan.backend == "xla":
+            if plan.want_stats:
+                self.last_scan_rows, self.last_nominal_rows = extra
+            if max_slots > plan.qpb_pad:
+                plan.qpb_pad = size_class(max_slots)
+                return "retry"
+            self._qpb_pads[(plan.q, n_buckets)] = plan.qpb_pad
         self.last_max_slots = max_slots
         self._warm_shapes.add((plan.q, n_buckets))
         return dists, ids
@@ -643,26 +918,35 @@ class LearnedIndex:
         self._host_corpus = (corpus, normalized)
 
     def save(self, path: str, include_corpus: bool = False) -> None:
-        """Checkpoint the built index (centroids, router, bucket store) as
-        ``state.npz`` + ``meta.json`` under `path`; `load` restores it.
+        """Checkpoint the built index (centroids, router, bucket store and
+        its pruning bounds) as ``state.npz`` + ``meta.json`` under `path`;
+        `load` restores it. numpy has no bfloat16: a bfloat16 tensor is
+        saved as its uint16 bits and named in ``meta["bfloat16"]``.
 
         A quantized index carries a host rerank corpus; its contract
-        (fingerprint, and the source path when the corpus is a memmap) is
-        always recorded so that `load` can reattach it or warn.
+        (fingerprint, dtype, and the source path when the corpus is a
+        memmap) is always recorded so that `load` can reattach it or warn.
         ``include_corpus=True`` also copies the corpus into the checkpoint
-        (``corpus.npy``) for a self-contained restore."""
+        (``corpus.npy``; a bfloat16 corpus as its bits) for a
+        self-contained restore."""
         if self.built is None:
             raise ValueError("Nothing to save, call `build` first.")
         path = Path(path).absolute()
         path.mkdir(parents=True, exist_ok=True)
         built, store = self.built, self.built.store
+        bf16_names = []
 
-        def host(t):
-            return t.detach().cpu().numpy()
+        def host(t, name=None):
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                bf16_names.append(name)
+                return t.view(torch.int16).numpy().view(np.uint16)
+            return t.numpy()
 
         state = {
             "pred_categories": host(built.pred_categories),
-            "store.data_sorted": host(store.data_sorted),
+            "store.data_sorted": host(store.data_sorted,
+                                      "store.data_sorted"),
             "store.ids_sorted": host(store.ids_sorted),
             "store.offsets": host(store.offsets),
             "store.counts": host(store.counts),
@@ -671,8 +955,11 @@ class LearnedIndex:
             state["centroids"] = host(built.centroids)
         if store.scales is not None:
             state["store.scales"] = host(store.scales)
+        if store.has_bounds:
+            for name in _BOUNDS:
+                state[f"store.{name}"] = host(getattr(store, name))
         for name, t in built.classifier.model.state_dict().items():
-            state[f"params.{name}"] = host(t)
+            state[f"params.{name}"] = host(t, f"params.{name}")
         meta = {
             "config": built.config.to_dict(),
             "input_dim": built.classifier.input_dim,
@@ -684,6 +971,8 @@ class LearnedIndex:
             "store_quant_bits": store.quant_bits,
             "version": CHECKPOINT_VERSION,
         }
+        if bf16_names:
+            meta["bfloat16"] = bf16_names
         if self._host_corpus is not None:
             corpus, normalized = self._host_corpus
             src = getattr(corpus, "filename", None)
@@ -691,10 +980,14 @@ class LearnedIndex:
                 "normalized": bool(normalized),
                 "fingerprint": self._corpus_fingerprint(corpus),
                 "corpus_path": str(src) if src else None,
+                "corpus_dtype": host_dtype(corpus),
             }
         np.savez(path / "state.npz", **state)
         if include_corpus and self._host_corpus is not None:
-            np.save(path / "corpus.npy", np.asarray(self._host_corpus[0]))
+            corpus = self._host_corpus[0]
+            np.save(path / "corpus.npy",
+                    np.asarray(corpus.bits) if isinstance(corpus, HostBF16)
+                    else np.asarray(corpus))
         with open(path / "meta.json", "w") as f:
             json.dump(meta, f)
 
@@ -717,6 +1010,8 @@ class LearnedIndex:
                 continue
             try:
                 corpus = np.load(cand, mmap_mode="r")
+                if rer.get("corpus_dtype") == "bfloat16":
+                    corpus = HostBF16(corpus)
                 index.attach_host_corpus(corpus)
                 log.info("rerank corpus reattached from %s", cand)
                 return
@@ -739,6 +1034,8 @@ class LearnedIndex:
         dev = index.device
         with np.load(path / "state.npz", allow_pickle=False) as z:
             state = {name: z[name] for name in z.files}
+        for name in meta.get("bfloat16", []):
+            state[name] = HostBF16(state[name]).to_torch()
 
         def t(name, dtype=None):
             return torch.as_tensor(state[name], dtype=dtype, device=dev)
@@ -758,7 +1055,9 @@ class LearnedIndex:
             row_align=int(meta.get("store_row_align", 1)),
             scales=(t("store.scales", torch.float32)
                     if "store.scales" in state else None),
-            quant_bits=int(meta.get("store_quant_bits", 8)))
+            quant_bits=int(meta.get("store_quant_bits", 8)),
+            **{name: t(f"store.{name}", torch.float32) for name in _BOUNDS
+               if f"store.{name}" in state})
         index.built = BuiltIndex(
             centroids=t("centroids") if "centroids" in state else None,
             classifier=classifier, store=store,

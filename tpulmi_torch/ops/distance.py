@@ -31,6 +31,20 @@ def pairwise_cosine(x: torch.Tensor, y: torch.Tensor, *,
     return 1.0 - x.float() @ y.float().T
 
 
+def pairwise_cosine_threshold(x: torch.Tensor, y: torch.Tensor,
+                              threshold, *, normalized: bool = False,
+                              compute_dtype=None) -> torch.Tensor:
+    """`pairwise_cosine` with per-row threshold pruning: entries at or above
+    ``threshold[i]`` become the sentinel (masked, not compacted, so they
+    lose every later top-k and the result is unchanged)."""
+    dists = pairwise_cosine(x, y, normalized=normalized,
+                            compute_dtype=compute_dtype)
+    threshold = torch.as_tensor(threshold, dtype=torch.float32,
+                                device=dists.device).reshape(-1, 1)
+    return torch.where(dists < threshold, dists,
+                       torch.full_like(dists, SENTINEL_DIST))
+
+
 def _topk_stable(d: torch.Tensor, i: torch.Tensor, k: int):
     """The k smallest of each row of `d`, ties to the lower column (the
     order `lax.top_k` gives); `i` rides along."""

@@ -161,7 +161,8 @@ def quantize_store(store: BucketStore, bits: int = 8) -> BucketStore:
     packed int4 (``bits=4``) codes + per-row float32 scales, on the store's
     device. The layout (ids, offsets, counts, alignment) is unchanged.
     Padding rows (all zero) get scale 1e-12 and code 0: their similarity is
-    0, and they lie outside every bucket's row range anyway."""
+    0, and they lie outside every bucket's row range anyway. Pruning bounds
+    are dropped, as in the JAX package: compute them again on the codes."""
     if bits not in (8, 4):
         raise ValueError(f"quantize_store supports bits in (8, 4), got {bits}")
     if store.is_quantized:
@@ -176,4 +177,5 @@ def quantize_store(store: BucketStore, bits: int = 8) -> BucketStore:
     else:
         codes, scales = quantize_rows(store.data_sorted)
     return replace(store, data_sorted=codes, scales=scales, quant_bits=bits,
-                   _casts={})
+                   _casts={}, bucket_centroids=None, bucket_cos_r=None,
+                   bucket_max_norm=None)

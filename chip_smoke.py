@@ -69,14 +69,30 @@ result line.
              native rerank (recall@10 against a float32 oracle), and
              rerank_dot against the gather + bmm path on the same
              candidates; the library's build and call counters;
-7. prune   - SearchConfig(backend="xla", prune_after=1) against the
+7. hier    - HierarchicalIndex at the JAX package's 20M configuration
+             (bench_20m.py:188-206: 8 groups x 61 = 488 buckets, int8
+             store, int8 queries, rerank depth 10) on the hoststore phase's
+             2M corpus (cut from 20M rows and 244 data clusters: ~4.1k
+             rows a bucket, not ~41k): build_with_host_store with a sha256
+             of what it built, calibrate_outer_weight at 24 probes, a probe
+             sweep from 6 to 48 until recall@10 against the float32 oracle
+             reaches 0.90 (failing if it never does), at that budget the
+             worklist and the 128-row tile equal to the dense search but
+             for ties, the pool, probe_mass 0.95 and 0.9, float queries;
+             search_stream over 4 batches equal to search; a save / load
+             round trip; a device-store build of the main data (2 x 61
+             buckets) searched in bfloat16 beside the flat index; K1-K6
+             and the merge each launched; then each of them against its
+             plain version on the inputs the path gave it (probes,
+             queries, stores); K3's time at 488 buckets;
+8. prune   - SearchConfig(backend="xla", prune_after=1) against the
              unpruned xla scan at 7 probes, to the bit, in float32 and
              bfloat16 on the main index after compute_bounds, on its int8
              store, and on an index of tight clusters (cluster_std 0.3),
              where rows must be skipped; rows scanned of nominal and ms
              of each; the scan's ids equal to the kernel's outside ties,
              and no kernel launched by it;
-8. timing  - each kernel, its plain version and one library call for the
+9. timing  - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -98,6 +114,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 2023
@@ -117,6 +134,7 @@ KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
                   "merge_items": "tpulmi_torch/csrc/merge_items.cu"}
 N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
 BIG_N = 2_000_000   # rows of the host-store phase's realistic size
+OWN_ROWS = 16_384   # slots whose distances are recomputed at once
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -252,6 +270,18 @@ def compare(kern, plain, own_dist, layout, n_slots, tol=DIST_TOL):
     return err
 
 
+def in_row_chunks(part):
+    """`part(query index of each row, ids)` applied to OWN_ROWS rows at a
+    time: the gathered (rows, k, d) float32 operands of a whole search
+    (120k slots x 20 x 768 at the hier phase's budget) would take 7 GB."""
+    import torch
+
+    def own(qi, ids):
+        return torch.cat([part(qi[s:s + OWN_ROWS], ids[s:s + OWN_ROWS])
+                          for s in range(0, max(qi.shape[0], 1), OWN_ROWS)])
+    return own
+
+
 def own_full(q, data):
     """Distances of ids over a full-precision store, from the inputs."""
     import torch
@@ -259,7 +289,7 @@ def own_full(q, data):
     def own(qi, ids):
         return 1.0 - torch.einsum("rd,rkd->rk", q[qi].float(),
                                   data[ids].float())
-    return own
+    return in_row_chunks(own)
 
 
 def own_quant(q, codes, scales, bits, q_scales=None):
@@ -278,7 +308,7 @@ def own_quant(q, codes, scales, bits, q_scales=None):
         if q_scales is not None:
             sims = sims * (q_scales[qi] / 127.0)[:, None]
         return 1.0 - sims
-    return own
+    return in_row_chunks(own)
 
 
 def ran_loop(launch):
@@ -1264,19 +1294,18 @@ def equal_but_ties(ids_a, d_a, ids_b, d_b, queries, corpus, tol,
     return len(rows)
 
 
-def phase_hoststore(index, ds, dev, gt):
+def phase_hoststore(index, ds, dev, gt, cache):
     """Host-store builds (the JAX package's large-scale build): the native
     host library; build_with_host_store on the main data against build
     (pred, layout, store rows) and in bfloat16 (recall); then a realistic
-    size, BIG_N rows made by synthetic_dataset_big into a temporary cache:
-    an int8 host-store build (native gather, overlapped upload), the same
-    layout again down the source-sequential path, a search at 4 probes
-    with the native rerank against a float32 oracle, and the rerank's two
-    paths on the same candidates. Returns the launch counts of the phase's
-    searches."""
+    size, BIG_N rows made by synthetic_dataset_big into the directory
+    `cache`: an int8 host-store build (native gather, overlapped upload),
+    the same layout again down the source-sequential path, a search at 4
+    probes with the native rerank against a float32 oracle, and the
+    rerank's two paths on the same candidates. Returns the BIG_N data and
+    its oracle's ids, for phase_hier."""
     import gc
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -1339,139 +1368,490 @@ def phase_hoststore(index, ds, dev, gt):
     torch.cuda.empty_cache()
 
     # ---- a realistic size ----
-    with tempfile.TemporaryDirectory() as cache:
-        t = time.perf_counter()
-        big = synthetic_dataset_big(n=BIG_N, n_queries=N_QUERIES,
-                                    d_nav=D_NAV, d_search=D_SEARCH,
-                                    n_clusters=N_CAT, seed=SEED,
-                                    cache_dir=cache)
-        gen_s = time.perf_counter() - t
-        corpus = big["data_search"]
-        log(f"[hoststore] synthetic_dataset_big: {BIG_N} x {D_SEARCH} "
-            f"bfloat16 ({corpus.nbytes / 1e9:.2f} GB on disk) + nav "
-            f"{big['data_nav'].nbytes / 1e9:.2f} GB made in {gen_s:.1f}s")
-        li = LearnedIndex(cfg, device=dev)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pred, secs = li.build_with_host_store(
-            big["data_nav"], corpus, normalized=True, store_dtype="int8",
-            overlap_upload=True)
-        stages = li.last_build_stages
-        st = li.built.store
-        store_bytes = (st.data_sorted.numel() * st.data_sorted.element_size()
-                       + st.scales.numel() * 4 + st.ids_sorted.numel() * 4)
-        scatter_calls = native_layout.calls["scatter_rows"]
-        if not scatter_calls > 0:
-            raise AssertionError("the int8 host store did not take the "
-                                 "native gather")
-        log(f"[hoststore] {BIG_N} rows, int8 store, native gather, "
-            f"overlapped upload: build {secs:.2f}s = nav stages "
-            f"{stages['nav']:.2f}s + waiting for the corpus copy "
-            f"{stages['materialize_wait']:.2f}s + layout and upload "
-            f"{stages['layout_upload']:.2f}s; store on the card "
-            f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
-            f"{store_bytes / 1e9:.3f} GB")
+    t = time.perf_counter()
+    big = synthetic_dataset_big(n=BIG_N, n_queries=N_QUERIES,
+                                d_nav=D_NAV, d_search=D_SEARCH,
+                                n_clusters=N_CAT, seed=SEED,
+                                cache_dir=cache)
+    gen_s = time.perf_counter() - t
+    corpus = big["data_search"]
+    log(f"[hoststore] synthetic_dataset_big: {BIG_N} x {D_SEARCH} "
+        f"bfloat16 ({corpus.nbytes / 1e9:.2f} GB on disk) + nav "
+        f"{big['data_nav'].nbytes / 1e9:.2f} GB made in {gen_s:.1f}s")
+    li = LearnedIndex(cfg, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pred, secs = li.build_with_host_store(
+        big["data_nav"], corpus, normalized=True, store_dtype="int8",
+        overlap_upload=True)
+    stages = li.last_build_stages
+    st = li.built.store
+    store_bytes = (st.data_sorted.numel() * st.data_sorted.element_size()
+                   + st.scales.numel() * 4 + st.ids_sorted.numel() * 4)
+    scatter_calls = native_layout.calls["scatter_rows"]
+    if not scatter_calls > 0:
+        raise AssertionError("the int8 host store did not take the "
+                             "native gather")
+    log(f"[hoststore] {BIG_N} rows, int8 store, native gather, "
+        f"overlapped upload: build {secs:.2f}s = nav stages "
+        f"{stages['nav']:.2f}s + waiting for the corpus copy "
+        f"{stages['materialize_wait']:.2f}s + layout and upload "
+        f"{stages['layout_upload']:.2f}s; store on the card "
+        f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
+        f"{store_bytes / 1e9:.3f} GB")
 
-        # the same layout down the source-sequential path, from the map
-        os.environ["TPULMI_MATERIALIZE_MAX_FRAC"] = "0"
-        try:
-            t = time.perf_counter()
-            seq = layout_host_store(pred, corpus, int(st.n_categories),
-                                    row_align=cfg.row_align,
-                                    store_dtype="int8", normalized=True)
-            seq_s = time.perf_counter() - t
-        finally:
-            del os.environ["TPULMI_MATERIALIZE_MAX_FRAC"]
-        for name in ("ids_sorted", "offsets", "counts"):
-            if not np.array_equal(getattr(seq, name),
-                                  getattr(st, name).cpu().numpy()):
-                raise AssertionError(f"the source-sequential layout's "
-                                     f"{name} differ from the gather's")
+    # the same layout down the source-sequential path, from the map
+    os.environ["TPULMI_MATERIALIZE_MAX_FRAC"] = "0"
+    try:
         t = time.perf_counter()
-        seq_dev = _slab_upload_serial(seq.data_sorted, 262_144, dev)
-        torch.cuda.synchronize()
-        up_s = time.perf_counter() - t
-        codes = st.data_sorted.to(torch.int16) - seq_dev.to(torch.int16)
-        off = int((codes != 0).sum())
-        if int(codes.abs().max()) > 1:
-            raise AssertionError("the two layouts' int8 codes differ by "
-                                 "more than the rounding")
-        log(f"[hoststore] source-sequential layout of the memory map: "
-            f"{seq_s:.2f}s; blocking slab upload of its "
-            f"{seq.data_sorted.nbytes / 1e9:.3f} GB: {up_s:.3f}s; ids, "
-            f"offsets, counts equal to the gather's, {off} of "
-            f"{codes.numel()} codes one apart (nearbyintf(x * 127 / amax) "
-            f"against rint(x / amax * 127))")
-        del seq, seq_dev, codes
-        gc.collect()
+        seq = layout_host_store(pred, corpus, int(st.n_categories),
+                                row_align=cfg.row_align,
+                                store_dtype="int8", normalized=True)
+        seq_s = time.perf_counter() - t
+    finally:
+        del os.environ["TPULMI_MATERIALIZE_MAX_FRAC"]
+    for name in ("ids_sorted", "offsets", "counts"):
+        if not np.array_equal(getattr(seq, name),
+                              getattr(st, name).cpu().numpy()):
+            raise AssertionError(f"the source-sequential layout's "
+                                 f"{name} differ from the gather's")
+    t = time.perf_counter()
+    seq_dev = _slab_upload_serial(seq.data_sorted, 262_144, dev)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t
+    codes = st.data_sorted.to(torch.int16) - seq_dev.to(torch.int16)
+    off = int((codes != 0).sum())
+    if int(codes.abs().max()) > 1:
+        raise AssertionError("the two layouts' int8 codes differ by "
+                             "more than the rounding")
+    log(f"[hoststore] source-sequential layout of the memory map: "
+        f"{seq_s:.2f}s; blocking slab upload of its "
+        f"{seq.data_sorted.nbytes / 1e9:.3f} GB: {up_s:.3f}s; ids, "
+        f"offsets, counts equal to the gather's, {off} of "
+        f"{codes.numel()} codes one apart (nearbyintf(x * 127 / amax) "
+        f"against rint(x / amax * 127))")
+    del seq, seq_dev, codes
+    gc.collect()
 
-        # search at 4 probes with the native rerank
-        big_host = (big["queries_nav"], big["queries_search"])
-        seen = {}
-        plain_rerank = li._rerank_host
+    # search at 4 probes with the native rerank
+    big_host = (big["queries_nav"], big["queries_search"])
+    seen = {}
+    plain_rerank = li._rerank_host
 
-        def keep_candidates(dists, ids, *a, **kw):
-            seen["ids"] = ids.copy()
-            t = time.perf_counter()
-            out = plain_rerank(dists, ids, *a, **kw)
-            seen["s"] = time.perf_counter() - t
-            return out
-
-        li._rerank_host = keep_candidates
-        before = native_layout.calls["rerank_dot"]
-        li.search(*big_host, n_buckets=4, k=10)      # first call of a shape
-        torch.cuda.synchronize()
+    def keep_candidates(dists, ids, *a, **kw):
+        seen["ids"] = ids.copy()
         t = time.perf_counter()
-        dists, ids = li.search(*big_host, n_buckets=4, k=10)
-        search_s = time.perf_counter() - t
-        del li._rerank_host
-        if not native_layout.calls["rerank_dot"] > before:
-            raise AssertionError("the rerank did not take rerank_dot")
-        if dists.shape != (N_QUERIES, 10) or not np.isfinite(dists).all():
-            raise AssertionError(f"bad big result {dists.shape}")
-        t = time.perf_counter()
-        gt_big = exact_ids(big["queries_search"], corpus.bits, dev)
-        oracle_s = time.perf_counter() - t
-        rec = recall_at_k(ids - 1, gt_big, 10)
-        log(f"[hoststore] {BIG_N} rows, int8 + native rerank, 4 probes: "
-            f"recall@10 {rec:.4f} against a float32 oracle on the card "
-            f"({oracle_s:.2f}s); search {search_s:.4f}s, of which rerank "
-            f"{seen['s']:.4f}s")
-        if not rec >= RECALL_GATE:
-            raise AssertionError(f"big recall@10 {rec} under the gate")
+        out = plain_rerank(dists, ids, *a, **kw)
+        seen["s"] = time.perf_counter() - t
+        return out
 
-        # the rerank's two paths on the same candidates, every candidate
-        # kept so that a tie across the kth place shows
-        cand = seen["ids"]
-        qs = big["queries_search"]
-        k_all = cand.shape[1]
+    li._rerank_host = keep_candidates
+    before = native_layout.calls["rerank_dot"]
+    li.search(*big_host, n_buckets=4, k=10)      # first call of a shape
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dists, ids = li.search(*big_host, n_buckets=4, k=10)
+    search_s = time.perf_counter() - t
+    del li._rerank_host
+    if not native_layout.calls["rerank_dot"] > before:
+        raise AssertionError("the rerank did not take rerank_dot")
+    if dists.shape != (N_QUERIES, 10) or not np.isfinite(dists).all():
+        raise AssertionError(f"bad big result {dists.shape}")
+    t = time.perf_counter()
+    gt_big = exact_ids(big["queries_search"], corpus.bits, dev)
+    oracle_s = time.perf_counter() - t
+    rec = recall_at_k(ids - 1, gt_big, 10)
+    log(f"[hoststore] {BIG_N} rows, int8 + native rerank, 4 probes: "
+        f"recall@10 {rec:.4f} against a float32 oracle on the card "
+        f"({oracle_s:.2f}s); search {search_s:.4f}s, of which rerank "
+        f"{seen['s']:.4f}s")
+    if not rec >= RECALL_GATE:
+        raise AssertionError(f"big recall@10 {rec} under the gate")
+
+    # the rerank's two paths on the same candidates, every candidate
+    # kept so that a tie across the kth place shows
+    cand = seen["ids"]
+    qs = big["queries_search"]
+    k_all = cand.shape[1]
+    t = time.perf_counter()
+    nd, ni = li._rerank_host(None, cand, None, k_all, host_queries=qs)
+    native_s = time.perf_counter() - t
+    native_layout.available = lambda: False
+    try:
         t = time.perf_counter()
-        nd, ni = li._rerank_host(None, cand, None, k_all, host_queries=qs)
-        native_s = time.perf_counter() - t
-        native_layout.available = lambda: False
-        try:
-            t = time.perf_counter()
-            bd, bi = li._rerank_host(None, cand, None, k_all,
-                                     host_queries=qs)
-            bmm_s = time.perf_counter() - t
-        finally:
-            del native_layout.available
-        n_rows = equal_but_ties(ni[:, :10] + 1, nd[:, :10], bi[:, :10] + 1,
-                                bd[:, :10], qs, li._host_corpus[0], 1e-6)
-        log(f"[hoststore] rerank of {cand.shape[0]} x {cand.shape[1]} "
-            f"candidates (bfloat16 corpus): rerank_dot {native_s:.4f}s, "
-            f"gather + bmm {bmm_s:.4f}s ({bmm_s / native_s:.1f}x); ids equal"
-            f" but for ties within 1e-6 ({n_rows} rows differ; max |d| "
-            f"{float(np.abs(nd - bd).max()):.2e}); host {host_cpu_line()}")
-        del li, big, corpus
-        gc.collect()
-        torch.cuda.empty_cache()
+        bd, bi = li._rerank_host(None, cand, None, k_all,
+                                 host_queries=qs)
+        bmm_s = time.perf_counter() - t
+    finally:
+        del native_layout.available
+    n_rows = equal_but_ties(ni[:, :10] + 1, nd[:, :10], bi[:, :10] + 1,
+                            bd[:, :10], qs, li._host_corpus[0], 1e-6)
+    log(f"[hoststore] rerank of {cand.shape[0]} x {cand.shape[1]} "
+        f"candidates (bfloat16 corpus): rerank_dot {native_s:.4f}s, "
+        f"gather + bmm {bmm_s:.4f}s ({bmm_s / native_s:.1f}x); ids equal"
+        f" but for ties within 1e-6 ({n_rows} rows differ; max |d| "
+        f"{float(np.abs(nd - bd).max()):.2e}); host {host_cpu_line()}")
+    del li, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = launch_counts()
     for name in ("probe_topk", "probe_topk_quant_int8"):
         if not launches[name] > 0:
             raise AssertionError(f"the phase's searches launched no {name}")
     log(f"[hoststore] native calls {native_layout.calls}; launches "
         f"{ {n: c for n, c in launches.items() if c} }")
+    return big, gt_big
+
+
+def hier_digest(hi, pred) -> str:
+    """sha256 of a hierarchical build's outer centroids, router parameters
+    (by name) and every row's bucket."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    built = hi.built
+    state = built.classifier.model.state_dict()
+    for t in (built.centroids, *(state[n] for n in sorted(state))):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    h.update(np.ascontiguousarray(pred).tobytes())
+    return h.hexdigest()
+
+
+def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
+    """The hierarchical index at the JAX package's 20M configuration
+    (bench_20m.py:188-206): 8 groups x 61 buckets = 488, an MLP-5 outer
+    router (6 epochs) and inner routers (8 epochs, batch 4096), row_align
+    1024, int8 store, int8 queries, rerank depth 10. Cut in scale only: the
+    BIG_N rows and 122 data clusters of phase_hoststore's corpus (20M rows
+    and 244 clusters there), ~4.1k rows a bucket (~41k there); the widths
+    (96 / 768), the buckets, k, the rerank depth and the probe sweep are the
+    20M run's. Steps: build_with_host_store (bfloat16 navigation, int8 host
+    store, overlapped upload) with a digest of what it built;
+    calibrate_outer_weight at 24 probes; a probe sweep of 10k host queries
+    until recall@10 against the float32 oracle clears 0.90 (the phase fails
+    if no budget does); at that budget the worklist and 128-row tile equal
+    to the dense search but for ties, the pool, probe_mass 0.95 / 0.9 and
+    float queries (K2) with their recall; search_stream over 4 batches,
+    each equal to search; one save / load; a device-store
+    HierarchicalIndex.build of the main data (2 x 61 buckets) searched in
+    bfloat16 at 2 probes (K1) beside the flat index. Every kernel of the
+    path must launch. Then, on the inputs the path gives them (its probes,
+    queries and stores, all 10k queries), each kernel against its plain
+    version: K3 dense, the worklist with its merge kernel (the merge to the
+    bit) and the 128-row tile at k 20, the pool at k 10 / k_out 20, K2 with
+    bfloat16 queries, and K1 on the device store; their errors go into
+    `errs`. Last, K3's time at the found budget (CUDA events). Launches made
+    after the path's count was read are not counted."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import (HierarchicalConfig, HierarchicalIndex,
+                              IndexConfig, SearchConfig)
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.hoststore import HostBF16
+    from tpulmi_torch.ops.distance import l2_normalize
+    from tpulmi_torch.ops.probe_topk import (
+        apply_query_scale, group_slots, launch_counts, merge_items,
+        merge_items_plain, probe_topk, probe_topk_int8q,
+        probe_topk_int8q_plain, probe_topk_plain, probe_topk_quant,
+        probe_topk_quant_plain, reset_launch_counts)
+    from tpulmi_torch.ops.quantize import quantize_rows
+    from tpulmi_torch.search import route_probes, routing_logits
+
+    n_groups, n_cat = 8, 61
+    cfg = HierarchicalConfig(
+        n_groups=n_groups, outer_epochs=6, outer_lr=0.003,
+        calibrate_budget=0, router_restarts=1,
+        inner=IndexConfig(n_categories=n_cat, epochs=8, lr=0.003,
+                          model_type="MLP-5", batch_size=4096, seed=SEED,
+                          row_align=1024))
+    corpus = big["data_search"]
+    qn, qs = big["queries_nav"], big["queries_search"]
+    reset_launch_counts()
+
+    # ---- 1. build ----
+    t = time.perf_counter()
+    nav_bf16 = HostBF16.from_float32(big["data_nav"])
+    conv_s = time.perf_counter() - t
+    hi = HierarchicalIndex(cfg, device=dev)
+    torch.cuda.synchronize()
+    pred, build_s = hi.build_with_host_store(
+        nav_bf16, corpus, normalized=True, store_dtype="int8",
+        overlap_upload=True)
+    del nav_bf16
+    stages = hi.last_build_stages
+    st = hi.built.store
+    counts = st.counts.cpu().numpy()
+    groups = np.bincount(pred // n_cat, minlength=n_groups)
+    store_bytes = (st.data_sorted.numel() + st.scales.numel() * 4
+                   + st.ids_sorted.numel() * 4)
+    log(f"[hier] {BIG_N} rows, {n_groups} x {n_cat} = {st.n_categories} "
+        f"buckets, int8 host store: build_with_host_store {build_s:.2f}s = "
+        f"nav stages {stages['nav']:.2f}s + waiting for the corpus copy "
+        f"{stages['materialize_wait']:.2f}s + layout and upload "
+        f"{stages['layout_upload']:.2f}s (navigation rows rounded to "
+        f"bfloat16 in {conv_s:.2f}s); outer groups {groups.tolist()}; "
+        f"bucket rows max / mean / min {counts.max()} / {counts.mean():.0f}"
+        f" / {counts.min()}; store on the card "
+        f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
+        f"{store_bytes / 1e9:.3f} GB")
+    log(f"[hier] build digest (sha256 of outer centroids, router "
+        f"parameters, pred): {hier_digest(hi, pred)}")
+
+    # ---- 2. calibrate ----
+    t = time.perf_counter()
+    cal = hi.calibrate_outer_weight(big["data_nav"], probe_budget=24)
+    log(f"[hier] calibrate_outer_weight at 24 probes: w {cal['best']}, "
+        f"containment at w=1 {cal['baseline_w1']:.4f}, at the best w "
+        f"{cal['best_containment']:.4f}; mass_temp {cal['mass_temp']}; "
+        f"{time.perf_counter() - t:.2f}s")
+
+    # ---- 3. probe sweep ----
+    seen = {}
+    plain_rerank = hi._rerank_host
+
+    def timed_rerank(*a, **kw):
+        t = time.perf_counter()
+        out = plain_rerank(*a, **kw)
+        seen["rerank_s"] = time.perf_counter() - t
+        return out
+
+    hi._rerank_host = timed_rerank
+
+    def scfg(p, **opts):
+        return SearchConfig(k=10, n_buckets=p, int8_queries=True,
+                            rerank_extra=10, pallas_mc=1024, **opts)
+
+    def search(p, batch=(qn, qs), **opts):
+        """A warm-up and one timed search: (dists, ids, seconds)."""
+        kw = dict(n_buckets=p, k=10, search_config=scfg(p, **opts))
+        hi.search(*batch, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, ids = hi.search(*batch, **kw)
+        secs = time.perf_counter() - t
+        if d.shape != (N_QUERIES, 10) or not np.isfinite(d).all():
+            raise AssertionError(f"bad hierarchical result {d.shape}")
+        return d, ids, secs
+
+    p_found = None
+    for p in (6, 8, 12, 16, 24, 32, 48):
+        d, ids, secs = search(p)
+        rec = recall_at_k(ids - 1, gt_big, 10)
+        log(f"[hier] probes={p}: recall@10 {rec:.4f} against the float32 "
+            f"oracle; search {secs:.4f}s = {N_QUERIES / secs:.0f} QPS, of "
+            f"which rerank {seen['rerank_s']:.4f}s "
+            f"({seen['rerank_s'] / secs:.1%})")
+        if rec >= RECALL_GATE:
+            p_found, dense = p, (d, ids)
+            break
+    if p_found is None:
+        raise AssertionError(f"no probe budget up to 48 reached recall@10 "
+                             f"{RECALL_GATE}")
+    p = p_found
+    log(f"[hier] first budget with recall@10 >= {RECALL_GATE}: {p} of "
+        f"{st.n_categories} probes (the JAX package's 20M run: 0.9105 at "
+        f"8, BENCH_20M.md)")
+
+    # ---- 4. A/Bs at that budget ----
+    for label, opts in (("worklist", dict(pallas_worklist=True)),
+                        ("128-row tile", dict(pallas_pair=True))):
+        d, ids, secs = search(p, **opts)
+        rows = equal_but_ties(ids, d, dense[1], dense[0], qs, corpus, 1e-6)
+        log(f"[hier] {label} at {p} probes: equal to the dense search but "
+            f"for ties ({rows} rows differ); {secs:.4f}s")
+    d, ids, secs = search(p, pallas_pool=True)
+    log(f"[hier] pool at {p} probes: recall@10 "
+        f"{recall_at_k(ids - 1, gt_big, 10):.4f}; {secs:.4f}s")
+    with torch.no_grad():
+        logits, mass = routing_logits(hi.built.classifier.model,
+                                      torch.as_tensor(qn, device=dev),
+                                      need_mass=True)
+    for m in (0.95, 0.9):
+        d, ids, secs = search(p, probe_mass=m)
+        kept = route_probes(logits, p, probe_mass=m, dump_id=st.n_categories,
+                            mass_logits=mass)
+        kept = float((kept < st.n_categories).float().sum(1).mean())
+        log(f"[hier] probe_mass {m} at {p} probes: recall@10 "
+            f"{recall_at_k(ids - 1, gt_big, 10):.4f}, {kept:.2f} probes kept "
+            f"a query on average; {secs:.4f}s")
+    kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
+        k=10, n_buckets=p, int8_queries=False, rerank_extra=10,
+        pallas_mc=1024))
+    hi.search(qn, qs, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids = hi.search(qn, qs, **kw)[1]
+    log(f"[hier] float queries (K2) at {p} probes: recall@10 "
+        f"{recall_at_k(ids - 1, gt_big, 10):.4f}; "
+        f"{time.perf_counter() - t:.4f}s")
+    del hi._rerank_host
+
+    # ---- 5. serving ----
+    batches = [(np.roll(qn, -2500 * i, axis=0), np.roll(qs, -2500 * i,
+                                                        axis=0))
+               for i in range(4)]
+    kw = dict(n_buckets=p, k=10, search_config=scfg(p))
+    want = [hi.search(*b, **kw) for b in batches]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = list(hi.search_stream(batches, depth=STREAM_DEPTH, **kw))
+    stream_s = time.perf_counter() - t
+    if len(got) != len(batches):
+        raise AssertionError(f"the stream gave {len(got)} results")
+    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
+        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
+            raise AssertionError(f"stream batch {i} differs from search")
+    log(f"[hier] search_stream: {len(batches)} batches of {N_QUERIES} equal "
+        f"to search; {stream_s:.4f}s")
+
+    # ---- 6. checkpoint ----
+    path = os.path.join(cache, "hier_ckpt")
+    t = time.perf_counter()
+    hi.save(path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = HierarchicalIndex.load(path, device=dev)
+    load_s = time.perf_counter() - t
+    # the build's RAM copy of the corpus has no file to record: reattach
+    # it (checked against the checkpoint's fingerprint)
+    back.attach_host_corpus(hi._host_corpus[0])
+    a, b = hi.built.classifier.model, back.built.classifier.model
+    if (a.outer_weight, a.mass_temp) != (b.outer_weight, b.mass_temp):
+        raise AssertionError("the checkpoint lost the outer weight or the "
+                             "mass temperature")
+    d1, i1 = hi.search(qn, qs, **kw)
+    d2, i2 = back.search(qn, qs, **kw)
+    if not (np.array_equal(i1, i2) and np.array_equal(d1, d2)):
+        raise AssertionError("the restored index searches differently")
+    log(f"[hier] save {save_s:.2f}s, load {load_s:.2f}s, corpus reattached:"
+        f" outer weight, mass_temp and results equal")
+    del back, a, b
+
+    # ---- 7. the device store, small ----
+    small = HierarchicalIndex(HierarchicalConfig(
+        n_groups=2, outer_epochs=12, calibrate_budget=2,
+        inner=IndexConfig(n_categories=n_cat, epochs=12, lr=0.003,
+                          model_type="MLP-5", batch_size=1024, seed=SEED)),
+        device=dev)
+    _, small_s = small.build(ds["data_nav"], ds["data_search"])
+    host = (ds["queries_nav"], ds["queries_search"])
+    small_rec = recall_at_k(small.search(*host, n_buckets=2, k=10)[1] - 1,
+                            gt, 10)
+    flat_rec = recall_at_k(index.search(*host, n_buckets=2, k=10)[1] - 1,
+                           gt, 10)
+    log(f"[hier] device store, main data, 2 x {n_cat} buckets: build "
+        f"{small_s:.2f}s; bfloat16 search at 2 probes recall@10 "
+        f"{small_rec:.4f} (the flat index, 122 buckets: {flat_rec:.4f})")
+
+    # ---- 8. every kernel of the path launched ----
+    launches = launch_counts()
+    for kname in ("probe_topk", "probe_topk_quant_int8",
+                  "probe_topk_int8q_int8", "probe_worklist", "merge_items",
+                  "probe_pool", "probe_pair"):
+        if not launches[kname] > 0:
+            raise AssertionError(f"the hierarchical phase launched no "
+                                 f"{kname}")
+    log(f"[hier] launches {({n: c for n, c in launches.items() if c})}")
+
+    # ---- 9. each kernel against its plain version on the inputs that the
+    # path gives it (these launches come after the count was read) ----
+    def on_path(model, queries_nav, queries_search, n_probes, store):
+        """The normalized queries and the slot layout of a search at
+        n_probes, as the search program makes them."""
+        with torch.no_grad():
+            probes = route_probes(routing_logits(
+                model, torch.as_tensor(queries_nav, dtype=torch.float32,
+                                       device=dev), need_mass=False)[0],
+                n_probes)
+            qf = l2_normalize(torch.as_tensor(queries_search,
+                                              device=dev).float())
+        return qf, group_slots(probes, store.offsets, store.counts)
+
+    def hold(kname, err, what, how="but for ties"):
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        log(f"[hier] {kname} {what}: equal to its plain version {how}, "
+            f"max |err| {err:.3g}")
+
+    t = time.perf_counter()
+    k_eff, k_pool, mc = 20, 10, 1024    # k + rerank depth; pallas_mc
+    qf, lay = on_path(hi.built.classifier.model, qn, qs, p, st)
+    n_slots = N_QUERIES * p
+    q_codes, q_scales = quantize_rows(qf)
+    args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
+            lay.blocks)
+    own8q = own_quant(q_codes, st.data_sorted, st.scales, 8, q_scales)
+    items = worklist_total(lay, st.counts, mc)
+    on = (f"at {p} probes over {st.n_categories} buckets, {N_QUERIES} "
+          f"queries, {lay.blocks.shape[0]} blocks")
+    plain = probe_topk_int8q_plain(*args, k_eff, 8)
+    hold("probe_topk_int8q_int8", compare(
+        probe_topk_int8q(*args, k_eff, 8), plain, own8q, lay, n_slots,
+        INT8Q_TOL), f"(k {k_eff}) {on}")
+    hold("probe_worklist", compare(
+        probe_topk_int8q(*args, k_eff, 8, wl_pad=items,
+                         item_rows=mc)[:2], plain, own8q, lay, n_slots,
+        INT8Q_TOL), f"(k {k_eff}, {items} items of {mc} rows) {on}")
+    parts = probe_topk_int8q(*args, k_eff, 8, wl_pad=items, item_rows=mc,
+                             merge=False)
+    merged = merge_items(lay.blocks, parts, k_eff)
+    want = merge_items_plain(lay.blocks, parts, k_eff)
+    live = lay.slot_of_row < n_slots
+    if not (torch.equal(merged[0][live], want[0][live])
+            and torch.equal(merged[1][live], want[1][live])):
+        raise AssertionError("the merge kernel differs from its plain "
+                             "version on the hierarchical path's items")
+    hold("merge_items", 0.0, f"({items} items, k {k_eff}) {on}",
+         "to the bit")
+    hold("probe_pair", compare(
+        probe_topk_int8q(*args, k_eff, 8, pair=True), plain, own8q, lay,
+        n_slots, INT8Q_TOL), f"(k {k_eff}) {on}")
+    del plain, parts, merged, want
+    hold("probe_pool", compare_pool(
+        probe_topk_int8q(*args, k_pool, 8, k_out=k_eff),
+        probe_topk_int8q_plain(*args, k_pool, 8, k_out=k_eff),
+        probe_topk_int8q_plain(*args, k_pool, 8, k_out=k_eff, merge=False,
+                               wl_pad=items, item_rows=mc),
+        lambda out: apply_query_scale(out, q_scales, lay.qidx), own8q, lay,
+        n_slots, k_pool, INT8Q_TOL), f"(k {k_pool}, k_out {k_eff}) {on}")
+    qb = qf.to(torch.bfloat16)
+    quant = (qb, lay.qidx, st.data_sorted, st.scales, lay.blocks, k_eff, 8)
+    hold("probe_topk_quant_int8", compare(
+        probe_topk_quant(*quant), probe_topk_quant_plain(*quant),
+        own_quant(qb, st.data_sorted, st.scales, 8), lay, n_slots,
+        DIST_TOL), f"(bfloat16 queries, k {k_eff}) {on}")
+    sst = small.built.store
+    qf1, lay1 = on_path(small.built.classifier.model, ds["queries_nav"],
+                        ds["queries_search"], 2, sst)
+    q1, data1 = qf1.to(torch.bfloat16), sst.data_as(torch.bfloat16)
+    full = (q1, lay1.qidx, data1, lay1.blocks, 10)
+    hold("probe_topk", compare(
+        probe_topk(*full), probe_topk_plain(*full), own_full(q1, data1),
+        lay1, N_QUERIES * 2, DIST_TOL),
+        f"(bfloat16, k 10) at 2 probes over the device store's "
+        f"{sst.n_categories} buckets")
+    log(f"[hier] the kernels against their plain versions on the path's "
+        f"inputs: {time.perf_counter() - t:.1f}s")
+    del small, sst, data1, full, quant
+
+    # ---- K3 at the found budget, timed apart ----
+    ms = cuda_ms(lambda: probe_topk_int8q(*args, k_eff, 8), 20)
+    slots, rows = lay.slot_counts.double(), st.counts.double()
+    ops = float(2 * D_SEARCH * (slots * rows).sum())
+    nbytes = float(rows[slots > 0].sum()) * (D_SEARCH + 4)
+    peak_flops, peak_bw = peaks(name)
+    bound = max(ops / (peak_flops * INT8_OVER_BF16), nbytes / peak_bw) * 1e3
+    log(f"[hier] K3 (int8 x int8, k_out 20) at {p} probes over "
+        f"{st.n_categories} buckets: {ms:.4f} ms (CUDA events, mean of 20); "
+        f"{ops / 1e9:.2f} GOP, {nbytes / 1e9:.4f} GB of probed rows; bound "
+        f"{bound:.4f} ms")
+    del hi, dense, args
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2025,7 +2405,12 @@ def main(args) -> int:
     quant_launches, stores = phase_quantized(index, ds, dev, gt, f32_recall)
     serving_launches = phase_serving(index, stores, ds, dev, gt,
                                      "--profile" in args)
-    phase_hoststore(index, ds, dev, gt)
+    # the 2M corpus of the hoststore phase serves the hier phase too
+    with tempfile.TemporaryDirectory() as cache:
+        big, gt_big = phase_hoststore(index, ds, dev, gt, cache)
+        phase_hier(index, ds, dev, gt, big, gt_big, cache, name,
+                   kernel_errs)
+        del big
     phase_prune(index, stores, ds, dev)
     timing = phase_timing(index, stores, ds, dev, name)
     phase_timing_skewed(dev)

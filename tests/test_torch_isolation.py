@@ -112,8 +112,9 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 def test_exports():
-    assert set(tpulmi_torch.__all__) == {"LearnedIndex", "IndexConfig",
-                                         "SearchConfig", "__version__"}
+    assert set(tpulmi_torch.__all__) == {
+        "LearnedIndex", "HierarchicalIndex", "HierarchicalConfig",
+        "IndexConfig", "SearchConfig", "__version__"}
 
 
 def test_chip_smoke_refuses_without_card():

@@ -833,3 +833,130 @@ def test_xla_prune_equals_unpruned_on_card(card, kind):
     np.testing.assert_array_equal(i1, i0)
     np.testing.assert_array_equal(d1, d0)
     assert li.last_scan_rows < li.last_nominal_rows
+
+
+# --------------------------------------------------- the hierarchical index
+def _hier_data(n=40_000, seed=2023):
+    from tpulmi_torch.data import synthetic_dataset
+
+    return synthetic_dataset(n=n, n_queries=500, d_nav=96, d_search=256,
+                             n_clusters=48, seed=seed)
+
+
+def _hier(card, **over):
+    from tpulmi_torch import HierarchicalConfig, HierarchicalIndex, IndexConfig
+
+    cfg = HierarchicalConfig(
+        n_groups=4, outer_epochs=3, calibrate_budget=0,
+        **over, inner=IndexConfig(n_categories=16, epochs=3,
+                                  batch_size=1024, row_align=256))
+    return HierarchicalIndex(cfg, device=card)
+
+
+def test_hierarchical_build_is_bit_reproducible(card):
+    """Two hierarchical builds on the card in one process: outer
+    centroids, the joint router's parameters, pred and store equal to the
+    bit."""
+    ds = _hier_data()
+    a, b = _hier(card), _hier(card)
+    for hi in (a, b):
+        hi.build(ds["data_nav"], ds["data_search"])
+    torch.cuda.synchronize()
+    ba, bb = a.built, b.built
+    assert torch.equal(ba.centroids, bb.centroids)
+    assert torch.equal(ba.pred_categories, bb.pred_categories)
+    sa, sb = (x.classifier.model.state_dict() for x in (ba, bb))
+    assert sa.keys() == sb.keys()
+    assert all(torch.equal(sa[n], sb[n]) for n in sa)
+    for name in ("data_sorted", "ids_sorted", "offsets", "counts"):
+        assert torch.equal(getattr(ba.store, name),
+                           getattr(bb.store, name)), name
+
+
+def test_hierarchical_restart_losers_leave_the_card(card):
+    """router_restarts=2: the losing candidate's parameters are moved to
+    the CPU as soon as it loses; the winner's stay on the card."""
+    ds = _hier_data(n=20_000)
+    hi = _hier(card, router_restarts=2)
+    made = []
+    build_one = hi._build_nav_candidate
+
+    def recording(nav, seed):
+        out = build_one(nav, seed)
+        made.append(out[0])
+        return out
+
+    hi._build_nav_candidate = recording
+    hi.build(ds["data_nav"], ds["data_search"])
+    win = int(np.argmax(hi._router_restart_scores))
+    assert hi.built.classifier is made[win]
+    assert all(p.device.type == "cuda"
+               for p in made[win].model.parameters())
+    assert all(p.device.type == "cpu"
+               for p in made[1 - win].model.parameters())
+
+
+@pytest.fixture(scope="module")
+def store_488():
+    """An int8 store of the 20M run's geometry, narrowed in rows: 8 x 61 =
+    488 buckets of skewed sizes at d=768, row_align 1024, 4000 queries at
+    8 probes (int8 queries, k + rerank depth = 20)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+    n, d, n_cat, q, p = 120_000, 768, 488, 4000, 8
+    sizes = rng.pareto(1.5, size=n_cat) + 0.05
+    labels = rng.choice(n_cat, size=n, p=sizes / sizes.sum()).astype(np.int32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    full = build_bucket_store(torch.from_numpy(labels).to(dev),
+                              torch.from_numpy(x).to(dev), n_cat,
+                              row_align=1024)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    qs = torch.from_numpy(qs / np.linalg.norm(qs, axis=1,
+                                              keepdims=True)).to(dev)
+    probes = torch.from_numpy(np.argsort(rng.random((q, n_cat)), axis=1)[
+        :, :p].astype(np.int32)).to(dev)
+    return quantize_store(full, bits=8), qs, probes
+
+
+@pytest.mark.parametrize("variant", ["dense", "worklist", "pair",
+                                     "worklist+pair"])
+def test_int8q_kernels_on_a_488_bucket_store(store_488, variant):
+    """K3 (int8 x int8), K4 (worklist + merge) and K6 (128-row tile) on the
+    hierarchical store's geometry: the dense kernel equals its plain
+    version but for ties, and every other launch equals the dense kernel
+    to the bit."""
+    from tpulmi_torch.ops.probe_topk import probe_search
+
+    store, qs, probes = store_488
+    k = 20
+    opts = dict(k=k, int8_queries=True, item_rows=1024)
+    dense = probe_search(probes, qs, store, backend="cuda", **opts)
+    before = launch_counts()
+    if variant == "dense":
+        got = dense
+        pd, pi, _ = probe_search(probes, qs, store, backend="torch", **opts)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dense[0], pd, atol=1e-5, rtol=0)
+        apart = torch.from_numpy(_apart(pd.cpu().numpy(), 1e-5)).to(
+            pd.device)
+        apart[:, -1] = False
+        assert torch.equal(dense[1][apart], pi[apart])
+    else:
+        wl = 1 << 16 if "worklist" in variant else 0
+        got = probe_search(probes, qs, store, backend="cuda",
+                           pair="pair" in variant, wl_pad=wl, **opts)
+        torch.cuda.synchronize()
+        if wl:
+            assert int(got[3]) <= wl
+        assert torch.equal(got[0], dense[0])
+        assert torch.equal(got[1], dense[1])
+    after = launch_counts()
+    if "worklist" in variant:
+        assert after["probe_worklist"] > before["probe_worklist"]
+        assert after["merge_items"] > before["merge_items"]
+    if "pair" in variant:
+        assert after["probe_pair"] > before["probe_pair"]
+    assert bool((got[1] >= 0).any())

@@ -10,13 +10,18 @@ The same three stages as the JAX package ``tpulmi``, module for module:
    scanned exactly — cosine distances and a running top-k fused in one
    CUDA kernel (``tpulmi_torch.ops.probe_topk``) — then merged per query.
 
+`HierarchicalIndex` (``tpulmi_torch.hierarchical``) routes through a
+two-level factorized router over the same store and search.
+
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU.
 """
 
+from tpulmi_torch.hierarchical import HierarchicalConfig, HierarchicalIndex
 from tpulmi_torch.index import LearnedIndex
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["LearnedIndex", "IndexConfig", "SearchConfig", "__version__"]
+__all__ = ["LearnedIndex", "HierarchicalIndex", "HierarchicalConfig",
+           "IndexConfig", "SearchConfig", "__version__"]

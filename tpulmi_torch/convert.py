@@ -6,6 +6,9 @@
   quantized store's codes and scales cross bit for bit.
 - `index_from_arrays`: router params and store arrays -> a built
   `LearnedIndex`.
+- `joint_router_from_flax`: the hierarchical index's ``{"outer",
+  "inner"}`` params (the inner stacked on a leading group axis) -> a
+  `JointRouter`.
 """
 
 from typing import Mapping, Optional
@@ -47,6 +50,29 @@ def mlp_from_flax(params: Mapping) -> MLP:
     model = MLP(shapes[0][0], [s[1] for s in shapes[:-1]], shapes[-1][1])
     model.load_state_dict(mlp_state_from_flax(params))
     return model
+
+
+def joint_router_from_flax(params: Mapping, outer_model_type: str,
+                           inner_model_type: str, n_groups: int, n_cat: int):
+    """A `JointRouter` (outer weight and mass temperature 1) holding the
+    JAX package's ``{"outer": MLP params, "inner": stacked MLP params}``,
+    as numpy arrays; each group's slice of the stack converts as one MLP,
+    and `StackedMLP.stack` stacks them. Params of other widths than the
+    model types' raise."""
+    from tpulmi_torch.hierarchical import JointRouter, StackedMLP
+
+    outer = mlp_from_flax(params["outer"])
+    inner = StackedMLP.stack([
+        mlp_from_flax({name: {key: np.asarray(v)[g]
+                              for key, v in layer.items()}
+                       for name, layer in params["inner"].items()})
+        for g in range(n_groups)])
+    router = JointRouter.empty(outer_model_type, inner_model_type,
+                               outer.layers[0].in_features, n_groups, n_cat)
+    # the model types' shapes: a state of other widths raises here
+    router.load_state_dict(
+        JointRouter(outer, inner, n_groups, n_cat).state_dict())
+    return router
 
 
 def store_from_arrays(data_sorted, ids_sorted, offsets, counts, n: int,

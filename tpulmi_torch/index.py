@@ -270,37 +270,19 @@ class LearnedIndex:
                 "build_with_host_store(mesh=...) shards the store over "
                 "several cards: not ported to tpulmi_torch yet "
                 "(ROADMAP.md A7)")
-        from tpulmi_torch.build import fused_build
-
         cfg = self.config
         start = time.perf_counter()
-        n_categories = cfg.n_categories
         # the memory map -> RAM copy of the corpus runs beside the
         # navigation stages
         mat_thread = _materialize_async(data_search_host)
-        data_nav = self._tensor(data_nav)
-        n, d_nav = int(data_nav.shape[0]), int(data_nav.shape[1])
-        if n < n_categories:   # the reference's small-data fallback
-            n_categories = max(n // 5, 2)
-        result = fused_build(
-            data_nav, None, model_type=cfg.model_type, lr=cfg.lr,
-            n_categories=n_categories, kmeans_iters=cfg.kmeans_iters,
-            kmeans_train_points=(cfg.kmeans_max_points_per_centroid
-                                 * n_categories),
-            epochs=cfg.epochs, batch_size=cfg.batch_size,
-            row_align=cfg.row_align,
-            reference_step_semantics=cfg.reference_step_semantics,
-            max_train_steps=cfg.max_train_steps, seed=cfg.seed,
-            include_store=False)
-        pred = result.pred_categories.cpu().numpy()
+        classifier, pred, centroids = self._build_navigation(data_nav)
+        n_categories = classifier.n_classes
         t_nav = time.perf_counter() - start
-        log.info("host-store build: nav stages %.1fs (final loss %.4f)",
-                 t_nav, float(result.losses[-1]))
+        log.info("host-store build: nav stages %.1fs", t_nav)
         # park the router and centroids on the host while the store lands:
         # a store near the card's size needs one free region
-        model = result.model.to("cpu")
-        centroids = result.centroids.cpu()
-        del data_nav, result
+        classifier.model.to("cpu")
+        centroids = centroids.cpu()
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -313,9 +295,7 @@ class LearnedIndex:
             normalized=normalized, overlap_upload=overlap_upload, mesh=mesh)
         t_layout = time.perf_counter() - start - t_nav
         log.info("host-store build: layout+upload %.1fs", t_layout)
-        classifier = BucketClassifier(
-            d_nav, n_categories, lr=cfg.lr, model_type=cfg.model_type,
-            seed=cfg.seed, device=self.device, model=model.to(self.device))
+        classifier.model.to(self.device)
         build_time = time.perf_counter() - start
         log.info("host-store build: total %.1fs", build_time)
         self.last_build_stages = {"nav": t_nav, "materialize_wait": t_mat,
@@ -335,6 +315,37 @@ class LearnedIndex:
             os.environ.get("TPULMI_RERANK_MATERIALIZE_MAX_FRAC", "0.6")))
         self._host_corpus = (data_search_host, normalized)
         return pred, build_time
+
+    def _build_navigation(self, data_nav):
+        """The navigation stages of a host-store build: `fused_build` with
+        ``include_store=False`` (k-means, router, predict) on the index's
+        device, as in `build`. Returns (classifier, pred (numpy int32),
+        centroids)."""
+        from tpulmi_torch.build import fused_build
+
+        cfg = self.config
+        n_categories = cfg.n_categories
+        data_nav = self._tensor(data_nav)
+        n, d_nav = int(data_nav.shape[0]), int(data_nav.shape[1])
+        if n < n_categories:   # the reference's small-data fallback
+            n_categories = max(n // 5, 2)
+        result = fused_build(
+            data_nav, None, model_type=cfg.model_type, lr=cfg.lr,
+            n_categories=n_categories, kmeans_iters=cfg.kmeans_iters,
+            kmeans_train_points=(cfg.kmeans_max_points_per_centroid
+                                 * n_categories),
+            epochs=cfg.epochs, batch_size=cfg.batch_size,
+            row_align=cfg.row_align,
+            reference_step_semantics=cfg.reference_step_semantics,
+            max_train_steps=cfg.max_train_steps, seed=cfg.seed,
+            include_store=False)
+        log.info("host-store build: final loss %.4f",
+                 float(result.losses[-1]))
+        classifier = BucketClassifier(
+            d_nav, n_categories, lr=cfg.lr, model_type=cfg.model_type,
+            seed=cfg.seed, device=self.device, model=result.model)
+        return (classifier, result.pred_categories.cpu().numpy(),
+                result.centroids)
 
     def _host_store_to_built(self, pred, data_search_host, n_categories, *,
                              store_dtype, normalized, overlap_upload, mesh):
@@ -1024,28 +1035,39 @@ class LearnedIndex:
             "(expected corpus: %s).", rer.get("fingerprint"))
 
     @classmethod
+    def _restore_router(cls, path: Path, meta: dict, params: dict, device):
+        """A new index for the checkpoint at `path`, and its router holding
+        the saved `params` (state_dict entries as numpy arrays or CPU
+        tensors) on the index's device. Returns (index, classifier)."""
+        cfg = IndexConfig(**meta["config"])
+        index = cls(cfg, device=device)
+        classifier = BucketClassifier(
+            meta["input_dim"], meta["n_classes"], lr=cfg.lr,
+            model_type=meta["model_type"], seed=cfg.seed, device=index.device)
+        classifier.model.load_state_dict(
+            {name: torch.as_tensor(p, device=index.device)
+             for name, p in params.items()})
+        return index, classifier
+
+    @classmethod
     def load(cls, path: str, device="cuda") -> "LearnedIndex":
         """Restore a saved index onto `device`."""
         path = Path(path).absolute()
         with open(path / "meta.json") as f:
             meta = json.load(f)
-        cfg = IndexConfig(**meta["config"])
-        index = cls(cfg, device=device)
-        dev = index.device
         with np.load(path / "state.npz", allow_pickle=False) as z:
             state = {name: z[name] for name in z.files}
         for name in meta.get("bfloat16", []):
             state[name] = HostBF16(state[name]).to_torch()
+        index, classifier = cls._restore_router(
+            path, meta, {name[len("params."):]: value
+                         for name, value in state.items()
+                         if name.startswith("params.")}, device)
+        dev = index.device
 
         def t(name, dtype=None):
             return torch.as_tensor(state[name], dtype=dtype, device=dev)
 
-        classifier = BucketClassifier(
-            meta["input_dim"], meta["n_classes"], lr=cfg.lr,
-            model_type=meta["model_type"], seed=cfg.seed, device=dev)
-        classifier.model.load_state_dict(
-            {name[len("params."):]: t(name) for name in state
-             if name.startswith("params.")})
         store = BucketStore(
             data_sorted=t("store.data_sorted"),
             ids_sorted=t("store.ids_sorted", torch.int32),
@@ -1061,7 +1083,7 @@ class LearnedIndex:
         index.built = BuiltIndex(
             centroids=t("centroids") if "centroids" in state else None,
             classifier=classifier, store=store,
-            pred_categories=t("pred_categories", torch.int32), config=cfg,
-            max_bucket=bucket_stats(store)[0])
+            pred_categories=t("pred_categories", torch.int32),
+            config=index.config, max_bucket=bucket_stats(store)[0])
         cls._restore_rerank(index, meta, path)
         return index

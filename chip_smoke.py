@@ -85,14 +85,32 @@ result line.
              and the merge each launched; then each of them against its
              plain version on the inputs the path gave it (probes,
              queries, stores); K3's time at 488 buckets;
-8. prune   - SearchConfig(backend="xla", prune_after=1) against the
+8. shard   - tpulmi_torch.parallel with S shards on one card (a mesh that
+             lists cuda:0 S times): the main index in 4 shards searched
+             through K1, K2, K3 and K6, each equal to the unsharded search
+             but for ties (host times of both, bytes), each shard's launch
+             against its plain version on its own probes and store;
+             build_distributed of the main data over 4 "data" entries
+             (seconds, loss, recall@10 at 1, 2, 4 probes, digest, sharded
+             search equal to the one after unshard, each shard's launch
+             against its plain version); the hier phase's configuration
+             through build_with_host_store(mesh=8 x cuda:0), one group a
+             shard: pred equal to the hier phase's, the shards holding
+             exactly its flat store's rows, the search equal to its
+             unsharded search but for ties, each shard's launch against
+             its plain version, recall, rerank share, bytes, a save /
+             load to one flat store; then one NCCL
+             rank and two gloo ranks sharing the card, in child
+             processes (`--child`): data-parallel steps in lockstep and
+             the sharded search equal to the host's exact answer;
+9. prune   - SearchConfig(backend="xla", prune_after=1) against the
              unpruned xla scan at 7 probes, to the bit, in float32 and
              bfloat16 on the main index after compute_bounds, on its int8
              store, and on an index of tight clusters (cluster_std 0.3),
              where rows must be skipped; rows scanned of nominal and ms
              of each; the scan's ids equal to the kernel's outside ties,
              and no kernel launched by it;
-9. timing  - each kernel, its plain version and one library call for the
+10. timing - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -134,6 +152,7 @@ KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
                   "merge_items": "tpulmi_torch/csrc/merge_items.cu"}
 N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
 BIG_N = 2_000_000   # rows of the host-store phase's realistic size
+SHARDS = 4          # shards of the 300K index in phase shard, on one card
 OWN_ROWS = 16_384   # slots whose distances are recomputed at once
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
@@ -1849,10 +1868,465 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
         f"{st.n_categories} buckets: {ms:.4f} ms (CUDA events, mean of 20); "
         f"{ops / 1e9:.2f} GOP, {nbytes / 1e9:.4f} GB of probed rows; bound "
         f"{bound:.4f} ms")
+    # what phase_shard holds its mesh build to; the flat store stays on
+    # the card until then
+    ref = dict(cfg=cfg, pred=pred, store=st, p=p, dense=dense,
+               outer_weight=hi.built.classifier.model.outer_weight,
+               mass_temp=hi.built.classifier.model.mass_temp)
     del hi, dense, args
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, ref
+
+
+def hold_shards(sstore, probes, qf, *, k, compute_dtype, int8_queries,
+                pair, tol):
+    """Each of a sharded store's shards: its probe kernel's launch against
+    the kernel's plain version (`compare`) on the shard's own inputs, the
+    global `probes` remapped to its buckets, its slot layout and its store,
+    as the sharded program gives them (`qf` the normalized queries).
+    Returns the largest distance error; raises on a disagreement."""
+    from tpulmi_torch.ops.probe_topk import (group_slots, probe_topk,
+                                             probe_topk_int8q,
+                                             probe_topk_int8q_plain,
+                                             probe_topk_plain,
+                                             probe_topk_quant,
+                                             probe_topk_quant_plain)
+    from tpulmi_torch.ops.quantize import quantize_rows
+    from tpulmi_torch.parallel.sharded import local_probes
+
+    worst = 0.0
+    for s, st in sstore.local():
+        lay = group_slots(local_probes(probes, sstore.bucket_start[s],
+                                       sstore.cat_pad), st.offsets, st.counts)
+        if not st.is_quantized:
+            q, data = qf.to(compute_dtype).contiguous(), st.data_as(
+                compute_dtype)
+            args = (q, lay.qidx, data, lay.blocks, k)
+            kern, plain, own = probe_topk, probe_topk_plain, own_full(q, data)
+        elif int8_queries:
+            q_codes, q_scales = quantize_rows(qf)
+            args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
+                    lay.blocks, k, st.quant_bits)
+            kern, plain = probe_topk_int8q, probe_topk_int8q_plain
+            own = own_quant(q_codes, st.data_sorted, st.scales,
+                            st.quant_bits, q_scales)
+        else:
+            q = qf.to(compute_dtype).contiguous()
+            args = (q, lay.qidx, st.data_sorted, st.scales, lay.blocks, k,
+                    st.quant_bits)
+            kern, plain = probe_topk_quant, probe_topk_quant_plain
+            own = own_quant(q, st.data_sorted, st.scales, st.quant_bits)
+        worst = max(worst, compare(kern(*args, pair=pair), plain(*args), own,
+                                   lay, probes.numel(), tol))
+    return worst
+
+
+def median_s(fn, reps=5):
+    """(median host seconds of reps calls after one warm-up, last result)."""
+    import statistics
+
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), out
+
+
+def phase_shard(index, stores, ds, dev, gt, big, gt_big, hier, cache, errs):
+    """The bucket-sharded store and search, the data-parallel build and the
+    process-group runtime (tpulmi_torch.parallel), S shards on one card (a
+    mesh that lists cuda:0 S times). 1. phase_main's index cut into 4
+    shards (31 buckets each): 10k queries at 2 probes through K1, K2 (int8
+    store, float queries, host rerank), K3 (int8 queries) and K6, each
+    equal to the unsharded search but for ties, the host times of both
+    (median of 5) and the bytes; then each shard's kernel launch against
+    its plain version on that shard's own remapped probes and store. 2.
+    build_distributed of the main data over 4 "data" entries: seconds,
+    final loss, recall@10 at 1, 2, 4 probes beside the flat build's, a
+    digest, the sharded search equal to the one after unshard, each
+    shard's K1 launch against its plain version. 3. phase hier's
+    configuration through build_with_host_store(mesh=8 x cuda:0), one group
+    a shard: pred equal to phase hier's, the shards holding exactly its
+    flat store's rows, the search at its budget equal to its unsharded
+    search but for ties, each shard's K3 launch against its plain version,
+    recall, time, rerank share, bytes, and a save / load to one flat
+    store. 4. the process groups: one NCCL rank
+    and two gloo ranks sharing the card (child processes of this script),
+    each checked by its exit code and OK line. The kernel launches of the
+    sharded searches are counted from 0 just before them and read just
+    after; each of K1, K2, K3, K6 must have launched."""
+    import os
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import HierarchicalIndex, LearnedIndex, SearchConfig
+    from tpulmi_torch.build import build_digest
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.hoststore import HostBF16
+    from tpulmi_torch.ops.distance import l2_normalize
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+    from tpulmi_torch.parallel import make_mesh
+    from tpulmi_torch.search import route_probes, routing_logits
+
+    host = (ds["queries_nav"], ds["queries_search"])
+    corpus = ds["data_search"]
+    full = index.built.store
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    path = {}
+
+    def count(fn):
+        """fn() with the launch counts set to 0 before it and added to the
+        path's after it."""
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, c in launch_counts().items():
+            path[name] = path.get(name, 0) + c
+        return out
+
+    def store_bytes(st):
+        return sum(t.numel() * t.element_size() for t in (
+            st.data_sorted, st.ids_sorted, st.offsets, st.counts, st.scales)
+            if t is not None)
+
+    # ---- 1. the 300K index in 4 shards, K1 / K2 / K3 / K6 ----
+    t_phase = time.perf_counter()
+    variants = {"K1": (None, {}, "probe_topk", DIST_TOL),
+                "K2": (8, {}, "probe_topk_quant_int8", DIST_TOL),
+                "K3": (8, dict(int8_queries=True), "probe_topk_int8q_int8",
+                       INT8Q_TOL),
+                "K6": (None, dict(pallas_pair=True), "probe_pair", DIST_TOL)}
+    qn_dev, qs_dev = (torch.as_tensor(x, device=dev) for x in host)
+    with torch.no_grad():
+        probes = route_probes(routing_logits(
+            index.built.classifier.model, qn_dev, need_mass=False)[0], 2)
+    qf = l2_normalize(qs_dev.float())
+    for label, (bits, opts, kname, tol) in variants.items():
+        index.unshard()
+        index.built.store = full if bits is None else stores[bits]
+        index._search_programs = {}
+        index._host_corpus = None if bits is None else (corpus, True)
+        scfg = SearchConfig(k=10, n_buckets=2, **opts)
+
+        def search():
+            return index.search(*host, n_buckets=2, k=10,
+                                search_config=scfg)
+
+        flat_s, (fd, fi) = median_s(search)
+        index.shard(mesh)
+        shard_s, (sd, si) = count(lambda: median_s(search))
+        if sd.shape != (N_QUERIES, 10) or not np.isfinite(sd).all():
+            raise AssertionError(f"bad sharded result {sd.shape}")
+        rows = equal_but_ties(si, sd, fi, fd, host[1], corpus,
+                              DIST_TOL if bits is None else 1e-6,
+                              bf16=bits is None)
+        sstore = index._sharded[0]
+        log(f"[shard] {label} ({kname}), 4 shards of {sstore.cat_pad} "
+            f"buckets on one card, 2 probes: equal to the unsharded search "
+            f"but for ties ({rows} rows differ); search {shard_s * 1e3:.2f} "
+            f"ms sharded, {flat_s * 1e3:.2f} ms flat (host clock, median of "
+            f"5); shards {sstore.nbytes() / 1e9:.4f} GB, flat store "
+            f"{store_bytes(index.built.store) / 1e9:.4f} GB")
+        plan = index._plan_search(qn_dev, 2, 10, scfg)
+        worst = hold_shards(sstore, probes, qf, k=plan.k_eff,
+                            compute_dtype=plan.compute_dtype,
+                            int8_queries=plan.int8_queries, pair=plan.pair,
+                            tol=tol)
+        errs[kname] = max(errs.get(kname, 0.0), worst)
+        log(f"[shard] {kname} on each of the {SHARDS} shards (k "
+            f"{plan.k_eff}, the shard's remapped probes and store): equal "
+            f"to its plain version but for ties, max |err| {worst:.3g}")
+    index.unshard()
+    index.built.store = full
+    index._search_programs = {}
+    index._host_corpus = None
+
+    # ---- 2. the data-parallel build over 4 "data" entries ----
+    dli = LearnedIndex(index.config, device=dev)
+    torch.cuda.synchronize()
+    pred, build_s = dli.build_distributed(
+        ds["data_nav"], ds["data_search"],
+        mesh=make_mesh(axis_names=("data",), devices=[dev] * SHARDS))
+    st = dli.built.store
+    line = []
+    for p in (1, 2, 4):
+        got = count(lambda: dli.search(*host, n_buckets=p, k=10))
+        flat = index.search(*host, n_buckets=p, k=10)[1]
+        line.append(f"{p}: {recall_at_k(got[1] - 1, gt, 10):.4f} (flat "
+                    f"build {recall_at_k(flat - 1, gt, 10):.4f})")
+    stages = dli.last_build_stages
+    log(f"[shard] build_distributed, {N} rows over {SHARDS} data entries: "
+        f"{build_s:.2f}s (navigation {stages['nav']:.2f}s), final loss "
+        f"{stages['final_loss']:.4f}; recall@10 at probes "
+        + ", ".join(line))
+    log(f"[shard] build_distributed digest (sha256 of centroids, router "
+        f"parameters, store rows, ids and offsets): " + build_digest(
+            dli.built.centroids, dli.built.classifier.model, st.data_sorted,
+            st.ids_sorted, st.offsets))
+    sd, si = dli.search(*host, n_buckets=2, k=10)
+    plan = dli._plan_search(qn_dev, 2, 10, SearchConfig(k=10, n_buckets=2))
+    with torch.no_grad():
+        probes = route_probes(routing_logits(
+            dli.built.classifier.model, qn_dev, need_mass=False)[0], 2)
+    worst = hold_shards(dli._sharded[0], probes, qf, k=plan.k_eff,
+                        compute_dtype=plan.compute_dtype,
+                        int8_queries=plan.int8_queries, pair=plan.pair,
+                        tol=DIST_TOL)
+    errs["probe_topk"] = max(errs.get("probe_topk", 0.0), worst)
+    log(f"[shard] build_distributed: probe_topk on each of its {SHARDS} "
+        f"shards (k {plan.k_eff}, 2 probes, the shard's remapped probes and "
+        f"store): equal to its plain version but for ties, max |err| "
+        f"{worst:.3g}")
+    dli.unshard()
+    fd, fi = dli.search(*host, n_buckets=2, k=10)
+    rows = equal_but_ties(si, sd, fi, fd, host[1], corpus, DIST_TOL,
+                          bf16=True)
+    log(f"[shard] build_distributed: sharded search equal to the search "
+        f"after unshard but for ties ({rows} rows differ)")
+    del dli, st
+
+    # ---- 3. the 2M hierarchical index, one group a shard ----
+    qn, qs = big["queries_nav"], big["queries_search"]
+    corpus_big = big["data_search"]
+    n_groups = hier["cfg"].n_groups
+    hm = HierarchicalIndex(hier["cfg"], device=dev)
+    nav_bf16 = HostBF16.from_float32(big["data_nav"])
+    torch.cuda.synchronize()
+    pred, build_s = hm.build_with_host_store(
+        nav_bf16, corpus_big, normalized=True, store_dtype="int8",
+        overlap_upload=True, mesh=make_mesh(devices=[dev] * n_groups))
+    del nav_bf16
+    stages = hm.last_build_stages
+    if not np.array_equal(pred, hier["pred"]):
+        raise AssertionError("the mesh build's pred differs from phase "
+                             "hier's")
+    sstore, flat = hm._sharded[0], hier["store"]
+    offsets = flat.offsets.cpu().numpy()
+    for s, sh in sstore.local():
+        lo = int(sstore.bucket_start[s])
+        hi_ = min(lo + sstore.cat_pad, flat.n_categories)
+        r0, r1 = int(offsets[lo]), int(offsets[hi_])
+        n_rows = r1 - r0
+        same = (torch.equal(sh.data_sorted[:n_rows], flat.data_sorted[r0:r1])
+                and torch.equal(sh.ids_sorted[:n_rows],
+                                flat.ids_sorted[r0:r1])
+                and torch.equal(sh.scales[:n_rows], flat.scales[r0:r1])
+                and not sh.data_sorted[n_rows:].any()
+                and bool((sh.ids_sorted[n_rows:] == -1).all()))
+        if not same:
+            raise AssertionError(f"shard {s} does not hold phase hier's "
+                                 f"rows {r0}:{r1}")
+    hm.set_outer_weight(hier["outer_weight"])
+    hm.set_mass_temp(hier["mass_temp"])
+    p = hier["p"]
+    seen = {}
+    plain_rerank = hm._rerank_host
+
+    def timed_rerank(*a, **kw):
+        t = time.perf_counter()
+        out = plain_rerank(*a, **kw)
+        seen["s"] = time.perf_counter() - t
+        return out
+
+    hm._rerank_host = timed_rerank
+    kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
+        k=10, n_buckets=p, int8_queries=True, rerank_extra=10,
+        pallas_mc=1024))
+    secs, (d, ids) = count(lambda: median_s(lambda: hm.search(qn, qs, **kw),
+                                            reps=3))
+    del hm._rerank_host
+    rows = equal_but_ties(ids, d, hier["dense"][1], hier["dense"][0], qs,
+                          corpus_big, 1e-6)
+    log(f"[shard] hierarchical {n_groups} x {sstore.cat_pad}, "
+        f"build_with_host_store(mesh={n_groups} x cuda:0) {build_s:.2f}s = "
+        f"nav {stages['nav']:.2f}s + corpus wait "
+        f"{stages['materialize_wait']:.2f}s + layout and upload "
+        f"{stages['layout_upload']:.2f}s; pred equal to phase hier's; every "
+        f"shard holds exactly its rows of phase hier's flat store")
+    log(f"[shard] hierarchical sharded search at {p} probes: recall@10 "
+        f"{recall_at_k(ids - 1, gt_big, 10):.4f}; equal to phase hier's "
+        f"unsharded search but for ties ({rows} rows differ); "
+        f"{secs:.4f}s (median of 3), rerank {seen['s']:.4f}s "
+        f"({seen['s'] / secs:.1%}); shards {sstore.nbytes() / 1e9:.3f} GB "
+        f"on the card, flat store {store_bytes(flat) / 1e9:.3f} GB; the "
+        f"index's flat layout on the host: "
+        f"{hm.built.store.data_sorted.device}")
+    qn_big = torch.as_tensor(qn, device=dev)
+    plan = hm._plan_search(qn_big, p, 10, kw["search_config"])
+    with torch.no_grad():
+        probes = route_probes(routing_logits(
+            hm.built.classifier.model, qn_big, need_mass=False)[0], p)
+    worst = hold_shards(
+        sstore, probes, l2_normalize(torch.as_tensor(qs, device=dev).float()),
+        k=plan.k_eff, compute_dtype=plan.compute_dtype,
+        int8_queries=plan.int8_queries, pair=plan.pair, tol=INT8Q_TOL)
+    errs["probe_topk_int8q_int8"] = max(
+        errs.get("probe_topk_int8q_int8", 0.0), worst)
+    log(f"[shard] hierarchical: probe_topk_int8q_int8 on each of the "
+        f"{n_groups} shards (k {plan.k_eff}, {p} probes, the shard's "
+        f"remapped probes and store): equal to its plain version but for "
+        f"ties, max |err| {worst:.3g}")
+    del qn_big, probes
+    ckpt = os.path.join(cache, "hier_mesh_ckpt")
+    t = time.perf_counter()
+    hm.save(ckpt)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = HierarchicalIndex.load(ckpt, device=dev)
+    load_s = time.perf_counter() - t
+    back.attach_host_corpus(hm._host_corpus[0])
+    bd, bi = back.search(qn, qs, **kw)
+    rows = equal_but_ties(bi, bd, ids, d, qs, corpus_big, 1e-6)
+    log(f"[shard] the mesh-built index saved in {save_s:.2f}s and loaded "
+        f"flat on one card in {load_s:.2f}s: search equal but for ties "
+        f"({rows} rows differ)")
+    del hm, back, sstore, flat
+
+    # ---- every kernel of the sharded path launched ----
+    for kname in ("probe_topk", "probe_topk_quant_int8",
+                  "probe_topk_int8q_int8", "probe_pair"):
+        if not path.get(kname, 0) > 0:
+            raise AssertionError(f"the sharded searches launched no {kname}")
+    log(f"[shard] launches of the sharded searches "
+        f"{({n: c for n, c in path.items() if c})}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s before the process groups")
+
+    # ---- 4. the process groups, in child processes ----
+    run_children()
+    return path
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_children():
+    """One NCCL rank, and two gloo ranks that share the card, as child
+    processes of this script (`child`), all at once. Each must exit 0 and
+    print its OK line; the gloo ranks' losses and parameter hashes must be
+    equal."""
+    t = time.perf_counter()
+    gloo_port, nccl_port = _free_port(), _free_port()
+    jobs = [("nccl", 0, 1, nccl_port), ("gloo", 0, 2, gloo_port),
+            ("gloo", 1, 2, gloo_port)]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--child", backend, str(rank), str(world),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for backend, rank, world, port in jobs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    oks = []
+    for (backend, rank, world, _), p, out in zip(jobs, procs, outs):
+        ok = [line for line in out.splitlines() if line.startswith("OK ")]
+        if p.returncode != 0 or len(ok) != 1:
+            raise AssertionError(f"the {backend} rank {rank} of {world} "
+                                 f"failed (exit {p.returncode}):\n"
+                                 f"{out[-3000:]}")
+        oks.append(dict(kv.split("=", 1) for kv in ok[0].split()[1:]))
+        log(f"[shard] child {ok[0]}")
+    for key in ("loss", "params"):
+        if oks[1][key] != oks[2][key]:
+            raise AssertionError(f"the gloo ranks are not in lockstep: "
+                                 f"{key} {oks[1][key]} != {oks[2][key]}")
+    log(f"[shard] process groups: one NCCL rank, two gloo ranks sharing "
+        f"the card in lockstep (loss and parameter hash equal); "
+        f"{time.perf_counter() - t:.1f}s")
+
+
+def child(args) -> int:
+    """A process-group rank on cuda:0: ``--child BACKEND RANK WORLD
+    PORT``. A data-parallel train step over a mesh of 2 entries a rank (3
+    steps; with nccl also run before the group is joined, and the params
+    must be equal to the bit), then the sharded search over a store that
+    each rank lands only its own shards of, from the host layout, on the
+    xla scan and the kernels, equal to the exact expectation on the host.
+    Prints ``OK backend= rank= loss= params=``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from tpulmi_torch.hoststore import layout_host_store
+    from tpulmi_torch.models.mlp import make_model
+    from tpulmi_torch.parallel import (init_distributed, make_dp_train_step,
+                                       make_mesh, shard_store_from_host,
+                                       sharded_probe_search)
+
+    backend, rank, world, port = args[0], int(args[1]), int(args[2]), args[3]
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+
+    def train():
+        mesh = make_mesh(axis_names=("data",), devices=[dev, dev])
+        step = make_dp_train_step(make_model(
+            "MLP-5", 8, 6, generator=torch.Generator().manual_seed(0)), 1e-2,
+            mesh)
+        rng = np.random.default_rng(0)
+        for _ in range(3):
+            xb = rng.normal(size=(4 * mesh.size, 8)).astype(np.float32)
+            loss = float(step(xb, rng.integers(0, 6, size=4 * mesh.size)))
+        h = hashlib.sha256()
+        for v in step.model.state_dict().values():
+            h.update(v.cpu().numpy().tobytes())
+        return loss, h.hexdigest()[:16]
+
+    alone = train() if backend == "nccl" else None
+    if init_distributed(backend, f"tcp://localhost:{port}", world,
+                        rank) != rank:
+        raise AssertionError("init_distributed returned another rank")
+    loss, params = train()
+    if alone is not None and alone != (loss, params):
+        raise AssertionError(f"one NCCL rank changed the step: {alone} != "
+                             f"{(loss, params)}")
+
+    rng = np.random.default_rng(1)
+    n, d, q, k = 20_000, 64, 256, 10
+    mesh = make_mesh(devices=[dev, dev])
+    n_cat = 4 * mesh.size
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    labels = rng.integers(0, n_cat, size=n).astype(np.int32)
+    arrays = layout_host_store(labels, data, n_cat, row_align=128,
+                               store_dtype="float32", normalized=True)
+    sstore = shard_store_from_host(arrays, mesh, slab_rows=4096)
+    if [s for s, _ in sstore.local()] != mesh.local_entries() or sum(
+            st is None for st in sstore.shards) != 2 * (world - 1):
+        raise AssertionError("a rank landed shards it does not own")
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    probes = np.stack([rng.permutation(n_cat)[:3] for _ in range(q)]
+                      ).astype(np.int32)
+    want = np.empty((q, k), np.float32)
+    for i in range(q):
+        want[i] = np.sort(1.0 - data[np.isin(labels, probes[i])]
+                          @ queries[i])[:k]
+    for be in ("xla", "cuda"):
+        dists, _ = sharded_probe_search(probes, queries, sstore, mesh, k=k,
+                                        backend=be)
+        gap = float(np.abs(dists.cpu().numpy() - want).max())
+        if not gap <= 1e-5:
+            raise AssertionError(f"{be}: {gap} from the host expectation")
+    torch.distributed.destroy_process_group()
+    print(f"OK backend={backend} rank={rank} world={world} loss={loss.hex()}"
+          f" params={params}", flush=True)
+    return 0
 
 
 def phase_prune(index, stores, ds, dev):
@@ -2408,9 +2882,11 @@ def main(args) -> int:
     # the 2M corpus of the hoststore phase serves the hier phase too
     with tempfile.TemporaryDirectory() as cache:
         big, gt_big = phase_hoststore(index, ds, dev, gt, cache)
-        phase_hier(index, ds, dev, gt, big, gt_big, cache, name,
-                   kernel_errs)
-        del big
+        _, hier = phase_hier(index, ds, dev, gt, big, gt_big, cache, name,
+                             kernel_errs)
+        phase_shard(index, stores, ds, dev, gt, big, gt_big, hier, cache,
+                    kernel_errs)
+        del big, hier
     phase_prune(index, stores, ds, dev)
     timing = phase_timing(index, stores, ds, dev, name)
     phase_timing_skewed(dev)
@@ -2454,4 +2930,6 @@ def main(args) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

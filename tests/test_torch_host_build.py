@@ -82,7 +82,7 @@ def test_host_store_to_built_equals_reference(use_ref_native, ds, built,
     assert (got.n, got.pad_rows, got.row_align, got.quant_bits) == (
         want.n, want.pad_rows, want.row_align, want.quant_bits)
     assert got.dim == want.dim and got.is_quantized == want.is_quantized
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         li._host_store_to_built(pred, data, CFG["n_categories"],
                                 store_dtype=store_dtype, normalized=True,
                                 overlap_upload=overlap, mesh=object())
@@ -123,7 +123,7 @@ def test_host_store_build_equals_build(ds, built, store_dtype):
         sure = want_d[r] < want_d[r, -1] - 5e-3
         assert set(want_i[r][sure]) <= set(got_i[r]), r
     assert (got_i != want_i).mean() < 0.1
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         hli.build_with_host_store(ds["data_nav"], ds["data_search"],
                                   mesh=object())
 

@@ -48,6 +48,11 @@ scfg = SearchConfig(pallas_worklist=True, pallas_mc=128, pallas_pair=True,
 batches = [(ds["queries_nav"], ds["queries_search"])] * 3
 got = list(li.search_stream(batches, n_buckets=2, search_config=scfg))
 assert len(got) == 3 and all((g[1] == got[0][1]).all() for g in got)
+from tpulmi_torch.parallel import make_mesh
+li.shard(make_mesh(devices=[torch.device("cpu")] * 2))
+d2, ids2 = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=2,
+                     search_config=SearchConfig(int8_queries=True))
+assert (ids2 == ids).all()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpulmi")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -87,12 +92,14 @@ def test_new_sources_are_covered():
     from tpulmi_torch.ops import _kernels
 
     names = {p.name for p in (ROOT / "tpulmi_torch").rglob("*.py")}
-    assert {"serving.py", "index.py", "probe_topk.py"} <= names
+    assert {"serving.py", "index.py", "probe_topk.py", "mesh.py",
+            "sharded.py", "dist_build.py"} <= names
     sources = {p.name for p in (ROOT / "tpulmi_torch" / "csrc").glob("*.cu*")}
     assert {f"{src}.cu" for src, _ in _kernels.LIBRARIES.values()} <= sources
     assert "merge_items.cu" in sources and "probe_common.cuh" in sources
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert "def phase_serving" in smoke and "search_stream" in smoke
+    assert "def phase_shard" in smoke and "init_distributed" in smoke
 
 
 def test_default_device_without_card_raises(monkeypatch):

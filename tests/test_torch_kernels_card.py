@@ -960,3 +960,75 @@ def test_int8q_kernels_on_a_488_bucket_store(store_488, variant):
     if "pair" in variant:
         assert after["probe_pair"] > before["probe_pair"]
     assert bool((got[1] >= 0).any())
+
+
+# ------------------------------------------------ several shards on one card
+SHARDED = {"K1": dict(), "K6": dict(pallas_pair=True),
+           "K2": dict(rerank=False), "K3": dict(rerank=False,
+                                                int8_queries=True)}
+
+
+@pytest.fixture(scope="module")
+def sharded_data():
+    return _hier_data(n=30_000)
+
+
+@pytest.mark.parametrize("kernel", list(SHARDED))
+def test_sharded_search_equals_flat_on_card(card, sharded_data, kernel):
+    """4 shards of one card (a mesh listing cuda:0 four times): the
+    sharded search runs the kernel on each shard and equals the flat
+    search, distances to the bit (each row is scored as in the flat
+    store), ids but for ties; K2 and K3 on the int8 store."""
+    from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
+    from tpulmi_torch.parallel import make_mesh
+
+    ds = sharded_data
+    li = LearnedIndex(IndexConfig(n_categories=48, epochs=3,
+                                  batch_size=1024, row_align=256),
+                      device=card)
+    li.build(ds["data_nav"], ds["data_search"])
+    if kernel in ("K2", "K3"):
+        li.quantize(host_corpus=ds["data_search"])
+    q = (ds["queries_nav"], ds["queries_search"])
+    scfg = SearchConfig(**SHARDED[kernel])
+    want_d, want_i = li.search(*q, n_buckets=3, search_config=scfg)
+    li.shard(make_mesh(devices=[card] * 4))
+    assert li._sharded[0].cat_pad == 12
+    before = dict(launch_counts())
+    got_d, got_i = li.search(*q, n_buckets=3, search_config=scfg)
+    name = {"K1": "probe_topk", "K6": "probe_pair",
+            "K2": "probe_topk_quant_int8",
+            "K3": "probe_topk_int8q_int8"}[kernel]
+    assert launch_counts()[name] >= before[name] + 4   # once a shard
+    np.testing.assert_array_equal(got_d, want_d)
+    apart = _apart(want_d, 0.0)
+    apart[:, -1] = False
+    np.testing.assert_array_equal(got_i[apart], want_i[apart])
+
+
+def test_mesh_built_index_keeps_no_flat_copy_on_card(card, sharded_data):
+    """build_with_host_store(mesh=4 x cuda:0): the flat store stays on the
+    host; the card holds the shards (and the small router), nothing the
+    size of the flat store."""
+    from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
+    from tpulmi_torch.parallel import make_mesh
+
+    ds = sharded_data
+    li = LearnedIndex(IndexConfig(n_categories=48, epochs=3,
+                                  batch_size=1024, row_align=256),
+                      device=card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    li.build_with_host_store(ds["data_nav"], ds["data_search"],
+                             store_dtype="int8",
+                             mesh=make_mesh(devices=[card] * 4))
+    torch.cuda.synchronize()
+    st, sstore = li.built.store, li._sharded[0]
+    assert all(t.device.type == "cpu" for t in (
+        st.data_sorted, st.ids_sorted, st.offsets, st.counts, st.scales))
+    assert all(s.device.type == "cuda" for _, s in sstore.local())
+    flat = st.data_sorted.numel() + 8 * st.ids_sorted.numel()
+    assert torch.cuda.memory_allocated() - base < sstore.nbytes() + flat // 4
+    d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=3,
+                       search_config=SearchConfig(int8_queries=True))
+    assert d.shape == (500, 10) and np.isfinite(d).all()

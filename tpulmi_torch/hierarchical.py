@@ -358,7 +358,9 @@ class HierarchicalIndex(LearnedIndex):
                               overlap_upload: bool = False, mesh=None
                               ) -> Tuple[np.ndarray, float]:
         """`LearnedIndex.build_with_host_store` over G*C buckets with this
-        index's navigation stages, then the calibration."""
+        index's navigation stages, then the calibration. A ``mesh`` of G
+        entries places one group per shard (``cat_pad == C``): the
+        configuration whose store no single card holds."""
         out = super().build_with_host_store(
             data_nav, data_search_host, normalized=normalized,
             store_dtype=store_dtype, overlap_upload=overlap_upload,
@@ -543,7 +545,8 @@ class HierarchicalIndex(LearnedIndex):
                ) -> Tuple[np.ndarray, np.ndarray]:
         """The flat search over the joint router's top `n_buckets` global
         buckets; ``n_groups`` multiplies the budget (``n_groups *
-        n_buckets`` probes), the staged two-level reading of it."""
+        n_buckets`` probes), the staged two-level reading of it. A sharded
+        index searches its shards."""
         if n_groups:
             n_buckets = n_groups * n_buckets
         return super().search(queries_nav, queries_search,

@@ -16,6 +16,13 @@
 - ``build_with_host_store(data_nav, data_search_host, ...)``: the build for
   corpora whose store is laid out on the host (`tpulmi_torch.hoststore`)
   and copied to the card in slabs; the navigation stages are `build`'s.
+- ``shard(mesh)`` / ``unshard()``: cut the store into contiguous bucket
+  ranges over a mesh (`tpulmi_torch.parallel`); `search` and
+  `search_stream` then probe every shard and merge the shards' partials.
+  ``build_distributed(data_nav, data_search, mesh)`` runs the navigation
+  stages data-parallel over a mesh and shards the store after;
+  ``build_with_host_store(..., mesh=...)`` lands the host layout shard by
+  shard, never whole on one device.
 - ``compute_bounds()``: per-bucket bounds for the threshold prune of the
   ``backend="xla"`` scan (``SearchConfig.prune_after``).
 - ``save`` / ``load``: ``state.npz`` (numpy, no pickle) and ``meta.json``;
@@ -50,6 +57,7 @@ from tpulmi_torch.native import native_layout
 from tpulmi_torch.ops.distance import SENTINEL_DIST, l2_normalize
 from tpulmi_torch.ops import probe_topk as probe
 from tpulmi_torch.ops.kmeans import kmeans
+from tpulmi_torch.parallel.mesh import Mesh, check_mesh, make_mesh
 from tpulmi_torch.search import (make_search_program, route_probes,
                                  routing_logits, size_class)
 from tpulmi_torch.serving import QueryStager
@@ -130,14 +138,18 @@ class LearnedIndex:
         # (Q, n_buckets) -> worklist length of the probe kernel; -1 = the
         # worklist is off for this shape (its scratch would be too large)
         self._wl_pads = {}
-        # (Q, n_buckets) shapes that `search` has answered: `search_stream`
-        # dispatches only these ahead
+        # the pad keys (below) of the shapes that `search` has answered:
+        # `search_stream` dispatches only these ahead
         self._warm_shapes = set()
+        # (ShardedBucketStore, Mesh) once `shard` has cut the store; None
+        # searches the flat store
+        self._sharded = None
         # (host corpus, normalized) for the exact rerank of a quantized store
         self._host_corpus = None
         self._rerank_meta = None     # a restored checkpoint's rerank contract
         self._rerank_shadow = None   # (corpus, its float16 copy)
-        # (Q, n_buckets) -> slots per bucket the xla scan was sized for
+        # pad key -> slots per bucket the xla scan was sized for; the key is
+        # (Q, n_buckets), or ("sharded", Q, n_buckets) on a sharded store
         self._qpb_pads = {}
         # rows the xla scan streamed, and would have streamed unpruned, in
         # the last search that counts them (pruning, or probe_mass on xla);
@@ -198,10 +210,12 @@ class LearnedIndex:
                                    mx))
         return pred.cpu().numpy(), build_time
 
-    def _set_built(self, built: BuiltIndex) -> None:
-        """Install a new build; the search programs made for an earlier one
-        hold its router and are dropped."""
+    def _set_built(self, built: BuiltIndex, sharded=None) -> None:
+        """Install a new build and its shards (None: search the flat
+        store); the search programs made for an earlier one hold its router
+        and are dropped, and so are its shards."""
         self.built = built
+        self._sharded = sharded
         self._search_programs = {}
 
     def _build_fused(self, data_nav, data_search, n_categories, epochs, lr,
@@ -262,14 +276,15 @@ class LearnedIndex:
         ``overlap_upload=True`` copies finished slabs of the store while
         the layout writes its tail (`hoststore.layout_and_upload`).
 
-        ``mesh`` (a store sharded over several cards) is not ported yet
-        (ROADMAP.md A7) and raises. Returns (pred_categories, seconds);
-        the seconds of each stage are kept in ``self.last_build_stages``."""
+        ``mesh`` (a `tpulmi_torch.parallel.Mesh`): the layout is copied
+        shard by shard straight to the mesh's devices
+        (`shard_store_from_host`) and `search` runs sharded; the flat store
+        is never resident on one device, and ``built.store`` holds the host
+        layout as CPU tensors, as metadata and as the checkpoint's source
+        only. Returns (pred_categories, seconds); the seconds of each stage
+        are kept in ``self.last_build_stages``."""
         if mesh is not None:
-            raise NotImplementedError(
-                "build_with_host_store(mesh=...) shards the store over "
-                "several cards: not ported to tpulmi_torch yet "
-                "(ROADMAP.md A7)")
+            check_mesh(mesh)
         cfg = self.config
         start = time.perf_counter()
         # the memory map -> RAM copy of the corpus runs beside the
@@ -293,6 +308,11 @@ class LearnedIndex:
         store, arrays, data_search_host = self._host_store_to_built(
             pred, data_search_host, n_categories, store_dtype=store_dtype,
             normalized=normalized, overlap_upload=overlap_upload, mesh=mesh)
+        sharded = None
+        if mesh is not None:
+            from tpulmi_torch.parallel.sharded import shard_store_from_host
+
+            sharded = (shard_store_from_host(arrays, mesh), mesh)
         t_layout = time.perf_counter() - start - t_nav
         log.info("host-store build: layout+upload %.1fs", t_layout)
         classifier.model.to(self.device)
@@ -304,7 +324,7 @@ class LearnedIndex:
         self._set_built(BuiltIndex(
             centroids.to(self.device), classifier, store,
             torch.as_tensor(pred, device=self.device), cfg,
-            int(arrays.counts.max()) if arrays.counts.size else 0))
+            int(arrays.counts.max()) if arrays.counts.size else 0), sharded)
         # keep the host corpus for the exact rerank of a quantized store. A
         # corpus that stayed on disk through the layout is copied into RAM
         # now if it fits a wider share (the store, navigation and staging
@@ -351,16 +371,31 @@ class LearnedIndex:
                              store_dtype, normalized, overlap_upload, mesh):
         """Lay the store out on the host and land it on the index's device
         (`hoststore.layout_and_upload`): one flat store. Returns (store,
-        host arrays, data_search_host). ``mesh`` (a sharded store) is not
-        ported (ROADMAP.md A7)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a host-laid-out store sharded over a mesh is not ported to "
-                "tpulmi_torch yet (ROADMAP.md A7)")
-        from tpulmi_torch.hoststore import ensure_in_ram, layout_and_upload
+        host arrays, data_search_host). With a ``mesh`` the layout stays on
+        the host: the store's tensors are CPU tensors over the host arrays,
+        and the caller copies the shards to the mesh."""
+        from tpulmi_torch.hoststore import (ensure_in_ram, host_tensor,
+                                            layout_and_upload,
+                                            layout_host_store)
 
         cfg = self.config
         data_search_host = ensure_in_ram(data_search_host)
+        if mesh is not None:
+            check_mesh(mesh)
+            arrays = layout_host_store(
+                pred, data_search_host, n_categories,
+                row_align=cfg.row_align, store_dtype=store_dtype,
+                normalized=normalized)
+            store = BucketStore(
+                data_sorted=host_tensor(arrays.data_sorted),
+                ids_sorted=host_tensor(arrays.ids_sorted),
+                offsets=host_tensor(arrays.offsets),
+                counts=host_tensor(arrays.counts), n=arrays.n,
+                pad_rows=arrays.pad_rows, row_align=arrays.row_align,
+                scales=(host_tensor(arrays.scales)
+                        if arrays.scales is not None else None),
+                quant_bits=arrays.quant_bits)
+            return store, arrays, data_search_host
         arrays, data_sorted_dev = layout_and_upload(
             pred, data_search_host, n_categories, device=self.device,
             row_align=cfg.row_align, store_dtype=store_dtype,
@@ -394,6 +429,98 @@ class LearnedIndex:
         self.built = replace(self.built, store=store)
         self._search_programs = {}
 
+    # -------------------------------------------------------- several devices
+    def build_distributed(self, data_nav, data_search=None,
+                          mesh: Optional[Mesh] = None,
+                          shard_after: bool = True
+                          ) -> Tuple[np.ndarray, float]:
+        """The data-parallel build: every navigation stage (k-means
+        subsample and Lloyd, assignment, Adam with averaged gradients,
+        predict) runs over `mesh` (axis "data"; by default every card),
+        `tpulmi_torch.parallel.dist_build`; the store is then laid out on
+        the index's device and, with `shard_after`, cut over the same mesh
+        entries so that `search` runs sharded. Returns (pred_categories,
+        seconds); the seconds of the navigation stages, the whole build's
+        and the final loss are kept in ``self.last_build_stages``."""
+        from tpulmi_torch.parallel.dist_build import dist_nav, shard_rows
+
+        cfg = self.config
+        start = time.perf_counter()
+        mesh = check_mesh(mesh if mesh is not None
+                          else make_mesh(axis_names=("data",)))
+        data_nav = np.asarray(data_nav, np.float32)
+        n, d_nav = data_nav.shape
+        n_categories = (cfg.n_categories if n >= cfg.n_categories
+                        else max(n // 5, 2))
+        shards, _ = shard_rows(data_nav, mesh)
+        result = dist_nav(
+            shards, mesh, model_type=cfg.model_type, lr=cfg.lr,
+            n_categories=n_categories, kmeans_iters=cfg.kmeans_iters,
+            kmeans_train_points=(cfg.kmeans_max_points_per_centroid
+                                 * n_categories),
+            epochs=cfg.epochs, batch_size=cfg.batch_size,
+            max_train_steps=cfg.max_train_steps, seed=cfg.seed)
+        del shards
+        pred = result.pred[:n].to(self.device)   # drop the row padding
+        t_nav, final_loss = time.perf_counter() - start, float(
+            result.losses[-1])
+        log.info("distributed build (%d mesh entries): nav stages %.1fs, "
+                 "final loss %.4f", mesh.size, t_nav, final_loss)
+        classifier = BucketClassifier(
+            d_nav, n_categories, lr=cfg.lr, model_type=cfg.model_type,
+            seed=cfg.seed, device=self.device, model=result.model)
+        store = build_bucket_store(
+            pred, l2_normalize(self._tensor(
+                data_nav if data_search is None else data_search)),
+            n_categories, row_align=cfg.row_align)
+        sync(self.device)
+        build_time = time.perf_counter() - start
+        mx, mn, mean = bucket_stats(store)
+        log.info("distributed build: N=%d buckets=%d size max/mean/min="
+                 "%d/%.0f/%d; %.1fs", store.n, n_categories, mx, mean, mn,
+                 build_time)
+        self.last_build_stages = {"nav": t_nav, "total": build_time,
+                                  "final_loss": final_loss}
+        self._set_built(BuiltIndex(result.centroids.to(self.device),
+                                   classifier, store, pred, cfg, mx))
+        if shard_after:
+            self.shard(replace(mesh, axis_names=("buckets",)))
+        return pred.cpu().numpy(), build_time
+
+    def shard(self, mesh: Optional[Mesh] = None,
+              n_shards: Optional[int] = None) -> None:
+        """Cut the built store into contiguous bucket ranges over a 1-D
+        mesh (`tpulmi_torch.parallel.make_mesh`; by default the first
+        `n_shards` cards): `search` and `search_stream` then route once,
+        probe every shard on its own device and merge the shards' partial
+        top-k. The sharded search takes `SearchConfig`'s backend,
+        compute_dtype, int8_queries, pallas_pair, pallas_extract,
+        probe_mass and the rerank; it ignores pallas_worklist and
+        pallas_pool, as the JAX package's sharded program does."""
+        if self.built is None:
+            raise ValueError("Index is not built, call `build` first.")
+        from tpulmi_torch.parallel.sharded import shard_store
+
+        mesh = check_mesh(mesh if mesh is not None
+                          else make_mesh(n_shards, ("buckets",)))
+        self._sharded = (shard_store(self.built.store, mesh=mesh), mesh)
+        self._search_programs = {}
+
+    def unshard(self) -> None:
+        """Search the flat store again. The store of a mesh-built index
+        (`build_with_host_store(mesh=...)`) lies on the host: it is copied
+        whole to the index's device, which must hold it."""
+        self._sharded = None
+        self._search_programs = {}
+        store = self.built.store if self.built is not None else None
+        if store is not None and store.device.type != self.device.type:
+            moved = {name: getattr(store, name).to(self.device)
+                     for name in ("data_sorted", "ids_sorted", "offsets",
+                                  "counts", "scales", *_BOUNDS)
+                     if getattr(store, name) is not None}
+            self.built = replace(self.built,
+                                 store=replace(store, _casts={}, **moved))
+
     # --------------------------------------------------------------- quantize
     def quantize(self, host_corpus=None, normalized: bool = False,
                  bits: int = 8) -> None:
@@ -409,6 +536,10 @@ class LearnedIndex:
         self.built = replace(
             self.built, store=quantize_store(self.built.store, bits=bits))
         self._search_programs = {}
+        if self._sharded is not None:
+            # cut the quantized store anew: the full-precision shards must
+            # never be searched again (nor held beside the codes)
+            self.shard(self._sharded[1])
         if host_corpus is not None:
             self._host_corpus = (host_corpus, normalized)
 
@@ -560,7 +691,7 @@ class LearnedIndex:
         plan = self._plan_search(queries_nav, n_buckets, k, scfg)
         while True:
             program = self._dispatch_program(plan, n_buckets, scfg)
-            out = program(queries_nav, queries_search, self.built.store)
+            out = program(queries_nav, queries_search, self._search_store())
             status = self._absorb_result(plan, n_buckets,
                                          self._fetch_result(out, plan))
             if status != "retry":
@@ -569,6 +700,11 @@ class LearnedIndex:
         return self._finalize(dists, ids, plan, k, scfg, queries_search,
                               queries_search_host)
 
+    def _search_store(self):
+        """What a search program reads: the shards, or the flat store."""
+        return self._sharded[0] if self._sharded is not None \
+            else self.built.store
+
     def _plan_search(self, queries_nav, n_buckets: int, k: int,
                      scfg: SearchConfig) -> SimpleNamespace:
         """Resolve the static decisions of one probe search into a mutable
@@ -576,7 +712,9 @@ class LearnedIndex:
         `search_stream` (which dispatches ahead of the fetch): backend,
         compute dtype, rerank depth, the probe kernel's configuration
         (rerank pool, tile height, worklist length), and the xla scan's
-        padding classes and pruning."""
+        padding classes and pruning. On a sharded store the decisions are
+        taken on a shard (every shard has the flat store's width, codes
+        and row_align), and the worklist and the pool are not taken."""
         if scfg.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {scfg.compute_dtype!r}")
         if scfg.pallas_extract not in _EXTRACT_MODES:
@@ -585,16 +723,17 @@ class LearnedIndex:
             raise ValueError(
                 "the rerank pool (pallas_pool) needs a harvesting "
                 "pallas_extract ('group'/'group2'), as in the JAX package")
+        sharded = self._sharded is not None
+        store = (next(st for _, st in self._sharded[0].local()) if sharded
+                 else self.built.store)
         compute_dtype = _DTYPES[scfg.compute_dtype]
         backend = scfg.backend
         if backend == "auto":
             # a store on the card is always searched by the kernel, which
             # raises on what it does not take
-            backend = ("cuda" if self.built.store.device.type == "cuda"
-                       else "torch")
+            backend = "cuda" if store.device.type == "cuda" else "torch"
         elif backend not in ("cuda", "torch", "xla"):
             raise ValueError(f"unknown backend {backend!r}")
-        store = self.built.store
         quantized = bool(getattr(store, "is_quantized", False))
         # a quantized store with a host corpus attached: fetch extra
         # candidates and rerank them at full precision on the host
@@ -603,24 +742,26 @@ class LearnedIndex:
         k_eff = k + self._resolve_rerank_extra(scfg) if rerank else k
         # rerank pool: the kernel keeps an exact top-k, the pool supplies
         # the rerank extras
-        pool_k = k if (scfg.pallas_pool and rerank and k_eff > k) else 0
+        pool_k = k if (scfg.pallas_pool and rerank and k_eff > k
+                       and not sharded) else 0
         int8_queries = scfg.int8_queries and quantized
         pair = scfg.pallas_pair and probe.resolve_tiling(
-            True, k=pool_k or k_eff, pool=bool(pool_k), device=self.device,
+            True, k=pool_k or k_eff, pool=bool(pool_k), device=store.device,
             query_bytes=1 if int8_queries else compute_dtype.itemsize,
             code_bits=store.quant_bits if quantized else 0, d=store.dim)
         q = int(queries_nav.shape[0])
         plan = SimpleNamespace(
             q=q, backend=backend, compute_dtype=compute_dtype, k=k,
             rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair, wl_pad=0,
-            item_rows=scfg.pallas_mc,
+            item_rows=scfg.pallas_mc, sharded=sharded,
+            pad_key=("sharded", q, n_buckets) if sharded else (q, n_buckets),
             int8_queries=int8_queries, pruning=False, want_stats=False)
         if backend == "xla":
             self._plan_xla(plan, store, n_buckets, scfg)
             return plan
         # the worklist: sized from this batch's routing at a shape's first
         # use (one more routing pass and a host read), then cached
-        if scfg.pallas_worklist:
+        if scfg.pallas_worklist and not sharded:
             wl_pad = self._wl_pads.get((q, n_buckets))
             if wl_pad is None:
                 wl_pad = self._estimate_wl_pad(queries_nav, n_buckets, scfg,
@@ -644,11 +785,14 @@ class LearnedIndex:
                               int(store.data_sorted.shape[0]))
         plan.max_chunks = max(-(-max_bucket // plan.data_chunk), 1)
         plan.qpb_pad = scfg.queries_per_bucket_pad or self._qpb_pads.get(
-            (plan.q, n_buckets), size_class(min(
-                n_slots, max(4 * n_slots // store.n_categories, 128))))
+            plan.pad_key, size_class(min(n_slots, max(
+                4 * n_slots // self.built.store.n_categories, 128))))
+        # the sharded scan does not prune (nor does the JAX package's)
         plan.pruning = (scfg.prune_after > 0 and store.has_bounds
-                        and n_buckets > scfg.prune_after)
-        plan.want_stats = plan.pruning or scfg.probe_mass is not None
+                        and n_buckets > scfg.prune_after
+                        and not plan.sharded)
+        plan.want_stats = ((plan.pruning or scfg.probe_mass is not None)
+                           and not plan.sharded)
         if scfg.prune_eps is not None:
             plan.prune_eps = float(scfg.prune_eps)
         elif scfg.compute_dtype == "bfloat16":
@@ -702,7 +846,8 @@ class LearnedIndex:
         whole query chunks in place."""
         key = (plan.backend, n_buckets, plan.k_eff, plan.compute_dtype,
                scfg.probe_mass, scfg.fetch_dtype, plan.int8_queries,
-               plan.pool_k, plan.pair, plan.wl_pad, plan.item_rows)
+               plan.pool_k, plan.pair, plan.wl_pad, plan.item_rows,
+               plan.sharded)
         xla = {}
         if plan.backend == "xla":
             query_chunk = min(scfg.query_chunk, plan.qpb_pad)
@@ -713,7 +858,20 @@ class LearnedIndex:
                        prune_eps=plan.prune_eps)
             key += tuple(xla.values())
         program = self._search_programs.get(key)
-        if program is None:
+        if program is not None:
+            return program
+        if plan.sharded:
+            from tpulmi_torch.parallel.sharded import (
+                make_sharded_search_program)
+
+            for name in ("prune_after", "prune_eps"):
+                xla.pop(name, None)
+            program = make_sharded_search_program(
+                self.built.classifier.model, self._sharded[1], k=plan.k_eff,
+                n_buckets=n_buckets, compute_dtype=plan.compute_dtype,
+                backend=plan.backend, probe_mass=scfg.probe_mass,
+                int8_queries=plan.int8_queries, pair=plan.pair, **xla)
+        else:
             program = make_search_program(
                 self.built.classifier.model, k=plan.k_eff, n_buckets=n_buckets,
                 compute_dtype=plan.compute_dtype, backend=plan.backend,
@@ -723,7 +881,7 @@ class LearnedIndex:
                 int8_queries=plan.int8_queries, pool_k=plan.pool_k,
                 pair=plan.pair, wl_pad=plan.wl_pad, item_rows=plan.item_rows,
                 **xla)
-            self._search_programs[key] = program
+        self._search_programs[key] = program
         return program
 
     def _fetch_result(self, out, plan):
@@ -756,9 +914,9 @@ class LearnedIndex:
             if max_slots > plan.qpb_pad:
                 plan.qpb_pad = size_class(max_slots)
                 return "retry"
-            self._qpb_pads[(plan.q, n_buckets)] = plan.qpb_pad
+            self._qpb_pads[plan.pad_key] = plan.qpb_pad
         self.last_max_slots = max_slots
-        self._warm_shapes.add((plan.q, n_buckets))
+        self._warm_shapes.add(plan.pad_key)
         return dists, ids
 
     def _finalize(self, dists, ids, plan, k: int, scfg: SearchConfig,
@@ -800,12 +958,15 @@ class LearnedIndex:
         overflows in flight redoes that one batch through `search` on the
         caller's thread. ``overlap_finalize`` runs `_finalize`, and with it
         the exact rerank, on one worker thread, so batch i's rerank runs
-        beside batch i+1's fetch; the single worker keeps the order."""
+        beside batch i+1's fetch; the single worker keeps the order. A
+        sharded index (`shard`) dispatches ahead the same way through its
+        sharded program."""
         if self.built is None:
             raise ValueError("Index is not built, call `build` first.")
         scfg = search_config or SearchConfig(k=k, n_buckets=n_buckets)
         nb = min(n_buckets, self.built.store.n_categories)
-        store = self.built.store
+        store = self._search_store()
+        sharded = self._sharded is not None
         pending = deque()   # dispatched batches, at most `depth`
         results = deque()   # finalize futures in order, at most 2
         executor = ThreadPoolExecutor(max_workers=1) if overlap_finalize \
@@ -847,8 +1008,9 @@ class LearnedIndex:
                 qn, qs, qh = unpack(batch)
                 q = int(np.shape(qn)[0])
                 if ((scfg.batch_queries and q > scfg.batch_queries)
-                        or (q, nb) not in self._warm_shapes
-                        or (scfg.pallas_worklist
+                        or (("sharded", q, nb) if sharded else (q, nb))
+                        not in self._warm_shapes
+                        or (scfg.pallas_worklist and not sharded
                             and (q, nb) not in self._wl_pads)):
                     # drain so that results stay in order, then answer
                     # this batch through `search`

@@ -103,14 +103,32 @@ result line.
              rank and two gloo ranks sharing the card, in child
              processes (`--child`): data-parallel steps in lockstep and
              the sharded search equal to the host's exact answer;
-9. prune   - SearchConfig(backend="xla", prune_after=1) against the
+9. baseline - the exact oracle streamed from host memory over phase
+             hoststore's 2M x 768 bfloat16 corpus (exact_knn_streamed,
+             blocks of 262144 rows, 10k queries): in bfloat16 and in
+             float32, each equal to an oracle on the card but for ties,
+             seconds and host-to-card GB/s; a resumable pass interrupted
+             after its 5th block, resumed at row 4 x 262144 and equal to
+             the uninterrupted pass to the bit; Baseline on the main data;
+             one block's product (also under TF32), top-k and merge timed;
+10. prune  - SearchConfig(backend="xla", prune_after=1) against the
              unpruned xla scan at 7 probes, to the bit, in float32 and
              bfloat16 on the main index after compute_bounds, on its int8
              store, and on an index of tight clusters (cluster_std 0.3),
              where rows must be skipped; rows scanned of nominal and ms
              of each; the scan's ids equal to the kernel's outside ties,
              and no kernel launched by it;
-10. timing - each kernel, its plain version and one library call for the
+11. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
+             configuration at 1, 2 and 3 probes, equal to the main index's
+             searches and recalls (cli.main in this process, the result
+             writer replaced so that no h5py is needed); cli.run with an int8
+             store, the worklist and the 128-row tile (K2, K4, K6
+             launched), equal to the main index quantized the same way,
+             and its baseline index type; run_sweep crashed after one
+             learning rate and resumed (one new row); train_lr_sweep over
+             four learning rates beside one single-lr run, its first 20
+             steps equal to BucketClassifier's; one search inside trace;
+12. timing - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -154,6 +172,7 @@ N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
 BIG_N = 2_000_000   # rows of the host-store phase's realistic size
 SHARDS = 4          # shards of the 300K index in phase shard, on one card
 OWN_ROWS = 16_384   # slots whose distances are recomputed at once
+STREAM_CHUNK = 262_144   # rows of a block of the streamed ground truth
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -2421,6 +2440,387 @@ def phase_prune(index, stores, ds, dev):
     log("[prune] the xla scans launched no probe kernel")
 
 
+def phase_baseline(ds, dev, gt, big, gt_big):
+    """The exact oracle streamed from host memory (the JAX package's
+    ground-truth pass of its 10M-40M runs) over the hoststore phase's 2M x
+    768 bfloat16 corpus and 10k queries, in blocks of STREAM_CHUNK rows:
+    in bfloat16 (ids equal to a bf16-input oracle's but for ties) and in
+    float32 (equal to the float32 oracle's but for ties); a resumable pass
+    with a checkpoint every 2 blocks, interrupted after its 5th block,
+    resumed at row 4 x STREAM_CHUNK and equal to the uninterrupted bfloat16
+    pass to the bit; `Baseline` on the main data against its oracle; one
+    block's float32 product (and under TF32), top-k and merge, timed."""
+    import logging
+    import os
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import Baseline
+    from tpulmi_torch.baseline import exact_knn_streamed
+
+    corpus, qs = big["data_search"], big["queries_search"]
+    n = corpus.shape[0]
+    nbytes = corpus.nbytes
+
+    def stream(host=corpus, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, i = exact_knn_streamed(qs, host, k=10, chunk=STREAM_CHUNK,
+                                  device=dev, **kw)
+        secs = time.perf_counter() - t
+        if d.shape != (N_QUERIES, 10) or not np.isfinite(d).all():
+            raise AssertionError(f"bad streamed result {d.shape}")
+        return d, i, secs
+
+    d16, i16, s16 = stream()
+    t = time.perf_counter()
+    gt16 = exact_ids(qs, corpus.bits, dev, bf16_inputs=True)
+    oracle_s = time.perf_counter() - t
+    rows16 = equal_but_ties(i16 + 1, d16, gt16 + 1, d16, qs, corpus, 1e-5,
+                            bf16=True)
+    log(f"[baseline] exact_knn_streamed, {n} x {D_SEARCH} bfloat16 host "
+        f"corpus, {N_QUERIES} queries, blocks of {STREAM_CHUNK}, bfloat16 "
+        f"products summed in float32: {s16:.2f}s = {nbytes / s16 / 1e9:.2f}"
+        f" GB/s host to card; ids equal to a bf16-input oracle's "
+        f"({oracle_s:.2f}s) but for ties ({rows16} rows differ)")
+    d32, i32, s32 = stream(compute_dtype=torch.float32)
+    rows32 = equal_but_ties(i32 + 1, d32, gt_big + 1, d32, qs, corpus, 1e-5)
+    log(f"[baseline] the same in float32: {s32:.2f}s = "
+        f"{nbytes / s32 / 1e9:.2f} GB/s; ids equal to the float32 oracle's "
+        f"but for ties ({rows32} rows differ)")
+
+    class Interrupted:
+        """The corpus, failing when a block from row `stop` on is read."""
+
+        def __init__(self, arr, stop):
+            self.arr, self.stop, self.shape = arr, stop, arr.shape
+
+        def __getitem__(self, idx):
+            if isinstance(idx, slice) and (idx.start or 0) >= self.stop:
+                raise RuntimeError("injected failure")
+            return self.arr[idx]
+
+    resumed = []
+
+    class Resumed(logging.Handler):
+        def emit(self, record):
+            if "resuming" in record.getMessage():
+                resumed.append(record.getMessage())
+
+    handler = Resumed()
+    logging.getLogger("tpulmi_torch.baseline").addHandler(handler)
+    with tempfile.TemporaryDirectory() as tmp:
+        part = os.path.join(tmp, "gt.part")
+        t = time.perf_counter()
+        try:
+            stream(Interrupted(corpus, 5 * STREAM_CHUNK), resume_path=part,
+                   checkpoint_every=2)
+            raise AssertionError("the interrupted pass did not fail")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        fail_s = time.perf_counter() - t
+        with np.load(part) as z:
+            lo = int(z["lo"])
+        dr, ir, sr = stream(resume_path=part, checkpoint_every=2)
+    logging.getLogger("tpulmi_torch.baseline").removeHandler(handler)
+    if lo != 4 * STREAM_CHUNK or len(resumed) != 1 or \
+            f"at {lo}/" not in resumed[0]:
+        raise AssertionError(f"resumed at {lo} ({resumed}), not at "
+                             f"{4 * STREAM_CHUNK}")
+    if not (np.array_equal(dr, d16) and np.array_equal(ir, i16)):
+        raise AssertionError("the resumed pass differs from the "
+                             "uninterrupted one")
+    log(f"[baseline] resumable pass, a checkpoint every 2 blocks, failed "
+        f"after its 5th block in {fail_s:.2f}s; rerun {resumed[0]!r} in "
+        f"{sr:.2f}s = {(n - lo) * D_SEARCH * 2 / sr / 1e9:.2f} GB/s; equal "
+        f"to the uninterrupted pass to the bit")
+
+    base = Baseline(device=dev)
+    build_s = base.build(ds["data_search"])
+    bd, bi, search_s = base.search(ds["queries_search"], k=10)
+    rows = equal_but_ties(bi, bd, gt + 1, bd, ds["queries_search"],
+                          ds["data_search"], 1e-5)
+    log(f"[baseline] Baseline on the main data ({N} x {D_SEARCH}): build "
+        f"{build_s:.3f}s, search {search_s:.3f}s; 1-based ids equal to the "
+        f"oracle's but for ties ({rows} rows differ)")
+    del base
+
+    # one block's device work by step (CUDA events, mean of 3), and what
+    # TF32 would save and cost on the float32 product
+    from tpulmi_torch.baseline import _block_topk, _merge_block
+
+    q16 = torch.as_tensor(qs, device=dev).to(torch.bfloat16)
+    block = torch.from_numpy(np.ascontiguousarray(
+        corpus.bits[:STREAM_CHUNK]).view(np.int16)).to(dev).view(
+            torch.bfloat16)
+    qf, bf = q16.float(), block.float()
+    prod_ms = cuda_ms(lambda: qf @ bf.T, 3)
+    exact = qf @ bf.T
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_ms = cuda_ms(lambda: qf @ bf.T, 3)
+        tf32_err = float(((qf @ bf.T) - exact).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    dists = exact.neg_().add_(1.0)
+    ids = torch.arange(STREAM_CHUNK, dtype=torch.int32, device=dev).expand(
+        qs.shape[0], -1)
+    topk_ms = cuda_ms(lambda: _block_topk(dists, ids, 10), 3)
+    del dists, exact, ids
+    best_d = torch.full((qs.shape[0], 10), 10_000.0, device=dev)
+    best_i = torch.zeros((qs.shape[0], 10), dtype=torch.int32, device=dev)
+    merge_ms = cuda_ms(lambda: _merge_block(best_d, best_i, q16, block, 0,
+                                            STREAM_CHUNK, 10), 3)
+    blocks = -(-n // STREAM_CHUNK)
+    log(f"[baseline] one block of {STREAM_CHUNK} rows x {qs.shape[0]} "
+        f"queries on the card: float32 product {prod_ms:.2f} ms (under "
+        f"TF32 {tf32_ms:.2f} ms, {tf32_err:.2e} from the float32 one), "
+        f"running top-k of 10 with the tie rule {topk_ms:.2f} ms, the whole "
+        f"block merge {merge_ms:.2f} ms; {blocks} merges "
+        f"{blocks * merge_ms / 1e3:.2f}s of the bfloat16 pass's {s16:.2f}s")
+    del q16, block, qf, bf
+    torch.cuda.empty_cache()
+
+
+def phase_cli(index, ds, dev, gt):
+    """The experiment CLI and the sweeps on the main data, the launch
+    counts set to 0 before each part that searches and read after it:
+    (a) the command line ``--synthetic N --n-categories 122 --epochs 12
+    --lr 0.003 -bp 1 2 3`` (phase main's IndexConfig and data), whose
+    results at 1, 2 and 3 probes must be the main index's searches and
+    whose logged recalls theirs, through `cli.main` in this process with
+    its result writer (`_store`, an h5 file) replaced by one that keeps the
+    arrays, so that the check needs no h5py; (b) `cli.run` with an int8
+    store, the worklist and the 128-row tile (K2, K4, K6 launched; ids equal
+    to the main index quantized the same way under the same SearchConfig),
+    and ``index_type="baseline"`` (ids equal to the oracle's but for ties);
+    (c) `run_sweep` crashed after one learning rate and resumed with two:
+    one new row, the first row's recall the main index's (K1 launched by
+    (a) and (c)); (d) `train_lr_sweep` over four learning rates on the
+    main navigation data, every loss falling, its first 20 steps fed one
+    draw equal to a `BucketClassifier` at lr 0.003 within 1e-5, timed
+    beside one single-lr run of the same length; (e) one search inside
+    `trace`, whose Chrome trace must name the probe kernel."""
+    import copy
+    import importlib.util
+    import logging
+    import os
+    import re
+
+    import numpy as np
+    import torch
+    import tpulmi_torch.cli as cli
+    from tpulmi_torch import SearchConfig
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.models import train_lr_sweep
+    from tpulmi_torch.models.mlp import make_model
+    from tpulmi_torch.models.train import BucketClassifier
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+    from tpulmi_torch.sweep import SweepGrid, _load_done, run_sweep
+    from tpulmi_torch.utils.profiling import trace
+
+    host = (ds["queries_nav"], ds["queries_search"])
+    size = "300K"      # the SISAP size label of the main shape
+    argv = ["--synthetic", str(N), "--n-categories", str(N_CAT), "--epochs",
+            "12", "--lr", "0.003", "-bp", "1", "2", "3", "--size", size]
+    budgets = [int(b / 100 * N_CAT) for b in (1, 2, 3)]
+    want = {p: index.search(*host, n_buckets=p, k=10) for p in budgets}
+    recalls = {p: recall_at_k(want[p][1] - 1, gt, 10) for p in budgets}
+    lines, kept = [], {}
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    def keep_store(result_dir, kind, size, identifier, algo, dists, nns,
+                   build_t, search_t):
+        kept[identifier] = (dists, nns)
+
+    handler = Keep()
+    logging.getLogger("tpulmi_torch.cli").addHandler(handler)
+    plain_store = cli._store
+    cli._store = keep_store
+    try:
+        # (a) the command line
+        h5 = "is" if importlib.util.find_spec("h5py") else "is not"
+        log(f"[cli] h5py {h5} installed here; the command line runs through "
+            f"tpulmi_torch.cli.main in this process, its result writer "
+            f"(_store) replaced by one that keeps the arrays")
+        reset_launch_counts()
+        t = time.perf_counter()
+        cli.main(argv, device=dev)
+        cli_s = time.perf_counter() - t
+        k1 = launch_counts()["probe_topk"]
+        got = {int(ident.rsplit("=", 1)[1]): v for ident, v in kept.items()}
+        logged = [float(r) for r in re.findall(
+            r"recall@10 vs exact oracle: ([\d.]+)", "\n".join(lines))]
+        if sorted(got) != budgets or len(logged) != len(budgets):
+            raise AssertionError(f"the CLI wrote {sorted(kept)} and logged "
+                                 f"{logged}")
+        for p, rec in zip(budgets, logged):
+            if not (np.array_equal(got[p][1], want[p][1])
+                    and np.array_equal(got[p][0], want[p][0])):
+                raise AssertionError(f"the CLI's {p}-probe ids or distances"
+                                     f" differ from the main index's search")
+            if f"{rec:.4f}" != f"{recalls[p]:.4f}":
+                raise AssertionError(f"the CLI's recall {rec} at {p} probes"
+                                     f" is not the main index's "
+                                     f"{recalls[p]}")
+        stages = "; ".join(line for line in lines if re.match(
+            r"(data:|build time|search with)", line))
+        log(f"[cli] (a) {' '.join(argv)}: {cli_s:.1f}s ({stages}); ids and "
+            f"distances at {budgets} probes equal to the main index's "
+            f"searches, recall@10 {logged} equal to theirs; K1 launched "
+            f"{k1} times")
+        if not k1 > 0:
+            raise AssertionError("the CLI's searches launched no K1")
+
+        # (b) an int8 store with the worklist and the 128-row tile
+        kept.clear()
+        reset_launch_counts()
+        t = time.perf_counter()
+        cli.run(synthetic=N, n_categories=N_CAT, epochs=12, lr=0.003,
+                buckets_perc=[2], size=size, store_dtype="int8",
+                pallas_worklist=True, pallas_pair=True, result_dir="unused",
+                device=dev)
+        int8_s = time.perf_counter() - t
+        launched = {n: c for n, c in launch_counts().items() if c}
+        (cli_d, cli_i), = kept.values()
+        kept.clear()
+        t = time.perf_counter()
+        cli.run(synthetic=N, n_categories=N_CAT, index_type="baseline",
+                size=size, result_dir="unused", device=dev)
+        base_s = time.perf_counter() - t
+        base_d, base_i = kept["li-baseline"]
+    finally:
+        cli._store = plain_store
+        logging.getLogger("tpulmi_torch.cli").removeHandler(handler)
+    for name in ("probe_topk_quant_int8", "probe_worklist", "probe_pair"):
+        if not launched.get(name, 0) > 0:
+            raise AssertionError(f"the int8 CLI run launched no {name}: "
+                                 f"{launched}")
+    full = index.built.store
+    index.quantize(host_corpus=np.asarray(ds["data_search"], np.float32),
+                   bits=8)
+    scfg = SearchConfig(k=10, prune_after=0, backend="auto",
+                        rerank_dtype="float32", pallas_worklist=True,
+                        pallas_extract="group", pallas_pair=True,
+                        rerank_extra=10)
+    fd, fi = index.search(*host, n_buckets=budgets[1], k=10,
+                          search_config=scfg)
+    index.built.store = full
+    index._search_programs = {}
+    index._host_corpus = None
+    if not (np.array_equal(cli_i, fi) and np.array_equal(cli_d, fd)):
+        raise AssertionError("the int8 CLI run differs from the main index "
+                             "quantized the same way")
+    rows = equal_but_ties(base_i, base_d, gt + 1, base_d,
+                          ds["queries_search"], ds["data_search"], 1e-5)
+    log(f"[cli] (b) cli.run int8 store, worklist, 128-row tile, "
+        f"{budgets[1]} probes: {int8_s:.1f}s, launches {launched}; ids and "
+        f"distances equal to the main index quantized the same way, "
+        f"recall@10 {recall_at_k(cli_i - 1, gt, 10):.4f}; "
+        f"index_type=baseline {base_s:.1f}s, ids equal to the oracle's but "
+        f"for ties ({rows} rows differ)")
+
+    # (c) the sweep, crashed after one learning rate, then resumed
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweep.csv")
+        kw = dict(gt_ids=gt + 1, resume_path=path, device=dev)
+        data = (ds["data_nav"], ds["queries_nav"], ds["data_search"],
+                ds["queries_search"])
+        t = time.perf_counter()
+        first = run_sweep(*data, grid=SweepGrid(
+            lrs=(0.003,), epochs=(12,), n_categories=(N_CAT,),
+            buckets_perc=(2,)), **kw)
+        crash_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rest = run_sweep(*data, grid=SweepGrid(
+            lrs=(0.003, 0.009), epochs=(12,), n_categories=(N_CAT,),
+            buckets_perc=(2,)), **kw)
+        resume_s = time.perf_counter() - t
+        done = _load_done(path)
+    k1 = launch_counts()["probe_topk"]
+    if len(first) != 1 or len(rest) != 1 or rest[0].lr != 0.009 or \
+            len(done) != 2:
+        raise AssertionError(f"sweep rows {first} then {rest}, {done}")
+    if not abs(first[0].recall - recalls[budgets[1]]) <= 1e-9:
+        raise AssertionError(f"the sweep's recall {first[0].recall} is not "
+                             f"the main index's {recalls[budgets[1]]}")
+    if not k1 > 0:
+        raise AssertionError("the sweep's searches launched no K1")
+    log(f"[cli] (c) run_sweep with lr 0.003, then resumed with (0.003, "
+        f"0.009): {crash_s:.1f}s + {resume_s:.1f}s, one new row; recall@10 "
+        f"{first[0].recall:.4f} (the main index's {recalls[budgets[1]]:.4f})"
+        f" and {rest[0].recall:.4f} at lr 0.009; builds "
+        f"{first[0].build_s:.2f} / {rest[0].build_s:.2f}s; K1 launched {k1}"
+        f" times")
+
+    # (d) train_lr_sweep: four learning rates at once
+    X = torch.as_tensor(ds["data_nav"], device=dev)
+    y = index.built.pred_categories.to(dev)
+    lrs = (0.001, 0.003, 0.009, 0.03)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, losses = train_lr_sweep("MLP-5", X, y, lrs, epochs=12,
+                               batch_size=1024, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    losses = losses.cpu().numpy()
+    if losses.shape != (len(lrs), 12) or not (
+            losses[:, -1] < losses[:, 0]).all():
+        raise AssertionError(f"train_lr_sweep losses {losses[:, [0, -1]]}")
+    clf = BucketClassifier(D_NAV, N_CAT, lr=0.003, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    clf.train(X, y, epochs=12, batch_size=1024)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    init = make_model("MLP-5", D_NAV, N_CAT,
+                      generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    batch = min(1024, X.shape[0] // 20)
+    draw = [torch.randperm(X.shape[0], generator=gen)[:20 * batch]
+            .reshape(20, batch)]
+    stacked, _ = train_lr_sweep("MLP-5", X, y, lrs, device=dev,
+                                init_models=[copy.deepcopy(init)
+                                             for _ in lrs], batches=draw)
+    one = BucketClassifier(D_NAV, N_CAT, lr=0.003, device=dev,
+                           model=copy.deepcopy(init))
+    one.train(X, y, batches=draw)
+    with torch.no_grad():
+        err = max(max(float((stacked.weights[j][1] - layer.weight).abs()
+                            .max()),
+                      float((stacked.biases[j][1] - layer.bias).abs().max()))
+                  for j, layer in enumerate(one.model.layers))
+    if not err <= 1e-5:
+        raise AssertionError(f"20 stacked steps at lr 0.003 differ from "
+                             f"BucketClassifier's by {err}")
+    log(f"[cli] (d) train_lr_sweep, MLP-5 on {N} x {D_NAV}, lrs {lrs}, 12 "
+        f"epochs of {N // 1024} steps of 1024: {sweep_s:.2f}s; one "
+        f"BucketClassifier run of the same length {single_s:.2f}s; loss "
+        f"first / last epoch " + ", ".join(
+            f"{a:.4f} / {b:.4f}" for a, b in losses[:, [0, -1]]) + f"; 20 "
+        f"steps fed one draw equal to BucketClassifier's at lr 0.003 "
+        f"within {err:.2e}")
+
+    # (e) one search inside trace
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device=dev):
+            index.search(*host, n_buckets=2, k=10)
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as f:
+            text = f.read()
+    if "probe_kernel" not in text:
+        raise AssertionError("the trace names no probe kernel")
+    log(f"[cli] (e) trace of one search: {name}, {len(text)} bytes, names "
+        f"the probe kernel")
+
+
 def oracle(ds, dev, k=10, bf16_inputs=False):
     """Exact top-k ids (0-based) of the main data (`exact_ids`)."""
     return exact_ids(ds["queries_search"], ds["data_search"], dev, k,
@@ -2886,8 +3286,11 @@ def main(args) -> int:
                              kernel_errs)
         phase_shard(index, stores, ds, dev, gt, big, gt_big, hier, cache,
                     kernel_errs)
-        del big, hier
+        del hier
+        phase_baseline(ds, dev, gt, big, gt_big)
+        del big
     phase_prune(index, stores, ds, dev)
+    phase_cli(index, ds, dev, gt)
     timing = phase_timing(index, stores, ds, dev, name)
     phase_timing_skewed(dev)
     if "--profile" in args:

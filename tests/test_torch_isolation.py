@@ -53,6 +53,20 @@ li.shard(make_mesh(devices=[torch.device("cpu")] * 2))
 d2, ids2 = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=2,
                      search_config=SearchConfig(int8_queries=True))
 assert (ids2 == ids).all()
+import tpulmi_torch.cli, tpulmi_torch.sweep
+from tpulmi_torch import Baseline
+from tpulmi_torch.baseline import exact_knn_streamed
+from tpulmi_torch.models import train_lr_sweep
+_, gt, _ = Baseline(device="cpu").search(ds["queries_search"],
+                                         ds["data_search"])
+_, sids = exact_knn_streamed(ds["queries_search"], ds["data_search"],
+                             chunk=1024, compute_dtype=torch.float32,
+                             device="cpu")
+assert (sids + 1 == gt).mean() > 0.99
+_, losses = train_lr_sweep("MLP-7", ds["data_nav"], np.arange(3000) % 4,
+                           (0.001, 0.01), epochs=1, batch_size=512,
+                           device="cpu")
+assert losses.shape == (2, 1)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpulmi")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -93,13 +107,16 @@ def test_new_sources_are_covered():
 
     names = {p.name for p in (ROOT / "tpulmi_torch").rglob("*.py")}
     assert {"serving.py", "index.py", "probe_topk.py", "mesh.py",
-            "sharded.py", "dist_build.py"} <= names
+            "sharded.py", "dist_build.py", "baseline.py", "cli.py",
+            "sweep.py"} <= names
     sources = {p.name for p in (ROOT / "tpulmi_torch" / "csrc").glob("*.cu*")}
     assert {f"{src}.cu" for src, _ in _kernels.LIBRARIES.values()} <= sources
     assert "merge_items.cu" in sources and "probe_common.cuh" in sources
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert "def phase_serving" in smoke and "search_stream" in smoke
     assert "def phase_shard" in smoke and "init_distributed" in smoke
+    assert "def phase_baseline" in smoke and "exact_knn_streamed" in smoke
+    assert "def phase_cli" in smoke and "tpulmi_torch.cli" in smoke
 
 
 def test_default_device_without_card_raises(monkeypatch):
@@ -116,12 +133,29 @@ def test_default_device_without_card_raises(monkeypatch):
         store_from_arrays(np.zeros((4, 8), np.float32), np.arange(4),
                           [0, 4], [4], 4, 0, 1)
     assert BucketClassifier(8, 4, device="cpu").device.type == "cpu"
+    from tpulmi_torch.baseline import Baseline, exact_knn_streamed
+    from tpulmi_torch.models import train_lr_sweep
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Baseline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        exact_knn_streamed(np.zeros((2, 8), np.float32),
+                           np.zeros((16, 8), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lr_sweep("MLP", np.zeros((16, 8), np.float32),
+                       np.arange(16) % 2, (0.01,))
 
 
 def test_exports():
     assert set(tpulmi_torch.__all__) == {
-        "LearnedIndex", "HierarchicalIndex", "HierarchicalConfig",
-        "IndexConfig", "SearchConfig", "__version__"}
+        "LearnedIndex", "BuiltIndex", "HierarchicalIndex",
+        "HierarchicalConfig", "IndexConfig", "SearchConfig", "Baseline",
+        "__version__"}
+    import tpulmi_torch.models as models
+
+    assert {"StackedMLP", "train_lr_sweep"} <= set(models.__all__)
+    for name in models.__all__:
+        assert getattr(models, name) is not None
 
 
 def test_chip_smoke_refuses_without_card():

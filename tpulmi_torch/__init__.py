@@ -11,17 +11,22 @@ The same three stages as the JAX package ``tpulmi``, module for module:
    CUDA kernel (``tpulmi_torch.ops.probe_topk``) — then merged per query.
 
 `HierarchicalIndex` (``tpulmi_torch.hierarchical``) routes through a
-two-level factorized router over the same store and search.
+two-level factorized router over the same store and search. `Baseline`
+(``tpulmi_torch.baseline``) is the exact oracle; ``python -m
+tpulmi_torch.cli`` the experiment CLI, ``tpulmi_torch.sweep`` the
+hyperparameter sweep.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU.
 """
 
+from tpulmi_torch.baseline import Baseline
 from tpulmi_torch.hierarchical import HierarchicalConfig, HierarchicalIndex
-from tpulmi_torch.index import LearnedIndex
+from tpulmi_torch.index import BuiltIndex, LearnedIndex
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["LearnedIndex", "HierarchicalIndex", "HierarchicalConfig",
-           "IndexConfig", "SearchConfig", "__version__"]
+__all__ = ["LearnedIndex", "BuiltIndex", "HierarchicalIndex",
+           "HierarchicalConfig", "IndexConfig", "SearchConfig", "Baseline",
+           "__version__"]

@@ -1,5 +1,6 @@
 """Evaluation: recall and throughput from SISAP-format result files, read
-back and scored against a ground-truth h5 (``knns`` with 1-based ids)."""
+back and scored against a ground-truth h5 (``knns`` with 1-based ids,
+`write_ground_truth`), and a recall / QPS plot of the scored rows."""
 
 import csv
 import glob
@@ -90,3 +91,38 @@ def evaluate_results(result_glob: str, gt_path: str, k: int = 10,
                             f"{r.recall:.4f}", f"{r.qps:.1f}"])
         log.info("wrote %s (%d rows)", csv_path, len(rows))
     return rows
+
+
+def write_ground_truth(path: str, dists: np.ndarray, knns: np.ndarray) -> None:
+    """Write a ground-truth h5 (1-based ``knns``, ascending ``dists``) in
+    the layout the SISAP challenge publishes."""
+    import h5py
+    from pathlib import Path
+
+    os.makedirs(Path(path).parent, exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("knns", knns.shape, dtype=knns.dtype)[:] = knns
+        f.create_dataset("dists", dists.shape, dtype=dists.dtype)[:] = dists
+
+
+def plot_results(rows: List[EvalRow], out_path: str = "result.png") -> None:
+    """Recall / QPS scatter of evaluated rows, written as a PNG (needs
+    matplotlib; drawn off-screen)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(7, 5))
+    for r in rows:
+        ax.scatter(r.recall, r.qps, s=36)
+        ax.annotate(r.params[-24:], (r.recall, r.qps), fontsize=6, alpha=0.7)
+    ax.set_xlabel("recall@10")
+    ax.set_ylabel("queries/s")
+    ax.set_yscale("log")
+    ax.set_title("tpulmi_torch recall/throughput")
+    ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=150)
+    plt.close(fig)
+    log.info("wrote %s", out_path)

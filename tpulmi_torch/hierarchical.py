@@ -30,7 +30,7 @@ import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ from tpulmi_torch.buckets import bucket_stats, build_bucket_store
 from tpulmi_torch.build import BuildPlan, StageInputs, build_plan, fused_build
 from tpulmi_torch.hoststore import HostBF16
 from tpulmi_torch.index import BuiltIndex, LearnedIndex
-from tpulmi_torch.models.mlp import MLP, MODEL_HIDDEN_DIMS
+# StackedMLP lives beside MLP; imported here under its old home too
+from tpulmi_torch.models.mlp import MLP, MODEL_HIDDEN_DIMS, StackedMLP
 from tpulmi_torch.ops.distance import l2_normalize
 from tpulmi_torch.search import size_class
 from tpulmi_torch.utils.config import IndexConfig
@@ -74,47 +75,6 @@ class HierarchicalConfig:
     # containment at calibrate_budget (16 when that is 0) probes; 1
     # disables
     router_restarts: int = 1
-
-
-class StackedMLP(nn.Module):
-    """G ReLU MLPs of one architecture, their weights stacked on a leading
-    (G,) axis: ``weights[i]`` is (G, out, in) (a Linear's weight per
-    group), ``biases[i]`` (G, out). Maps (Q, d) to (G, Q, n_classes) with
-    one batched product per layer."""
-
-    def __init__(self, n_models: int, input_dim: int, hidden_dims,
-                 n_classes: int):
-        super().__init__()
-        widths = [input_dim, *hidden_dims, n_classes]
-        self.weights = nn.ParameterList(
-            nn.Parameter(torch.zeros(n_models, b, a))
-            for a, b in zip(widths[:-1], widths[1:]))
-        self.biases = nn.ParameterList(
-            nn.Parameter(torch.zeros(n_models, b)) for b in widths[1:])
-        self.n_models = n_models
-
-    @classmethod
-    def stack(cls, models: List[MLP]) -> "StackedMLP":
-        """One stack holding the params of `models` (on their device)."""
-        first = models[0]
-        out = cls(len(models), first.layers[0].in_features,
-                  first.hidden_dims, first.n_classes)
-        with torch.no_grad():
-            for i in range(len(first.layers)):
-                out.weights[i] = nn.Parameter(torch.stack(
-                    [m.layers[i].weight.detach() for m in models]))
-                out.biases[i] = nn.Parameter(torch.stack(
-                    [m.layers[i].bias.detach() for m in models]))
-        return out
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.float().unsqueeze(0).expand(self.n_models, -1, -1)
-        last = len(self.weights) - 1
-        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            h = torch.baddbmm(b.unsqueeze(1), h, w.transpose(1, 2))
-            if i < last:
-                h = torch.relu(h)
-        return h
 
 
 class JointRouter(nn.Module):

@@ -2,11 +2,14 @@
 logit layer over the buckets.
 
 MLP-9 is the [8, 16] stack (the reference wires its second layer to the
-input width, which cannot run).
+input width, which cannot run). `StackedMLP` holds G such MLPs of one
+architecture, their weights on a leading axis (the hierarchical index's
+inner routers; `models.train.train_lr_sweep`'s one model per learning
+rate).
 """
 
 import math
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 from torch import nn
@@ -69,3 +72,44 @@ def make_model(model_type: str, input_dim: int, n_classes: int,
     model = MLP(input_dim, MODEL_HIDDEN_DIMS[model_type], n_classes)
     model.reset_parameters(generator)
     return model
+
+
+class StackedMLP(nn.Module):
+    """G ReLU MLPs of one architecture, their weights stacked on a leading
+    (G,) axis: ``weights[i]`` is (G, out, in) (a Linear's weight per
+    group), ``biases[i]`` (G, out). Maps (Q, d) to (G, Q, n_classes) with
+    one batched product per layer."""
+
+    def __init__(self, n_models: int, input_dim: int, hidden_dims,
+                 n_classes: int):
+        super().__init__()
+        widths = [input_dim, *hidden_dims, n_classes]
+        self.weights = nn.ParameterList(
+            nn.Parameter(torch.zeros(n_models, b, a))
+            for a, b in zip(widths[:-1], widths[1:]))
+        self.biases = nn.ParameterList(
+            nn.Parameter(torch.zeros(n_models, b)) for b in widths[1:])
+        self.n_models = n_models
+
+    @classmethod
+    def stack(cls, models: List[MLP]) -> "StackedMLP":
+        """One stack holding the params of `models` (on their device)."""
+        first = models[0]
+        out = cls(len(models), first.layers[0].in_features,
+                  first.hidden_dims, first.n_classes)
+        with torch.no_grad():
+            for i in range(len(first.layers)):
+                out.weights[i] = nn.Parameter(torch.stack(
+                    [m.layers[i].weight.detach() for m in models]))
+                out.biases[i] = nn.Parameter(torch.stack(
+                    [m.layers[i].bias.detach() for m in models]))
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.float().unsqueeze(0).expand(self.n_models, -1, -1)
+        last = len(self.weights) - 1
+        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+            h = torch.baddbmm(b.unsqueeze(1), h, w.transpose(1, 2))
+            if i < last:
+                h = torch.relu(h)
+        return h

@@ -6,14 +6,19 @@ order is a permutation of the training rows truncated to
 ``steps_per_epoch * batch`` rows, as in the JAX package. The optimizer is
 ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the same update as
 optax's ``adam``; the loss is the mean cross-entropy.
+
+`train_lr_sweep` trains one MLP per learning rate at once, as a
+`StackedMLP` (one batched product a layer for all of them) under one Adam
+step whose learning rate is broadcast on the stack's leading axis.
 """
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from tpulmi_torch.models.mlp import MLP, make_model
+from tpulmi_torch.models.mlp import MLP, StackedMLP, make_model
 from tpulmi_torch.utils.logging import get_logger
 from tpulmi_torch.utils.profiling import resolve_device
 
@@ -74,6 +79,83 @@ def run_epochs(model: MLP, opt: torch.optim.Optimizer, X: torch.Tensor,
             step_losses.append(loss.detach())
         losses.append(torch.stack(step_losses).mean())
     return torch.stack(losses)
+
+
+def train_lr_sweep(model: Union[str, MLP], X, y, lrs, epochs: int = 8,
+                   batch_size: int = 1024, seed: int = 2023,
+                   max_train_steps: Optional[int] = None, device="cuda",
+                   init_models: Optional[Sequence[MLP]] = None,
+                   batches: Optional[Sequence[torch.Tensor]] = None
+                   ) -> Tuple[StackedMLP, torch.Tensor]:
+    """Train one classifier per learning rate in `lrs` together: every
+    model sees the same batches, and one Adam step (optax's ``adam``: b1
+    0.9, b2 0.999, eps 1e-8, bias-corrected) updates all of them with its
+    own learning rate.
+
+    `model` is a model type name (the classes are the labels' range) or an
+    `MLP` whose architecture is used. Each model starts from its own draw
+    of a ``torch.Generator`` seeded with `seed`, and each epoch's batches
+    are a permutation drawn from one seeded with ``seed + 1`` (the step
+    count from `train_plan`). The hooks replace those draws:
+    `init_models` (one `MLP` per learning rate) and `batches` (one (steps,
+    batch) index array per epoch, as `BucketClassifier.train` takes).
+
+    Returns (stacked, losses): a `StackedMLP` whose leading axis is
+    ``len(lrs)``, and the (len(lrs), epochs) mean loss of every epoch."""
+    device = resolve_device(device)
+    X = torch.as_tensor(X, dtype=torch.float32, device=device)
+    y = torch.as_tensor(y, device=device).long()
+    n = int(X.shape[0])
+    if init_models is None:
+        gen = torch.Generator().manual_seed(seed)
+        if isinstance(model, str):
+            init_models = [make_model(model, int(X.shape[1]),
+                                      int(y.max()) + 1, generator=gen)
+                           for _ in lrs]
+        else:
+            init_models = [MLP(model.layers[0].in_features,
+                               model.hidden_dims, model.n_classes)
+                           for _ in lrs]
+            for m in init_models:
+                m.reset_parameters(gen)
+    if batches is None:
+        epochs, spe, _ = train_plan(n, epochs, batch_size, max_train_steps)
+        gen = torch.Generator().manual_seed(seed + 1)
+        batches = [epoch_batches(n, spe, min(batch_size, n), gen)
+                   for _ in range(epochs)]
+    stacked = StackedMLP.stack([m.to(device) for m in init_models])
+    params = list(stacked.parameters())
+    lr = torch.tensor([float(v) for v in lrs], dtype=torch.float32,
+                      device=device)
+    # each parameter's learning rates, broadcast over its leading axis
+    lr_of = [lr.view(-1, *([1] * (p.dim() - 1))) for p in params]
+    exp_avg = [torch.zeros_like(p) for p in params]
+    exp_avg_sq = [torch.zeros_like(p) for p in params]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    step, losses = 0, []
+    for idx in batches:
+        idx = idx.to(device)
+        step_losses = []
+        for b in idx:
+            logits = stacked(X[b])                       # (L, B, C)
+            per_model = F.cross_entropy(
+                logits.transpose(1, 2), y[b].expand(len(lr), -1),
+                reduction="none").mean(1)
+            # the models share no parameter: each one's gradient of the
+            # sum is the gradient of its own loss
+            grads = torch.autograd.grad(per_model.sum(), params)
+            step += 1
+            bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+            with torch.no_grad():
+                for p, g, m, v, r in zip(params, grads, exp_avg,
+                                         exp_avg_sq, lr_of):
+                    m.lerp_(g, 1 - b1)
+                    v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                    denom = (v.sqrt() / math.sqrt(bc2)).add_(eps)
+                    p.addcdiv_(m * (r / -bc1), denom)
+            step_losses.append(per_model.detach())
+        losses.append(torch.stack(step_losses).mean(0))
+    return stacked, torch.stack(losses, 1)
 
 
 class BucketClassifier:

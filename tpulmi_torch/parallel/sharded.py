@@ -33,7 +33,7 @@ from tpulmi_torch.buckets import BucketStore
 from tpulmi_torch.hoststore import _device_buffer, _slab_write
 from tpulmi_torch.models.train import make_optimizer
 from tpulmi_torch.ops.distance import _topk_stable, l2_normalize
-from tpulmi_torch.ops.probe_topk import probe_search
+from tpulmi_torch.ops.probe_topk import probe_search as kernel_probe_search
 from tpulmi_torch.parallel.mesh import (Mesh, all_reduce, check_mesh,
                                         gather_entries)
 from tpulmi_torch.search import (_probe_search_impl, route_probes,
@@ -206,11 +206,12 @@ def search_shards(probes: torch.Tensor, queries: torch.Tensor,
     """Probe every shard of this process and merge all shards' partials:
     (dists (Q, k), 0-based ids (Q, k), max slots of one bucket as a 0-d
     tensor), on the queries' device. `probes` (Q, P) are global ids,
-    `queries` normalized. ``backend`` "cuda" / "torch" runs `probe_search`
-    (the kernels, or their plain versions) with `compute_dtype`,
-    `int8_queries` and `pair`; "xla" the scan of `search.py` with the
-    padding classes `qpb_pad`, `data_chunk`, `max_chunks`. The probes and
-    queries are copied once to each distinct device."""
+    `queries` normalized. ``backend`` "cuda" / "torch" runs
+    `kernel_probe_search` (the kernels, or their plain versions) with
+    `compute_dtype`, `int8_queries` and `pair`; "xla" the scan of
+    `search.py` with the padding classes `qpb_pad`, `data_chunk`,
+    `max_chunks`. The probes and queries are copied once to each distinct
+    device."""
     home = queries.device
     on = {}
     parts_d, parts_i, slots = [], [], []
@@ -227,7 +228,7 @@ def search_shards(probes: torch.Tensor, queries: torch.Tensor,
                 compute_dtype=compute_dtype)
             mx = torch.tensor(mx, device=dev)
         else:
-            d, i, mx = probe_search(
+            d, i, mx = kernel_probe_search(
                 p, q, st, k=k, compute_dtype=compute_dtype, backend=backend,
                 int8_queries=int8_queries, pair=pair)[:3]
         parts_d.append(d)

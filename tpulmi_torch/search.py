@@ -18,14 +18,16 @@ Two probes:
   skipped when the spherical-cap bound of `buckets.compute_bucket_bounds`
   proves that none of its slots can reach it. Pruned results equal the
   unpruned scan's to the bit. The name is the JAX package's, so that
-  configs convert one to one.
+  configs convert one to one. `probe_search` is this scan behind the JAX
+  package's public `probe_search` contract (padding classes chosen from
+  the routing, 0-based ids).
 """
 
 import torch
 
 from tpulmi_torch.ops.distance import (SENTINEL_DIST, _topk_stable,
                                        l2_normalize)
-from tpulmi_torch.ops.probe_topk import probe_search
+from tpulmi_torch.ops.probe_topk import probe_search as kernel_probe_search
 from tpulmi_torch.ops.quantize import unpack_int4
 
 
@@ -185,6 +187,45 @@ def _probe_search_impl(probe_buckets, queries_search, store, *, k: int,
     return d, i, mx
 
 
+def probe_search(probe_buckets, queries_search, store, k: int = 10,
+                 data_chunk: int = 2048, qpb_pad: int = None,
+                 query_chunk: int = 512, compute_dtype=None):
+    """Search the probed buckets for each query's k nearest neighbors with
+    the XLA backend's scan, on the store's device.
+
+    `probe_buckets` (Q, P) holds each query's probed bucket per rank;
+    `queries_search` (Q, d) is normalized. Returns (dists, ids): (Q, k)
+    float32 cosine distances ascending and (Q, k) int32 **0-based** row
+    ids, -1 where the probed buckets hold fewer than k rows.
+
+    The padding classes are chosen from the busiest bucket's slots and the
+    largest bucket, as the JAX package's `probe_search` chooses them."""
+    dev = store.data_sorted.device
+    probe_buckets = torch.as_tensor(probe_buckets, device=dev).to(
+        torch.int32)
+    queries_search = torch.as_tensor(queries_search, device=dev)
+    slots = probe_buckets.reshape(-1).to(torch.int64)
+    live = (slots >= 0) & (slots < store.n_categories)
+    max_slots = int(torch.bincount(
+        slots[live], minlength=store.n_categories).max())
+    max_bucket = int(store.counts.max())
+
+    # a chunk may not exceed the store; the clamped start and two-sided
+    # mask of the scan handle tail buckets
+    data_chunk = min(data_chunk, size_class(max(max_bucket, 1)),
+                     int(store.data_sorted.shape[0]))
+    if qpb_pad is None:
+        qpb_pad = size_class(max(max_slots, 1))
+    query_chunk = min(query_chunk, qpb_pad)
+    qpb_pad = -(-qpb_pad // query_chunk) * query_chunk
+    max_chunks = max(-(-max_bucket // data_chunk), 1)
+    dists, ids, _ = _probe_search_impl(
+        probe_buckets, queries_search, store, k=k, qpb_pad=qpb_pad,
+        data_chunk=data_chunk, max_chunks=max_chunks,
+        query_chunk=query_chunk, compute_dtype=compute_dtype)
+    return dists, ids
+
+
 def _probe_search_pruned(probe_buckets, queries_search, store, thresholds, *,
                          k: int, qpb_pad: int, data_chunk: int,
                          max_chunks: int, query_chunk: int = 512,
@@ -288,7 +329,7 @@ def make_search_program(model, *, k: int, n_buckets: int,
             d, i, *counts = xla_probe(probes, qs, store)
             rest = [i, *(torch.tensor(c, device=d.device) for c in counts)]
         else:
-            d, *rest = probe_search(
+            d, *rest = kernel_probe_search(
                 probes, qs, store, k=k, compute_dtype=compute_dtype,
                 backend=backend, int8_queries=int8_queries, pool_k=pool_k,
                 pair=pair, wl_pad=wl_pad, item_rows=item_rows)

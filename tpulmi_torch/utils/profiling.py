@@ -3,6 +3,7 @@
 - `resolve_device(device)`: the device to run on; a CUDA device must exist.
 - `sync(device)`: waits for the card's queued work (a no-op on the CPU).
 - `phase_timer`: context manager timing a phase with a sync at exit.
+- `trace(log_dir)`: a `torch.profiler` region written as a Chrome trace.
 - `probe_work_model`: the FLOPs and bytes of the probe phase.
 - `timeit`: best-of-N wall time with warmup and syncs.
 """
@@ -50,6 +51,31 @@ def phase_timer(phase: str, result_holder: dict = None, device=None):
     log.info("%s: %.3fs", phase, elapsed)
     if result_holder is not None:
         result_holder[phase] = elapsed
+
+
+@contextmanager
+def trace(log_dir: str = "tpulmi_torch_trace", device=None):
+    """Profile the region (host, and the card's kernels when `device` is a
+    CUDA device or, by default, when a card is present) and write it as a
+    Chrome trace (``chrome://tracing``, Perfetto) under `log_dir`; the
+    path is logged. Usage: ``with trace("t"): index.search(...)``."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = (torch.device(device).type == "cuda" if device is not None
+            else torch.cuda.is_available())
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        sync(device)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_"
+                        f"{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
 
 
 def probe_work_model(slot_counts, bucket_counts, d: int, qc: int, mc: int,

@@ -37,6 +37,10 @@ result line.
              launch in thread-block clusters (the rule's, and 2 and 4
              asked for) against its launch without one, to the bit, with
              and without the pool, and the tile walks its grouping saves;
+             last, K1 (bfloat16), K2, K3, the 128-row tile, the worklist
+             with its merge kernel and the pool on a store of 2.9M x 768
+             rows whose probed buckets all lie past element 2**31, each
+             against its plain version;
 3. main    - the main path at full size: LearnedIndex.build on a 300K x 768
              synthetic corpus with 122 buckets (and a sha256 of what it
              built, the same in every run), then LearnedIndex.search of
@@ -61,7 +65,8 @@ result line.
              pred, ids, offsets and counts equal to build's to the bit and
              its float32 rows within 1e-6, a bfloat16 host store's recall
              within 0.002 of build's; then 2M rows made by
-             synthetic_dataset_big (3.1 GB of bfloat16 in a temporary
+             synthetic_dataset_big(backend="device") (3.1 GB of bfloat16
+             in a temporary
              cache): an int8 host-store build (native gather, overlapped
              upload) with its stage seconds and store bytes, the same
              layout down the source-sequential path from the memory map
@@ -73,12 +78,14 @@ result line.
              (bench_20m.py:188-206: 8 groups x 61 = 488 buckets, int8
              store, int8 queries, rerank depth 10) on the hoststore phase's
              2M corpus (cut from 20M rows and 244 data clusters: ~4.1k
-             rows a bucket, not ~41k): build_with_host_store with a sha256
+             rows a bucket, not ~41k; phase 10 runs it uncut):
+             build_with_host_store with a sha256
              of what it built, calibrate_outer_weight at 24 probes, a probe
              sweep from 6 to 48 until recall@10 against the float32 oracle
              reaches 0.90 (failing if it never does), at that budget the
              worklist and the 128-row tile equal to the dense search but
-             for ties, the pool, probe_mass 0.95 and 0.9, float queries;
+             for ties, the pool and float queries within 0.01 of its
+             recall, probe_mass 0.95 and 0.9;
              search_stream over 4 batches equal to search; a save / load
              round trip; a device-store build of the main data (2 x 61
              buckets) searched in bfloat16 beside the flat index; K1-K6
@@ -111,14 +118,32 @@ result line.
              after its 5th block, resumed at row 4 x 262144 and equal to
              the uninterrupted pass to the bit; Baseline on the main data;
              one block's product (also under TF32), top-k and merge timed;
-10. prune  - SearchConfig(backend="xla", prune_after=1) against the
+10. hier20m - the hier phase's configuration at bench_20m.py's own
+             size, uncut: 20M x 768 rows (96 navigation features) in 244
+             data clusters and 10k queries, made on the card by
+             synthetic_dataset_big(backend="device") into a temporary
+             directory of its own (the host's RAM, disk and cores logged
+             first; seconds by stage and GB/s written); the streamed exact
+             oracle in float32 and in bfloat16 (seconds, GB/s); the int8
+             host-store build (stages, store shape and bytes, bucket
+             sizes, digest, whether the corpus was copied into RAM);
+             calibrate_outer_weight at 24 probes; the probe sweep against
+             both oracles until the float32 one's recall@10 reaches 0.90
+             (failing if none does); at that budget the worklist and the
+             128-row tile equal to the dense search but for ties, the pool
+             and float queries (K2) within 0.01 of its recall; every
+             kernel of the path launched, then each against its plain
+             version on the path's probes, store and first 1000 queries;
+             K3's time and bound; the peak card memory; the directory
+             removed;
+11. prune  - SearchConfig(backend="xla", prune_after=1) against the
              unpruned xla scan at 7 probes, to the bit, in float32 and
              bfloat16 on the main index after compute_bounds, on its int8
              store, and on an index of tight clusters (cluster_std 0.3),
              where rows must be skipped; rows scanned of nominal and ms
              of each; the scan's ids equal to the kernel's outside ties,
              and no kernel launched by it;
-11. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
+12. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
              configuration at 1, 2 and 3 probes, equal to the main index's
              searches and recalls (cli.main in this process, the result
              writer replaced so that no h5py is needed); cli.run with an int8
@@ -128,7 +153,7 @@ result line.
              learning rate and resumed (one new row); train_lr_sweep over
              four learning rates beside one single-lr run, its first 20
              steps equal to BucketClassifier's; one search inside trace;
-12. timing - each kernel, its plain version and one library call for the
+13. timing - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -173,6 +198,10 @@ BIG_N = 2_000_000   # rows of the host-store phase's realistic size
 SHARDS = 4          # shards of the 300K index in phase shard, on one card
 OWN_ROWS = 16_384   # slots whose distances are recomputed at once
 STREAM_CHUNK = 262_144   # rows of a block of the streamed ground truth
+# the first row whose first element lies past 2**31 in a 768-wide store
+FAR_ROWS = 2 ** 31 // D_SEARCH + 1
+HIER20M_N = 20_000_000   # bench_20m.py's rows
+HIER20M_HOLD = 1000      # queries of phase hier20m's kernels-vs-plain checks
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -903,6 +932,95 @@ def phase_variants(dev, errs):
     return errs
 
 
+def phase_far(dev, errs):
+    """K1 (bfloat16), K2, K3, the worklist with its merge kernel, the pool
+    and the 128-row tile on a store whose probed rows all lie past element
+    2**31 (FAR_ROWS x 768 rows before them, 2.2 GB of int8, 4.5 GB of
+    bfloat16): each against its plain version, the merge kernel to the
+    bit, every returned id a row of the probed buckets. An offset formed
+    in 32 bits shows here."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import (group_slots, merge_items,
+                                             merge_items_plain)
+
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rng = torch.Generator().manual_seed(SEED + 2)
+    n_cat = 24
+    sizes = (torch.rand(n_cat, generator=rng) ** 3 * 20000).long() + 1
+    sizes[3], sizes[7] = 3, 0
+    # bucket 0: FAR_ROWS rows of zeros, never probed; buckets 1..n_cat
+    # behind it, random unit rows with sentinel gaps between them
+    tail, offsets, counts = random_store(D_SEARCH, sizes.tolist(), dev, gen,
+                                         torch.bfloat16)
+    data = torch.zeros((FAR_ROWS + tail.shape[0], D_SEARCH),
+                       dtype=torch.bfloat16, device=dev)
+    data[FAR_ROWS:] = tail
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    offsets = torch.cat([zero, offsets + FAR_ROWS])
+    counts = torch.cat([zero + FAR_ROWS, counts])
+    del tail
+    nq, p, k, k_out, mc = 2000, 2, 10, 20, 1024
+    qf = torch.randn((nq, D_SEARCH), generator=gen, device=dev)
+    qf = qf / qf.norm(dim=1, keepdim=True)
+    q = qf.to(torch.bfloat16)
+    probes = 1 + torch.argsort(torch.rand((nq, n_cat), generator=gen,
+                                          device=dev), dim=1)[:, :p]
+    probes[:, 1] = torch.where(torch.rand(nq, generator=gen, device=dev)
+                               < 0.2, n_cat + 1, probes[:, 1])   # dumped
+    layout = group_slots(probes.int(), offsets, counts)
+    live = layout.slot_of_row < nq * p
+    items = worklist_total(layout, counts, mc)
+
+    def note(name, err, what):
+        errs[name] = max(errs.get(name, 0.0), err)
+        log(f"[far] {name} {what}: max |err| {err:.3g}")
+
+    def far_ids(out, what):
+        ids = out[1][live]
+        if not bool(((ids < 0) | (ids >= FAR_ROWS)).all()):
+            raise AssertionError(f"{what} returned a row before the probed "
+                                 f"buckets")
+        return out
+
+    kinds = store_kinds(q, qf, data, layout, ("full", "quant8", "int8q8"))
+    for name, fn, plain, args, tail, own, tol, rescale in kinds:
+        what = f"k={k} probes={p} queries={nq}"
+        note(name, compare(far_ids(fn(*args, k, *tail), name),
+                           plain(*args, k, *tail), own, layout, nq * p,
+                           tol), what)
+        note("probe_pair", compare(
+            far_ids(fn(*args, k, *tail, pair=True), "the 128-row tile"),
+            plain(*args, k, *tail, pair=True), own, layout, nq * p, tol),
+            f"{name} {what}")
+        note("probe_worklist", compare(
+            far_ids(fn(*args, k, *tail, wl_pad=items, item_rows=mc)[:2],
+                    "the worklist"),
+            plain(*args, k, *tail, wl_pad=items, item_rows=mc)[:2], own,
+            layout, nq * p, tol), f"{name} {what} items={items}")
+        parts = fn(*args, k, *tail, wl_pad=items, item_rows=mc, merge=False)
+        merged = merge_items(layout.blocks, parts, k)
+        want = merge_items_plain(layout.blocks, parts, k)
+        if not (torch.equal(merged[0][live], want[0][live])
+                and torch.equal(merged[1][live], want[1][live])):
+            raise AssertionError(f"the merge kernel differs from its plain "
+                                 f"version past element 2**31 ({name})")
+        note("merge_items", 0.0, f"{name} {what}, to the bit")
+        note("probe_pool", compare_pool(
+            far_ids(fn(*args, k, *tail, k_out=k_out), "the pool"),
+            plain(*args, k, *tail, k_out=k_out),
+            plain(*args, k, *tail, k_out=k_out, merge=False, wl_pad=items,
+                  item_rows=mc), rescale, own, layout, nq * p, k, tol),
+            f"{name} {what} k_out={k_out}")
+    log(f"[far] a store of {data.shape[0]} x {D_SEARCH} rows whose "
+        f"{n_cat} probed buckets begin at row {FAR_ROWS} (element "
+        f"{FAR_ROWS * D_SEARCH} > 2**31): K1, K2, K3, the 128-row tile, "
+        f"the worklist and its merge kernel and the pool equal to their "
+        f"plain versions, every id past the filler; "
+        f"{time.perf_counter() - t:.1f}s")
+    return errs
+
+
 def phase_main(dev):
     """Build and search at full size through the user's entry points."""
     import numpy as np
@@ -1336,7 +1454,8 @@ def phase_hoststore(index, ds, dev, gt, cache):
     """Host-store builds (the JAX package's large-scale build): the native
     host library; build_with_host_store on the main data against build
     (pred, layout, store rows) and in bfloat16 (recall); then a realistic
-    size, BIG_N rows made by synthetic_dataset_big into the directory
+    size, BIG_N rows made on the card by synthetic_dataset_big into the
+    directory
     `cache`: an int8 host-store build (native gather, overlapped upload),
     the same layout again down the source-sequential path, a search at 4
     probes with the native rerank against a float32 oracle, and the
@@ -1410,10 +1529,11 @@ def phase_hoststore(index, ds, dev, gt, cache):
     big = synthetic_dataset_big(n=BIG_N, n_queries=N_QUERIES,
                                 d_nav=D_NAV, d_search=D_SEARCH,
                                 n_clusters=N_CAT, seed=SEED,
-                                cache_dir=cache)
+                                cache_dir=cache, backend="device", device=dev)
     gen_s = time.perf_counter() - t
     corpus = big["data_search"]
-    log(f"[hoststore] synthetic_dataset_big: {BIG_N} x {D_SEARCH} "
+    log(f"[hoststore] synthetic_dataset_big(backend='device'): {BIG_N} x "
+        f"{D_SEARCH} "
         f"bfloat16 ({corpus.nbytes / 1e9:.2f} GB on disk) + nav "
         f"{big['data_nav'].nbytes / 1e9:.2f} GB made in {gen_s:.1f}s")
     li = LearnedIndex(cfg, device=dev)
@@ -1557,68 +1677,45 @@ def hier_digest(hi, pred) -> str:
     return h.hexdigest()
 
 
-def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
-    """The hierarchical index at the JAX package's 20M configuration
-    (bench_20m.py:188-206): 8 groups x 61 buckets = 488, an MLP-5 outer
-    router (6 epochs) and inner routers (8 epochs, batch 4096), row_align
-    1024, int8 store, int8 queries, rerank depth 10. Cut in scale only: the
-    BIG_N rows and 122 data clusters of phase_hoststore's corpus (20M rows
-    and 244 clusters there), ~4.1k rows a bucket (~41k there); the widths
-    (96 / 768), the buckets, k, the rerank depth and the probe sweep are the
-    20M run's. Steps: build_with_host_store (bfloat16 navigation, int8 host
-    store, overlapped upload) with a digest of what it built;
-    calibrate_outer_weight at 24 probes; a probe sweep of 10k host queries
-    until recall@10 against the float32 oracle clears 0.90 (the phase fails
-    if no budget does); at that budget the worklist and 128-row tile equal
-    to the dense search but for ties, the pool, probe_mass 0.95 / 0.9 and
-    float queries (K2) with their recall; search_stream over 4 batches,
-    each equal to search; one save / load; a device-store
-    HierarchicalIndex.build of the main data (2 x 61 buckets) searched in
-    bfloat16 at 2 probes (K1) beside the flat index. Every kernel of the
-    path must launch. Then, on the inputs the path gives them (its probes,
-    queries and stores, all 10k queries), each kernel against its plain
-    version: K3 dense, the worklist with its merge kernel (the merge to the
-    bit) and the 128-row tile at k 20, the pool at k 10 / k_out 20, K2 with
-    bfloat16 queries, and K1 on the device store; their errors go into
-    `errs`. Last, K3's time at the found budget (CUDA events). Launches made
-    after the path's count was read are not counted."""
-    import gc
-    import os
+def hier_config():
+    """bench_20m.py's hierarchical configuration (:188-206): 8 groups x 61
+    = 488 buckets, an MLP-5 outer router (6 epochs) and inner routers (8
+    epochs, batch 4096), row_align 1024; calibrated as a step of its own."""
+    from tpulmi_torch import HierarchicalConfig, IndexConfig
 
-    import numpy as np
-    import torch
-    from tpulmi_torch import (HierarchicalConfig, HierarchicalIndex,
-                              IndexConfig, SearchConfig)
-    from tpulmi_torch.evaluate import recall_at_k
-    from tpulmi_torch.hoststore import HostBF16
-    from tpulmi_torch.ops.distance import l2_normalize
-    from tpulmi_torch.ops.probe_topk import (
-        apply_query_scale, group_slots, launch_counts, merge_items,
-        merge_items_plain, probe_topk, probe_topk_int8q,
-        probe_topk_int8q_plain, probe_topk_plain, probe_topk_quant,
-        probe_topk_quant_plain, reset_launch_counts)
-    from tpulmi_torch.ops.quantize import quantize_rows
-    from tpulmi_torch.search import route_probes, routing_logits
-
-    n_groups, n_cat = 8, 61
-    cfg = HierarchicalConfig(
-        n_groups=n_groups, outer_epochs=6, outer_lr=0.003,
-        calibrate_budget=0, router_restarts=1,
-        inner=IndexConfig(n_categories=n_cat, epochs=8, lr=0.003,
+    return HierarchicalConfig(
+        n_groups=8, outer_epochs=6, outer_lr=0.003, calibrate_budget=0,
+        router_restarts=1,
+        inner=IndexConfig(n_categories=61, epochs=8, lr=0.003,
                           model_type="MLP-5", batch_size=4096, seed=SEED,
                           row_align=1024))
-    corpus = big["data_search"]
-    qn, qs = big["queries_nav"], big["queries_search"]
-    reset_launch_counts()
 
-    # ---- 1. build ----
+
+def hier_build(tag, big, dev):
+    """HierarchicalIndex(hier_config()).build_with_host_store of `big`
+    (navigation rows rounded to bfloat16 on the card, as bench_20m.py
+    rounds them on the host; int8 host store, overlapped upload), logged
+    with its stages, bucket sizes, store bytes, where the rerank's corpus
+    lives and a digest. Returns (index, pred)."""
+    import numpy as np
+    import torch
+    from tpulmi_torch import HierarchicalIndex
+    from tpulmi_torch.hoststore import is_memory_mapped, release_pages
+
+    cfg = hier_config()
+    n_groups, n_cat = cfg.n_groups, cfg.inner.n_categories
+    nav = big["data_nav"]
     t = time.perf_counter()
-    nav_bf16 = HostBF16.from_float32(big["data_nav"])
+    nav_bf16 = torch.empty(nav.shape, dtype=torch.bfloat16, device=dev)
+    for s in range(0, nav.shape[0], 1 << 21):
+        nav_bf16[s:s + (1 << 21)] = torch.from_numpy(
+            np.array(nav[s:s + (1 << 21)])).to(dev)
+    release_pages(nav)
     conv_s = time.perf_counter() - t
     hi = HierarchicalIndex(cfg, device=dev)
     torch.cuda.synchronize()
     pred, build_s = hi.build_with_host_store(
-        nav_bf16, corpus, normalized=True, store_dtype="int8",
+        nav_bf16, big["data_search"], normalized=True, store_dtype="int8",
         overlap_upload=True)
     del nav_bf16
     stages = hi.last_build_stages
@@ -1627,28 +1724,42 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
     groups = np.bincount(pred // n_cat, minlength=n_groups)
     store_bytes = (st.data_sorted.numel() + st.scales.numel() * 4
                    + st.ids_sorted.numel() * 4)
-    log(f"[hier] {BIG_N} rows, {n_groups} x {n_cat} = {st.n_categories} "
-        f"buckets, int8 host store: build_with_host_store {build_s:.2f}s = "
-        f"nav stages {stages['nav']:.2f}s + waiting for the corpus copy "
-        f"{stages['materialize_wait']:.2f}s + layout and upload "
+    kept = hi._host_corpus[0]
+    log(f"{tag} {nav.shape[0]} rows, {n_groups} x {n_cat} = "
+        f"{st.n_categories} buckets, int8 host store: build_with_host_store "
+        f"{build_s:.2f}s = nav stages {stages['nav']:.2f}s + waiting for the "
+        f"corpus copy {stages['materialize_wait']:.2f}s + layout and upload "
         f"{stages['layout_upload']:.2f}s (navigation rows rounded to "
         f"bfloat16 in {conv_s:.2f}s); outer groups {groups.tolist()}; "
         f"bucket rows max / mean / min {counts.max()} / {counts.mean():.0f}"
         f" / {counts.min()}; store on the card "
         f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
-        f"{store_bytes / 1e9:.3f} GB")
-    log(f"[hier] build digest (sha256 of outer centroids, router "
+        f"{store_bytes / 1e9:.3f} GB; the rerank's corpus "
+        f"({kept.nbytes / 1e9:.2f} GB) "
+        + ("left memory-mapped" if is_memory_mapped(kept)
+           else "copied into RAM"))
+    log(f"{tag} build digest (sha256 of outer centroids, router "
         f"parameters, pred): {hier_digest(hi, pred)}")
+    return hi, pred
 
-    # ---- 2. calibrate ----
+
+def hier_calibrate(tag, hi, data_nav, beside=""):
     t = time.perf_counter()
-    cal = hi.calibrate_outer_weight(big["data_nav"], probe_budget=24)
-    log(f"[hier] calibrate_outer_weight at 24 probes: w {cal['best']}, "
+    cal = hi.calibrate_outer_weight(data_nav, probe_budget=24)
+    log(f"{tag} calibrate_outer_weight at 24 probes: w {cal['best']}, "
         f"containment at w=1 {cal['baseline_w1']:.4f}, at the best w "
         f"{cal['best_containment']:.4f}; mass_temp {cal['mass_temp']}; "
-        f"{time.perf_counter() - t:.2f}s")
+        f"{time.perf_counter() - t:.2f}s{beside}")
 
-    # ---- 3. probe sweep ----
+
+def hier_searcher(hi, queries):
+    """search(p, batch=queries, **opts) -> (dists, ids, seconds, rerank
+    seconds): a warm-up and one timed search, int8 queries, rerank depth
+    10, items of 1024 rows (bench_20m.py's)."""
+    import numpy as np
+    import torch
+    from tpulmi_torch import SearchConfig
+
     seen = {}
     plain_rerank = hi._rerank_host
 
@@ -1658,174 +1769,126 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
         seen["rerank_s"] = time.perf_counter() - t
         return out
 
-    hi._rerank_host = timed_rerank
-
-    def scfg(p, **opts):
-        return SearchConfig(k=10, n_buckets=p, int8_queries=True,
-                            rerank_extra=10, pallas_mc=1024, **opts)
-
-    def search(p, batch=(qn, qs), **opts):
-        """A warm-up and one timed search: (dists, ids, seconds)."""
-        kw = dict(n_buckets=p, k=10, search_config=scfg(p, **opts))
-        hi.search(*batch, **kw)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        d, ids = hi.search(*batch, **kw)
-        secs = time.perf_counter() - t
-        if d.shape != (N_QUERIES, 10) or not np.isfinite(d).all():
+    def search(p, batch=queries, int8_queries=True, **opts):
+        kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
+            k=10, n_buckets=p, int8_queries=int8_queries, rerank_extra=10,
+            pallas_mc=1024, **opts))
+        hi._rerank_host = timed_rerank
+        try:
+            hi.search(*batch, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d, ids = hi.search(*batch, **kw)
+            secs = time.perf_counter() - t
+        finally:
+            del hi._rerank_host
+        if d.shape != (batch[0].shape[0], 10) or not np.isfinite(d).all():
             raise AssertionError(f"bad hierarchical result {d.shape}")
-        return d, ids, secs
+        return d, ids, secs, seen["rerank_s"]
+    return search
 
-    p_found = None
+
+def hier_sweep(tag, search, oracles, n_buckets, beside=""):
+    """bench_20m.py's probe sweep (6 to 48 probes) until recall@10 against
+    the first of `oracles` ({label: 0-based ids}) reaches RECALL_GATE; the
+    phase fails if no budget does. Returns (budget, (dists, ids))."""
+    from tpulmi_torch.evaluate import recall_at_k
+
     for p in (6, 8, 12, 16, 24, 32, 48):
-        d, ids, secs = search(p)
-        rec = recall_at_k(ids - 1, gt_big, 10)
-        log(f"[hier] probes={p}: recall@10 {rec:.4f} against the float32 "
-            f"oracle; search {secs:.4f}s = {N_QUERIES / secs:.0f} QPS, of "
-            f"which rerank {seen['rerank_s']:.4f}s "
-            f"({seen['rerank_s'] / secs:.1%})")
-        if rec >= RECALL_GATE:
-            p_found, dense = p, (d, ids)
-            break
-    if p_found is None:
-        raise AssertionError(f"no probe budget up to 48 reached recall@10 "
-                             f"{RECALL_GATE}")
-    p = p_found
-    log(f"[hier] first budget with recall@10 >= {RECALL_GATE}: {p} of "
-        f"{st.n_categories} probes (the JAX package's 20M run: 0.9105 at "
-        f"8, BENCH_20M.md)")
+        d, ids, secs, rr = search(p)
+        recs = {lbl: recall_at_k(ids - 1, gt, 10)
+                for lbl, gt in oracles.items()}
+        log(f"{tag} probes={p}: recall@10 " + ", ".join(
+            f"{r:.4f} against the {lbl} oracle" for lbl, r in recs.items())
+            + f"; search {secs:.4f}s = {len(ids) / secs:.0f} QPS, of which "
+            f"rerank {rr:.4f}s ({rr / secs:.1%})")
+        if next(iter(recs.values())) >= RECALL_GATE:
+            log(f"{tag} first budget with recall@10 >= {RECALL_GATE}: {p} "
+                f"of {n_buckets} probes{beside}")
+            return p, (d, ids)
+    raise AssertionError(f"no probe budget up to 48 reached recall@10 "
+                         f"{RECALL_GATE}")
 
-    # ---- 4. A/Bs at that budget ----
+
+def hier_variants(tag, search, p, dense, queries, corpus, gt):
+    """At budget p: the worklist and the 128-row tile equal to the dense
+    search but for ties; the pool and float queries (K2), whose candidate
+    lists differ from the dense kernel's by design (the pool's extras are
+    per-class best rows; bfloat16 queries round otherwise than int8
+    codes), with the rows whose distances differ and a recall within 0.01
+    of the dense search's."""
+    import numpy as np
+    from tpulmi_torch.evaluate import recall_at_k
+
+    qs = queries[1]
+    want = recall_at_k(dense[1] - 1, gt, 10)
     for label, opts in (("worklist", dict(pallas_worklist=True)),
                         ("128-row tile", dict(pallas_pair=True))):
-        d, ids, secs = search(p, **opts)
+        d, ids, secs, _ = search(p, **opts)
         rows = equal_but_ties(ids, d, dense[1], dense[0], qs, corpus, 1e-6)
-        log(f"[hier] {label} at {p} probes: equal to the dense search but "
+        log(f"{tag} {label} at {p} probes: equal to the dense search but "
             f"for ties ({rows} rows differ); {secs:.4f}s")
-    d, ids, secs = search(p, pallas_pool=True)
-    log(f"[hier] pool at {p} probes: recall@10 "
-        f"{recall_at_k(ids - 1, gt_big, 10):.4f}; {secs:.4f}s")
+    for label, opts in (("pool", dict(pallas_pool=True)),
+                        ("float queries (K2)", dict(int8_queries=False))):
+        d, ids, secs, _ = search(p, **opts)
+        rec = recall_at_k(ids - 1, gt, 10)
+        moved = int((np.abs(d - dense[0]) > 1e-6).any(axis=1).sum())
+        log(f"{tag} {label} at {p} probes: recall@10 {rec:.4f} (dense "
+            f"{want:.4f}); {int((ids != dense[1]).any(axis=1).sum())} rows "
+            f"hold other ids, {moved} of them other distances; {secs:.4f}s")
+        if not abs(rec - want) <= 0.01:
+            raise AssertionError(f"{label}: recall@10 {rec} is more than "
+                                 f"0.01 from the dense search's {want}")
+
+
+def hier_on_path(hi, queries, p, dev):
+    """The normalized queries and the slot layout of a search of `queries`
+    at p probes over `hi`'s store, as the search program makes them."""
+    import torch
+    from tpulmi_torch.ops.distance import l2_normalize
+    from tpulmi_torch.ops.probe_topk import group_slots
+    from tpulmi_torch.search import route_probes, routing_logits
+
+    store = hi.built.store
     with torch.no_grad():
-        logits, mass = routing_logits(hi.built.classifier.model,
-                                      torch.as_tensor(qn, device=dev),
-                                      need_mass=True)
-    for m in (0.95, 0.9):
-        d, ids, secs = search(p, probe_mass=m)
-        kept = route_probes(logits, p, probe_mass=m, dump_id=st.n_categories,
-                            mass_logits=mass)
-        kept = float((kept < st.n_categories).float().sum(1).mean())
-        log(f"[hier] probe_mass {m} at {p} probes: recall@10 "
-            f"{recall_at_k(ids - 1, gt_big, 10):.4f}, {kept:.2f} probes kept "
-            f"a query on average; {secs:.4f}s")
-    kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
-        k=10, n_buckets=p, int8_queries=False, rerank_extra=10,
-        pallas_mc=1024))
-    hi.search(qn, qs, **kw)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    ids = hi.search(qn, qs, **kw)[1]
-    log(f"[hier] float queries (K2) at {p} probes: recall@10 "
-        f"{recall_at_k(ids - 1, gt_big, 10):.4f}; "
-        f"{time.perf_counter() - t:.4f}s")
-    del hi._rerank_host
+        probes = route_probes(routing_logits(
+            hi.built.classifier.model, torch.as_tensor(
+                queries[0], dtype=torch.float32, device=dev),
+            need_mass=False)[0], p)
+        qf = l2_normalize(torch.as_tensor(queries[1], device=dev).float())
+    return qf, group_slots(probes, store.offsets, store.counts)
 
-    # ---- 5. serving ----
-    batches = [(np.roll(qn, -2500 * i, axis=0), np.roll(qs, -2500 * i,
-                                                        axis=0))
-               for i in range(4)]
-    kw = dict(n_buckets=p, k=10, search_config=scfg(p))
-    want = [hi.search(*b, **kw) for b in batches]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    got = list(hi.search_stream(batches, depth=STREAM_DEPTH, **kw))
-    stream_s = time.perf_counter() - t
-    if len(got) != len(batches):
-        raise AssertionError(f"the stream gave {len(got)} results")
-    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
-        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
-            raise AssertionError(f"stream batch {i} differs from search")
-    log(f"[hier] search_stream: {len(batches)} batches of {N_QUERIES} equal "
-        f"to search; {stream_s:.4f}s")
 
-    # ---- 6. checkpoint ----
-    path = os.path.join(cache, "hier_ckpt")
-    t = time.perf_counter()
-    hi.save(path)
-    save_s = time.perf_counter() - t
-    t = time.perf_counter()
-    back = HierarchicalIndex.load(path, device=dev)
-    load_s = time.perf_counter() - t
-    # the build's RAM copy of the corpus has no file to record: reattach
-    # it (checked against the checkpoint's fingerprint)
-    back.attach_host_corpus(hi._host_corpus[0])
-    a, b = hi.built.classifier.model, back.built.classifier.model
-    if (a.outer_weight, a.mass_temp) != (b.outer_weight, b.mass_temp):
-        raise AssertionError("the checkpoint lost the outer weight or the "
-                             "mass temperature")
-    d1, i1 = hi.search(qn, qs, **kw)
-    d2, i2 = back.search(qn, qs, **kw)
-    if not (np.array_equal(i1, i2) and np.array_equal(d1, d2)):
-        raise AssertionError("the restored index searches differently")
-    log(f"[hier] save {save_s:.2f}s, load {load_s:.2f}s, corpus reattached:"
-        f" outer weight, mass_temp and results equal")
-    del back, a, b
-
-    # ---- 7. the device store, small ----
-    small = HierarchicalIndex(HierarchicalConfig(
-        n_groups=2, outer_epochs=12, calibrate_budget=2,
-        inner=IndexConfig(n_categories=n_cat, epochs=12, lr=0.003,
-                          model_type="MLP-5", batch_size=1024, seed=SEED)),
-        device=dev)
-    _, small_s = small.build(ds["data_nav"], ds["data_search"])
-    host = (ds["queries_nav"], ds["queries_search"])
-    small_rec = recall_at_k(small.search(*host, n_buckets=2, k=10)[1] - 1,
-                            gt, 10)
-    flat_rec = recall_at_k(index.search(*host, n_buckets=2, k=10)[1] - 1,
-                           gt, 10)
-    log(f"[hier] device store, main data, 2 x {n_cat} buckets: build "
-        f"{small_s:.2f}s; bfloat16 search at 2 probes recall@10 "
-        f"{small_rec:.4f} (the flat index, 122 buckets: {flat_rec:.4f})")
-
-    # ---- 8. every kernel of the path launched ----
-    launches = launch_counts()
-    for kname in ("probe_topk", "probe_topk_quant_int8",
-                  "probe_topk_int8q_int8", "probe_worklist", "merge_items",
-                  "probe_pool", "probe_pair"):
-        if not launches[kname] > 0:
-            raise AssertionError(f"the hierarchical phase launched no "
-                                 f"{kname}")
-    log(f"[hier] launches {({n: c for n, c in launches.items() if c})}")
-
-    # ---- 9. each kernel against its plain version on the inputs that the
-    # path gives it (these launches come after the count was read) ----
-    def on_path(model, queries_nav, queries_search, n_probes, store):
-        """The normalized queries and the slot layout of a search at
-        n_probes, as the search program makes them."""
-        with torch.no_grad():
-            probes = route_probes(routing_logits(
-                model, torch.as_tensor(queries_nav, dtype=torch.float32,
-                                       device=dev), need_mass=False)[0],
-                n_probes)
-            qf = l2_normalize(torch.as_tensor(queries_search,
-                                              device=dev).float())
-        return qf, group_slots(probes, store.offsets, store.counts)
+def hier_hold(tag, hi, queries, p, dev, errs):
+    """Each kernel of the hierarchical path against its plain version on
+    the inputs that the path gives it (its probes, its store and
+    `queries`): K3 dense, the worklist with its merge kernel (the merge to
+    the bit) and the 128-row tile at k 20, the pool at k 10 / k_out 20, K2
+    with bfloat16 queries; their errors go into `errs`."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import (
+        apply_query_scale, merge_items, merge_items_plain, probe_topk_int8q,
+        probe_topk_int8q_plain, probe_topk_quant, probe_topk_quant_plain)
+    from tpulmi_torch.ops.quantize import quantize_rows
 
     def hold(kname, err, what, how="but for ties"):
         errs[kname] = max(errs.get(kname, 0.0), err)
-        log(f"[hier] {kname} {what}: equal to its plain version {how}, "
+        log(f"{tag} {kname} {what}: equal to its plain version {how}, "
             f"max |err| {err:.3g}")
 
     t = time.perf_counter()
+    st = hi.built.store
     k_eff, k_pool, mc = 20, 10, 1024    # k + rerank depth; pallas_mc
-    qf, lay = on_path(hi.built.classifier.model, qn, qs, p, st)
-    n_slots = N_QUERIES * p
+    qf, lay = hier_on_path(hi, queries, p, dev)
+    n_q = qf.shape[0]
+    n_slots = n_q * p
     q_codes, q_scales = quantize_rows(qf)
     args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
             lay.blocks)
     own8q = own_quant(q_codes, st.data_sorted, st.scales, 8, q_scales)
     items = worklist_total(lay, st.counts, mc)
-    on = (f"at {p} probes over {st.n_categories} buckets, {N_QUERIES} "
-          f"queries, {lay.blocks.shape[0]} blocks")
+    on = (f"at {p} probes over {st.n_categories} buckets, {n_q} queries, "
+          f"{lay.blocks.shape[0]} blocks")
     plain = probe_topk_int8q_plain(*args, k_eff, 8)
     hold("probe_topk_int8q_int8", compare(
         probe_topk_int8q(*args, k_eff, 8), plain, own8q, lay, n_slots,
@@ -1862,40 +1925,355 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
         probe_topk_quant(*quant), probe_topk_quant_plain(*quant),
         own_quant(qb, st.data_sorted, st.scales, 8), lay, n_slots,
         DIST_TOL), f"(bfloat16 queries, k {k_eff}) {on}")
+    log(f"{tag} the kernels against their plain versions on the path's "
+        f"inputs: {time.perf_counter() - t:.1f}s")
+
+
+def hier_k3_time(tag, hi, queries, p, dev, name):
+    """K3 (int8 x int8, k 20) on the path's probes, queries and store, by
+    CUDA events, beside the least time the card could take, reckoned as
+    phase timing does: each probed bucket's rows and scales, the queries
+    and the slot layout read once, the results written once; 2 d slots
+    rows operations per bucket at the int8 tensor-core rate."""
+    from tpulmi_torch.ops.probe_topk import probe_topk_int8q
+    from tpulmi_torch.ops.quantize import quantize_rows
+
+    st = hi.built.store
+    qf, lay = hier_on_path(hi, queries, p, dev)
+    q_codes, q_scales = quantize_rows(qf)
+    args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
+            lay.blocks, 20, 8)
+    ms = cuda_ms(lambda: probe_topk_int8q(*args), 20)
+    slots, rows = lay.slot_counts.double(), st.counts.double()
+    n_q = qf.shape[0]
+    ops = float(2 * D_SEARCH * (slots * rows).sum())
+    nbytes = (float(rows[slots > 0].sum()) * (D_SEARCH + 4)
+              + n_q * (D_SEARCH + 4) + lay.qidx.numel() * 4
+              + lay.blocks.numel() * 4 + n_q * p * 20 * 8)
+    peak_flops, peak_bw = peaks(name)
+    t_ops = ops / (peak_flops * INT8_OVER_BF16) * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    log(f"{tag} K3 (int8 x int8, k 20) at {p} probes over "
+        f"{st.n_categories} buckets, {n_q} queries: {ms:.4f} ms (CUDA "
+        f"events, mean of 20); {ops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
+        f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms; bound "
+        f"{max(t_ops, t_bytes):.4f} ms by "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'}")
+    return ms
+
+
+def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
+    """The hierarchical index at the JAX package's 20M configuration
+    (`hier_config`, bench_20m.py:188-206: 8 groups x 61 buckets = 488,
+    row_align 1024, int8 store, int8 queries, rerank depth 10). Cut in
+    scale only: the BIG_N rows and 122 data clusters of phase_hoststore's
+    corpus (phase_hier20m runs 20M rows and 244 clusters), ~4.1k rows a
+    bucket (~41k there). Steps: `hier_build` with a digest of what it
+    built; calibrate_outer_weight at 24 probes; `hier_sweep` of 10k host
+    queries against the float32 oracle; at the found budget
+    `hier_variants` and probe_mass 0.95 / 0.9; search_stream over 4
+    batches, each equal to search; one save / load; a device-store
+    HierarchicalIndex.build of the main data (2 x 61 buckets) searched in
+    bfloat16 at 2 probes (K1) beside the flat index. Every kernel of the
+    path must launch. Then `hier_hold` on all 10k queries and K1 on the
+    device store against its plain version; their errors go into `errs`.
+    Last, K3's time at the found budget. Launches made after the path's
+    count was read are not counted."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import (HierarchicalConfig, HierarchicalIndex,
+                              IndexConfig, SearchConfig)
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.ops.probe_topk import (launch_counts, probe_topk,
+                                             probe_topk_plain,
+                                             reset_launch_counts)
+    from tpulmi_torch.search import route_probes, routing_logits
+
+    tag = "[hier]"
+    corpus = big["data_search"]
+    queries = qn, qs = big["queries_nav"], big["queries_search"]
+    reset_launch_counts()
+    hi, pred = hier_build(tag, big, dev)
+    st = hi.built.store
+    hier_calibrate(tag, hi, big["data_nav"])
+    search = hier_searcher(hi, queries)
+    p, dense = hier_sweep(tag, search, {"float32": gt_big}, st.n_categories,
+                          " (the JAX package's 20M run: 0.9105 at 8, "
+                          "BENCH_20M.md)")
+    hier_variants(tag, search, p, dense, queries, corpus, gt_big)
+    with torch.no_grad():
+        logits, mass = routing_logits(hi.built.classifier.model,
+                                      torch.as_tensor(qn, device=dev),
+                                      need_mass=True)
+    for m in (0.95, 0.9):
+        d, ids, secs, _ = search(p, probe_mass=m)
+        kept = route_probes(logits, p, probe_mass=m, dump_id=st.n_categories,
+                            mass_logits=mass)
+        kept = float((kept < st.n_categories).float().sum(1).mean())
+        log(f"{tag} probe_mass {m} at {p} probes: recall@10 "
+            f"{recall_at_k(ids - 1, gt_big, 10):.4f}, {kept:.2f} probes kept "
+            f"a query on average; {secs:.4f}s")
+
+    # ---- serving ----
+    batches = [(np.roll(qn, -2500 * i, axis=0), np.roll(qs, -2500 * i,
+                                                        axis=0))
+               for i in range(4)]
+    kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
+        k=10, n_buckets=p, int8_queries=True, rerank_extra=10,
+        pallas_mc=1024))
+    want = [hi.search(*b, **kw) for b in batches]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = list(hi.search_stream(batches, depth=STREAM_DEPTH, **kw))
+    stream_s = time.perf_counter() - t
+    if len(got) != len(batches):
+        raise AssertionError(f"the stream gave {len(got)} results")
+    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
+        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
+            raise AssertionError(f"stream batch {i} differs from search")
+    log(f"{tag} search_stream: {len(batches)} batches of {N_QUERIES} equal "
+        f"to search; {stream_s:.4f}s")
+
+    # ---- checkpoint ----
+    path = os.path.join(cache, "hier_ckpt")
+    t = time.perf_counter()
+    hi.save(path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = HierarchicalIndex.load(path, device=dev)
+    load_s = time.perf_counter() - t
+    # the build's RAM copy of the corpus has no file to record: reattach
+    # it (checked against the checkpoint's fingerprint)
+    back.attach_host_corpus(hi._host_corpus[0])
+    a, b = hi.built.classifier.model, back.built.classifier.model
+    if (a.outer_weight, a.mass_temp) != (b.outer_weight, b.mass_temp):
+        raise AssertionError("the checkpoint lost the outer weight or the "
+                             "mass temperature")
+    d1, i1 = hi.search(qn, qs, **kw)
+    d2, i2 = back.search(qn, qs, **kw)
+    if not (np.array_equal(i1, i2) and np.array_equal(d1, d2)):
+        raise AssertionError("the restored index searches differently")
+    log(f"{tag} save {save_s:.2f}s, load {load_s:.2f}s, corpus reattached:"
+        f" outer weight, mass_temp and results equal")
+    del back, a, b
+
+    # ---- the device store, small ----
+    n_cat = hier_config().inner.n_categories
+    small = HierarchicalIndex(HierarchicalConfig(
+        n_groups=2, outer_epochs=12, calibrate_budget=2,
+        inner=IndexConfig(n_categories=n_cat, epochs=12, lr=0.003,
+                          model_type="MLP-5", batch_size=1024, seed=SEED)),
+        device=dev)
+    _, small_s = small.build(ds["data_nav"], ds["data_search"])
+    host = (ds["queries_nav"], ds["queries_search"])
+    small_rec = recall_at_k(small.search(*host, n_buckets=2, k=10)[1] - 1,
+                            gt, 10)
+    flat_rec = recall_at_k(index.search(*host, n_buckets=2, k=10)[1] - 1,
+                           gt, 10)
+    log(f"{tag} device store, main data, 2 x {n_cat} buckets: build "
+        f"{small_s:.2f}s; bfloat16 search at 2 probes recall@10 "
+        f"{small_rec:.4f} (the flat index, 122 buckets: {flat_rec:.4f})")
+
+    # ---- every kernel of the path launched ----
+    launches = launch_counts()
+    for kname in ("probe_topk", "probe_topk_quant_int8",
+                  "probe_topk_int8q_int8", "probe_worklist", "merge_items",
+                  "probe_pool", "probe_pair"):
+        if not launches[kname] > 0:
+            raise AssertionError(f"the hierarchical phase launched no "
+                                 f"{kname}")
+    log(f"{tag} launches {({n: c for n, c in launches.items() if c})}")
+
+    # ---- each kernel against its plain version on the path's inputs
+    # (these launches come after the count was read) ----
+    hier_hold(tag, hi, queries, p, dev, errs)
     sst = small.built.store
-    qf1, lay1 = on_path(small.built.classifier.model, ds["queries_nav"],
-                        ds["queries_search"], 2, sst)
+    qf1, lay1 = hier_on_path(small, host, 2, dev)
     q1, data1 = qf1.to(torch.bfloat16), sst.data_as(torch.bfloat16)
     full = (q1, lay1.qidx, data1, lay1.blocks, 10)
-    hold("probe_topk", compare(
-        probe_topk(*full), probe_topk_plain(*full), own_full(q1, data1),
-        lay1, N_QUERIES * 2, DIST_TOL),
-        f"(bfloat16, k 10) at 2 probes over the device store's "
-        f"{sst.n_categories} buckets")
-    log(f"[hier] the kernels against their plain versions on the path's "
-        f"inputs: {time.perf_counter() - t:.1f}s")
-    del small, sst, data1, full, quant
-
-    # ---- K3 at the found budget, timed apart ----
-    ms = cuda_ms(lambda: probe_topk_int8q(*args, k_eff, 8), 20)
-    slots, rows = lay.slot_counts.double(), st.counts.double()
-    ops = float(2 * D_SEARCH * (slots * rows).sum())
-    nbytes = float(rows[slots > 0].sum()) * (D_SEARCH + 4)
-    peak_flops, peak_bw = peaks(name)
-    bound = max(ops / (peak_flops * INT8_OVER_BF16), nbytes / peak_bw) * 1e3
-    log(f"[hier] K3 (int8 x int8, k_out 20) at {p} probes over "
-        f"{st.n_categories} buckets: {ms:.4f} ms (CUDA events, mean of 20); "
-        f"{ops / 1e9:.2f} GOP, {nbytes / 1e9:.4f} GB of probed rows; bound "
-        f"{bound:.4f} ms")
+    err = compare(probe_topk(*full), probe_topk_plain(*full),
+                  own_full(q1, data1), lay1, N_QUERIES * 2, DIST_TOL)
+    errs["probe_topk"] = max(errs.get("probe_topk", 0.0), err)
+    log(f"{tag} probe_topk (bfloat16, k 10) at 2 probes over the device "
+        f"store's {sst.n_categories} buckets: equal to its plain version "
+        f"but for ties, max |err| {err:.3g}")
+    del small, sst, data1, full
+    hier_k3_time(tag, hi, queries, p, dev, name)
     # what phase_shard holds its mesh build to; the flat store stays on
     # the card until then
-    ref = dict(cfg=cfg, pred=pred, store=st, p=p, dense=dense,
+    ref = dict(cfg=hier_config(), pred=pred, store=st, p=p, dense=dense,
                outer_weight=hi.built.classifier.model.outer_weight,
                mass_temp=hi.built.classifier.model.mass_temp)
-    del hi, dense, args
+    del hi, dense
     gc.collect()
     torch.cuda.empty_cache()
     return launches, ref
+
+
+def host_memory() -> str:
+    """This process's resident memory (with its anonymous and file-mapped
+    parts and its peak, where the kernel reports them) and its control
+    group's use, GB."""
+    names = {"VmRSS": "resident", "RssAnon": "anonymous",
+             "RssFile": "file-mapped", "VmHWM": "peak"}
+    parts = []
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in names:
+                parts.append(f"{names[key]} "
+                             f"{int(val.split()[0]) * 1024 / 1e9:.2f} GB")
+    group = "not reported"
+    for path in ("/sys/fs/cgroup/memory.current",
+                 "/sys/fs/cgroup/memory/memory.usage_in_bytes"):
+        try:
+            with open(path) as f:
+                group = f"{int(f.read()) / 1e9:.1f} GB"
+            break
+        except (OSError, ValueError):
+            continue
+    return (f"{', '.join(parts) or 'resident memory not reported'}; "
+            f"control group {group}")
+
+
+def host_resources(path) -> str:
+    """The host's RAM (total, available), the free disk under `path` and
+    the core count."""
+    import os
+    import shutil
+
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            mem[key] = int(val.split()[0]) * 1024
+    disk = shutil.disk_usage(path)
+    return (f"RAM {mem['MemTotal'] / 1e9:.1f} GB ("
+            f"{mem.get('MemAvailable', 0) / 1e9:.1f} GB available), free "
+            f"disk under {path} {disk.free / 1e9:.1f} of "
+            f"{disk.total / 1e9:.1f} GB, {os.cpu_count()} cores")
+
+
+def phase_hier20m(dev, name, errs):
+    """The hierarchical index at the JAX package's own 20M configuration,
+    uncut (bench_20m.py:67-75, 188-206: HIER20M_N rows of 768 and 96
+    features in 244 data clusters, seed 2023, 10k queries; `hier_config`'s
+    8 x 61 buckets; int8 store and queries, rerank depth 10), in a
+    temporary directory of its own that is removed at the end. Steps: the
+    host's RAM, disk and cores; synthetic_dataset_big(backend="device"),
+    its seconds by stage and GB written a second; the streamed exact
+    oracle (exact_knn_streamed) in float32 and in bfloat16, seconds and
+    GB/s each; `hier_build`; calibrate_outer_weight at 24 probes beside the
+    JAX package's containment; `hier_sweep` against both oracles until the
+    float32 one's recall@10 reaches 0.90 (the phase fails if none does);
+    `hier_variants` at that budget; every kernel of the path launched;
+    `hier_hold` on the first HIER20M_HOLD queries (the plain worklist walks
+    its items one by one); K3's time and bound; the peak card memory.
+    Launches made after the path's count was read are not counted."""
+    import gc
+    import logging
+    import torch
+    from tpulmi_torch.baseline import exact_knn_streamed
+    from tpulmi_torch.data import synthetic_dataset_big
+    from tpulmi_torch.hoststore import release_pages
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+
+    tag = "[hier20m]"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory() as cache:
+        log(f"{tag} host: {host_resources(cache)}; {host_cpu_line()}; "
+            f"{host_memory()}")
+
+        # ---- the corpus, made on the card ----
+        lines = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        handler = Keep()
+        logging.getLogger("tpulmi_torch.data").addHandler(handler)
+        t = time.perf_counter()
+        try:
+            big = synthetic_dataset_big(
+                n=HIER20M_N, n_queries=N_QUERIES, d_nav=D_NAV,
+                d_search=D_SEARCH, n_clusters=244, seed=SEED,
+                cache_dir=cache, backend="device", device=dev)
+        finally:
+            logging.getLogger("tpulmi_torch.data").removeHandler(handler)
+        gen_s = time.perf_counter() - t
+        corpus = big["data_search"]
+        written = corpus.nbytes + big["data_nav"].nbytes
+        log(f"{tag} synthetic_dataset_big(backend='device'): "
+            f"{corpus.shape[0]} x {D_SEARCH} bfloat16 + {D_NAV} float32 "
+            f"navigation features, {written / 1e9:.2f} GB written in "
+            f"{gen_s:.2f}s = {written / gen_s / 1e9:.2f} GB/s; "
+            + "; ".join(s for s in lines if "rows written" in s)
+            + f"; {host_memory()}")
+
+        # ---- the streamed exact oracles ----
+        qs = big["queries_search"]
+        gts = {}
+        for label, dtype in (("float32", torch.float32),
+                             ("bf16-input", torch.bfloat16)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, ids = exact_knn_streamed(qs, corpus, k=10,
+                                        chunk=STREAM_CHUNK,
+                                        compute_dtype=dtype, device=dev)
+            secs = time.perf_counter() - t
+            gts[label] = ids
+            log(f"{tag} exact_knn_streamed in {label}: "
+                f"{-(-corpus.shape[0] // STREAM_CHUNK)} blocks of "
+                f"{STREAM_CHUNK} rows, {N_QUERIES} queries, {secs:.2f}s = "
+                f"{corpus.nbytes / secs / 1e9:.2f} GB/s host to card; "
+                f"{host_memory()}")
+        # the build copies the corpus into RAM: the pages the oracles read
+        # would count beside the copy against the process's memory
+        release_pages(corpus)
+        log(f"{tag} the corpus's pages released: {host_memory()}")
+
+        # ---- the build, the calibration, the sweep ----
+        reset_launch_counts()
+        hi, _ = hier_build(tag, big, dev)
+        n_buckets = hi.built.store.n_categories
+        log(f"{tag} after the build: {host_memory()}")
+        hier_calibrate(tag, hi, big["data_nav"],
+                       " (the JAX package's 20M run: 0.9019 at w=1, "
+                       "0.9805 at w 0.25, BENCH_20M.md round 3; 0.8467 and "
+                       "0.9819 in round 4)")
+        queries = (big["queries_nav"], qs)
+        search = hier_searcher(hi, queries)
+        p, dense = hier_sweep(tag, search, gts, n_buckets,
+                              " (the JAX package's 20M run against its "
+                              "bf16-input oracle: 8 at 0.9105 in round 3, "
+                              "12 at 0.9302 in round 4, BENCH_20M.md)")
+        hier_variants(tag, search, p, dense, queries, corpus, gts["float32"])
+        launches = launch_counts()
+        for kname in ("probe_topk_quant_int8", "probe_topk_int8q_int8",
+                      "probe_worklist", "merge_items", "probe_pool",
+                      "probe_pair"):
+            if not launches[kname] > 0:
+                raise AssertionError(f"phase hier20m launched no {kname}")
+        log(f"{tag} launches {({n: c for n, c in launches.items() if c})}")
+
+        # ---- the kernels on the path's inputs ----
+        hier_hold(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p, dev,
+                  errs)
+        hier_k3_time(tag, hi, queries, p, dev, name)
+        del hi, search, dense, big, corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"{tag} {host_memory()}")
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f}s; peak card "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, of "
+        f"which earlier phases held {held / 1e9:.2f} GB; {name}")
 
 
 def hold_shards(sstore, probes, qf, *, k, compute_dtype, int8_queries,
@@ -3270,29 +3648,48 @@ def main(args) -> int:
     log(f"[device] {name}; {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t0:.1f}s")
+
     phase_build()
-    kernel_errs = phase_variants(dev, phase_kernels(dev))
+    done("build")
+    kernel_errs = phase_far(dev, phase_variants(dev, phase_kernels(dev)))
+    done("kernels")
     if "--kernels-only" in args:
         log("[kernels] --kernels-only: stopping after the kernel checks")
         return 0
     index, ds, main_launches, gt, f32_recall = phase_main(dev)
+    done("main")
     quant_launches, stores = phase_quantized(index, ds, dev, gt, f32_recall)
+    done("quantized")
     serving_launches = phase_serving(index, stores, ds, dev, gt,
                                      "--profile" in args)
+    done("serving")
     # the 2M corpus of the hoststore phase serves the hier phase too
     with tempfile.TemporaryDirectory() as cache:
         big, gt_big = phase_hoststore(index, ds, dev, gt, cache)
+        done("hoststore")
         _, hier = phase_hier(index, ds, dev, gt, big, gt_big, cache, name,
                              kernel_errs)
+        done("hier")
         phase_shard(index, stores, ds, dev, gt, big, gt_big, hier, cache,
                     kernel_errs)
+        done("shard")
         del hier
         phase_baseline(ds, dev, gt, big, gt_big)
+        done("baseline")
         del big
+    phase_hier20m(dev, name, kernel_errs)
+    done("hier20m")
     phase_prune(index, stores, ds, dev)
+    done("prune")
     phase_cli(index, ds, dev, gt)
+    done("cli")
     timing = phase_timing(index, stores, ds, dev, name)
     phase_timing_skewed(dev)
+    done("timing")
     if "--profile" in args:
         phase_stages(index, ds, dev)
 

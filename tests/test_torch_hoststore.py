@@ -136,6 +136,56 @@ def test_ensure_in_ram(tmp_path, monkeypatch):
     assert ensure_in_ram(x) is x
 
 
+def _rss_file_bytes():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssFile:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no RssFile in /proc/self/status")
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_ensure_in_ram_releases_the_map_slice_by_slice(tmp_path, monkeypatch,
+                                                      kind):
+    """The copy goes slice by slice, each slice's pages dropped from this
+    process once copied: the copy equals the map, and the map's pages do
+    not stay resident beside it."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(40_000, 256)).astype(np.float32)   # 41 MB
+    np.save(tmp_path / "x.npy", x.view(np.uint16) if kind == "bfloat16"
+            else x)
+    mm = np.load(tmp_path / "x.npy", mmap_mode="r")
+    src = HostBF16(mm) if kind == "bfloat16" else mm
+    monkeypatch.setattr(hoststore, "COPY_SLICE_BYTES", 1 << 20)
+    before = _rss_file_bytes()
+    got = ensure_in_ram(src)
+    assert _rss_file_bytes() - before < 8 << 20
+    assert not hoststore.is_memory_mapped(got)
+    np.testing.assert_array_equal(getattr(got, "bits", got),
+                                  getattr(src, "bits", src))
+    # released pages read back as they were, and other arrays are left alone
+    np.testing.assert_array_equal(np.asarray(mm[-5:]), np.load(
+        tmp_path / "x.npy")[-5:])
+    hoststore.release_pages(x)
+    cow = np.load(tmp_path / "x.npy", mmap_mode="c")
+    cow[0, 0] = 7
+    hoststore.release_pages(cow)
+    assert cow[0, 0] == 7
+
+
+def test_ram_size_takes_the_control_groups_limit(tmp_path, monkeypatch):
+    limit = tmp_path / "memory.max"
+    limit.write_text("12345678\n")
+    monkeypatch.setattr(hoststore, "CGROUP_LIMITS",
+                        (str(tmp_path / "absent"), str(limit)))
+    assert hoststore._mem_total_bytes() == 12345678
+    limit.write_text("max\n")                         # no limit: the RAM
+    total = hoststore._mem_total_bytes()
+    assert total is not None and total > 12345678
+    monkeypatch.setattr(hoststore, "CGROUP_LIMITS", (str(limit),))
+    assert hoststore._mem_total_bytes() == total
+
+
 @pytest.mark.parametrize("store", ["bfloat16", "float32", "int8", "int4"])
 def test_layout_and_upload_overlap_equals_blocking(store, caplog):
     import logging
@@ -229,6 +279,13 @@ def test_synthetic_big_cache_equals_reference(tmp_path):
     np.testing.assert_array_equal(again["data_search"].bits,
                                   got["data_search"].bits)
     np.testing.assert_array_equal(again["queries_nav"], got["queries_nav"])
-    with pytest.raises(NotImplementedError, match="jax.random"):
-        synthetic_dataset_big(cache_dir=str(tmp_path / "dev"),
-                              backend="device", **kw)
+    # the device generator takes neither package's host cache for its own:
+    # it writes its own tag beside them
+    dev = synthetic_dataset_big(cache_dir=str(tmp_path / "ref"),
+                                backend="device", device="cpu", **kw)
+    mine = sorted(p.name for p in (tmp_path / "ref").iterdir()
+                  if p.name not in names)
+    assert len(mine) == 4 and all("_s3_tcpu_" in n for n in mine)
+    assert dev["data_search"].shape == got["data_search"].shape
+    assert not np.array_equal(dev["data_search"].bits,
+                              got["data_search"].bits)

@@ -117,9 +117,11 @@ def test_new_sources_are_covered():
     assert "def phase_shard" in smoke and "init_distributed" in smoke
     assert "def phase_baseline" in smoke and "exact_knn_streamed" in smoke
     assert "def phase_cli" in smoke and "tpulmi_torch.cli" in smoke
+    assert "def phase_far" in smoke and "def phase_hier20m" in smoke
+    assert 'backend="device"' in smoke
 
 
-def test_default_device_without_card_raises(monkeypatch):
+def test_default_device_without_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LearnedIndex()
@@ -144,6 +146,11 @@ def test_default_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lr_sweep("MLP", np.zeros((16, 8), np.float32),
                        np.arange(16) % 2, (0.01,))
+    from tpulmi_torch.data import synthetic_dataset_big
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_dataset_big(100, 4, d_nav=4, d_search=8, n_clusters=2,
+                              cache_dir=str(tmp_path), backend="device")
 
 
 def test_exports():

@@ -1032,3 +1032,163 @@ def test_mesh_built_index_keeps_no_flat_copy_on_card(card, sharded_data):
     d, ids = li.search(ds["queries_nav"], ds["queries_search"], n_buckets=3,
                        search_config=SearchConfig(int8_queries=True))
     assert d.shape == (500, 10) and np.isfinite(d).all()
+
+
+# ------------------------------------------ a store past element 2**31
+FAR = 2 ** 31 // 768 + 1     # the first row whose first element lies past
+
+
+@pytest.fixture(scope="module")
+def far_store():
+    """A 768-wide store whose bucket 0 fills the first FAR rows with zeros
+    and whose 16 probed buckets (random unit rows) all lie past element
+    2**31: 2.9M rows, 4.5 GB in bfloat16 and 2.2 GB of int8 codes; 1000
+    queries at 2 probes, some slots dumped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    d, n_cat, q, p = 768, 16, 1000, 2
+    sizes = [int(s) for s in np.random.default_rng(31).integers(
+        1, 12000, size=n_cat)]
+    sizes[2] = 3
+    tail = torch.randn((sum(sizes), d), generator=gen, device=dev)
+    tail = tail / tail.norm(dim=1, keepdim=True)
+    data = torch.zeros((FAR + tail.shape[0], d), dtype=torch.bfloat16,
+                       device=dev)
+    data[FAR:] = tail.to(torch.bfloat16)
+    codes = torch.zeros((data.shape[0], d), dtype=torch.int8, device=dev)
+    scales = torch.ones(data.shape[0], device=dev)
+    codes[FAR:], scales[FAR:] = quantize_rows(data[FAR:])
+    counts = torch.tensor([FAR] + sizes, dtype=torch.int32, device=dev)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(counts.long(), 0)]).int()
+    qf = torch.randn((q, d), generator=gen, device=dev)
+    qf = qf / qf.norm(dim=1, keepdim=True)
+    probes = 1 + torch.argsort(torch.rand((q, n_cat), generator=gen,
+                                          device=dev), dim=1)[:, :p]
+    probes[:100, 1] = n_cat + 1                  # dumped slots
+    lay = group_slots(probes.int(), offsets, counts)
+    qc, qs = quantize_rows(qf)
+    return dict(data=data, codes=codes, scales=scales, counts=counts,
+                q=qf.to(torch.bfloat16), qc=qc, qs=qs, lay=lay,
+                n_slots=q * p)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
+def test_kernels_past_element_2_31(far_store, kernel):
+    """Each kernel on buckets that begin past element 2**31 of the store
+    against its plain version: the rows of a 32-bit offset would wrap."""
+    from tpulmi_torch.ops.probe_topk import merge_items, merge_items_plain
+
+    f = far_store
+    lay, k = f["lay"], 10
+    int8q = (f["qc"], f["qs"], lay.qidx, f["codes"], f["scales"],
+             lay.blocks)
+    items = int(build_worklist(lay.blocks, 1 << 20, 1024)[2])
+    if kernel == "K1":
+        args = (f["q"], lay.qidx, f["data"], lay.blocks, k)
+        kern, plain, tol = probe_topk(*args), probe_topk_plain(*args), 1e-4
+    elif kernel == "K2":
+        args = (f["q"], lay.qidx, f["codes"], f["scales"], lay.blocks, k, 8)
+        kern, plain = probe_topk_quant(*args), probe_topk_quant_plain(*args)
+        tol = 1e-4
+    else:
+        opts = {"K3": {}, "K4": dict(wl_pad=items, item_rows=1024),
+                "K5": dict(k_out=20), "K6": dict(pair=True)}[kernel]
+        kern = probe_topk_int8q(*int8q, k, 8, **opts)[:2]
+        plain = probe_topk_int8q_plain(*int8q, k, 8, **opts)[:2]
+        tol = 1e-5
+    live = lay.slot_of_row < f["n_slots"]
+    ids = kern[1][live]
+    assert bool(((ids < 0) | (ids >= FAR)).all())
+    assert bool((ids >= 0).any())
+    if kernel == "K5":
+        # the pool's extras: ascending, each id once, each carrying its
+        # own distance (recomputed from codes and scales)
+        d, i = kern[0][live], kern[1][live]
+        assert bool((d[:, 1:] >= d[:, :-1]).all())
+        srt = torch.sort(i, dim=1).values
+        assert not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0))
+                        .any())
+        qi, ic = lay.qidx[live].long(), torch.clamp(i, min=0).long()
+        sims = torch.einsum("rd,rkd->rk", f["qc"][qi].float(),
+                            f["codes"][ic].float())
+        own = 1.0 - sims * f["scales"][ic] / 127.0 * (
+            f["qs"][qi] / 127.0)[:, None]
+        assert bool(((own - d).abs() <= 1e-4)[i >= 0].all())
+        kern, plain = (kern[0][:, :k], kern[1][:, :k]), (plain[0][:, :k],
+                                                         plain[1][:, :k])
+    _check(kern, plain, lay, f["n_slots"], tol)
+    if kernel == "K4":
+        parts = probe_topk_int8q(*int8q, k, 8, wl_pad=items, item_rows=1024,
+                                 merge=False)
+        got = merge_items(lay.blocks, parts, k)
+        want = merge_items_plain(lay.blocks, parts, k)
+        assert torch.equal(got[0][live], want[0][live])
+        assert torch.equal(got[1][live], want[1][live])
+
+
+# ------------------------------------------- the corpus made on the card
+@pytest.fixture(scope="module")
+def big_on_card(tmp_path_factory):
+    """synthetic_dataset_big(backend="device") twice on the card, into two
+    caches: 200k rows at the 20M run's widths, 24 clusters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the generator runs on the card)")
+    from tpulmi_torch.data import synthetic_dataset_big
+
+    root = tmp_path_factory.mktemp("big")
+    kw = dict(n=200_000, n_queries=500, d_nav=96, d_search=768,
+              n_clusters=24, seed=5, chunk=65_536)
+    runs = [synthetic_dataset_big(cache_dir=str(root / s), backend="device",
+                                  **kw) for s in ("a", "b")]
+    return root, kw, runs
+
+
+def test_device_generator_repeats_its_bits_on_card(big_on_card):
+    root, _, _ = big_on_card
+    names = sorted(p.name for p in (root / "a").iterdir())
+    assert len(names) == 4 and all("_s5_tcuda_" in n for n in names)
+    for name in names:
+        assert (root / "a" / name).read_bytes() == (
+            root / "b" / name).read_bytes(), name
+
+
+def test_device_generator_cache_is_read_back_on_card(big_on_card,
+                                                     monkeypatch):
+    from tpulmi_torch import data as tdata
+
+    root, kw, (made, _) = big_on_card
+    monkeypatch.setattr(tdata, "chunk_noise", None)   # nothing generates
+    back = tdata.synthetic_dataset_big(cache_dir=str(root / "a"),
+                                       backend="device", **kw)
+    np.testing.assert_array_equal(back["data_search"].bits,
+                                  made["data_search"].bits)
+    np.testing.assert_array_equal(back["data_nav"], made["data_nav"])
+    np.testing.assert_array_equal(back["queries_search"],
+                                  made["queries_search"])
+
+
+def test_device_generator_matches_the_host_backend_on_card(big_on_card):
+    """The two backends share the draws, not the noise: the mean cosine of
+    each cluster's rows to its center agrees within 0.005 (its standard
+    error at >= 1000 rows a cluster is ~1e-3)."""
+    from tpulmi_torch.data import _big_draws, synthetic_dataset_big
+
+    root, kw, (dev_run, _) = big_on_card
+    host = synthetic_dataset_big(cache_dir=str(root / "h"), backend="host",
+                                 **kw)
+    assign, _, centers, _, _ = _big_draws(
+        kw["n"], kw["n_queries"], kw["d_nav"], kw["d_search"],
+        kw["n_clusters"], kw["seed"], 0.9, 1.5)
+    means = []
+    for run in (dev_run, host):
+        rows = np.asarray(run["data_search"], np.float32)
+        cos = np.einsum("nd,nd->n", rows, centers[assign])
+        means.append(np.bincount(assign, cos, minlength=kw["n_clusters"])
+                     / np.maximum(np.bincount(assign, minlength=kw[
+                         "n_clusters"]), 1))
+    big = np.bincount(assign, minlength=kw["n_clusters"]) >= 1000
+    assert big.sum() >= 5
+    assert np.abs(means[0] - means[1])[big].max() <= 0.005

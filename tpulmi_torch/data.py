@@ -1,19 +1,26 @@
-"""Host-side data layer (numpy and h5py only): normalization, SISAP h5
-loading, the SISAP result writer, and the synthetic clustered datasets.
+"""Data layer: normalization, SISAP h5 loading, the SISAP result writer,
+and the synthetic clustered datasets.
 
 `synthetic_dataset` gives the same arrays as the JAX package's for the same
 arguments and seed, and `synthetic_dataset_big(backend="host")` the same
-files: the two packages read each other's caches. Fetching the SISAP files
-is not part of this package: `load_dataset` reads them from ``data_dir``.
+files: the two packages read each other's caches.
+`synthetic_dataset_big(backend="device")` makes its chunks on the card
+(torch). Fetching the SISAP files is not part of this package:
+`load_dataset` reads them from ``data_dir``.
 """
 
+import contextlib
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from tpulmi_torch.utils.logging import get_logger
+from tpulmi_torch.utils.profiling import resolve_device, sync
 
 log = get_logger("tpulmi_torch.data")
 
@@ -143,6 +150,10 @@ def synthetic_dataset(
     }
 
 
+# the queries' random stream in both big generators: no chunk has this index
+QUERY_STREAM = 1_000_003
+
+
 def synthetic_dataset_big(
     n: int,
     n_queries: int,
@@ -155,84 +166,99 @@ def synthetic_dataset_big(
     cache_dir: str = ".bench_cache",
     chunk: int = 1_000_000,
     backend: str = "host",
+    device="cuda",
 ) -> Dict[str, object]:
-    """Multi-million-row variant of `synthetic_dataset`, generated on the
-    host in chunks straight into an on-disk ``.npy`` cache: the search
-    vectors as bfloat16 (stored as uint16 bits), the navigation view as
-    float32. Returns memory maps: ``data_search`` as a
+    """Multi-million-row variant of `synthetic_dataset`, generated in
+    chunks straight into an on-disk ``.npy`` cache: the search vectors as
+    bfloat16 (stored as uint16 bits), the navigation view as float32.
+    Returns memory maps: ``data_search`` as a
     `tpulmi_torch.hoststore.HostBF16` over the cache file, ``data_nav`` as a
     float32 memory map; the queries as float32 arrays (the search queries
     rounded through bfloat16 and normalized again). All views are
-    L2-normalized.
+    L2-normalized. Both backends draw the cluster weights, assignments,
+    centers and projection from ``np.random.default_rng(seed)`` in the JAX
+    package's order, and give each chunk a random stream of its own, so a
+    killed generation resumes at its first unwritten chunk (a sidecar
+    marker records the rows done). Statistically they match
+    `synthetic_dataset`; the per-chunk streams give other values.
 
-    The generator streams, file names, tag and format are the JAX package's
-    ``backend="host"`` ones, so each package reads the other's cache, and a
-    killed generation resumes at its first unwritten chunk. Statistically it
-    matches `synthetic_dataset`, but per-chunk random streams give other
-    values. ``backend="device"`` (the JAX package's generator on the
-    accelerator, through ``jax.random``) is not ported: it loads an
-    existing cache and raises NotImplementedError where it would generate.
+    ``backend="host"``: numpy on the host. Its streams, file names, tag
+    (``_h``) and format are the JAX package's ``backend="host"`` ones, so
+    each package reads the other's cache.
+
+    ``backend="device"``: the JAX package's generator on the accelerator,
+    here on ``device`` (default "cuda"; without a card that raises, nothing
+    moves to the CPU). The draws go to the device once; each chunk's noise
+    comes from a `torch.Generator` on the device seeded from (seed, chunk
+    index) alone, and `gen_chunk` makes the chunk as the JAX package does.
+    One device type gives the same bits in every run; jax.random gives
+    other ones, so the tag records this generator and the device type
+    (``_tcuda``, ``_tcpu``), and a cache of the JAX package's device
+    generator (no suffix) is not loaded here. Chunks come back through
+    pinned buffers into the memory maps while the next one is made; the
+    seconds of each stage are logged.
     """
-    from tpulmi_torch.hoststore import HostBF16
-
-    os.makedirs(cache_dir, exist_ok=True)
     tag = f"big_n{n}_q{n_queries}_dn{d_nav}_ds{d_search}_c{n_clusters}_s{seed}"
     if backend == "host":
         tag += "_h"
+    elif backend == "device":
+        device = resolve_device(device)
+        tag += f"_t{device.type}"
+    else:
+        raise ValueError(f"backend must be 'host' or 'device', got "
+                         f"{backend!r}")
+    os.makedirs(cache_dir, exist_ok=True)
     paths = {k: os.path.join(cache_dir, f"{tag}_{k}.npy")
              for k in ("data_nav", "data_search", "queries_nav",
                        "queries_search")}
     if all(os.path.exists(p) for p in paths.values()):
         log.info("loaded cached big dataset %s", tag)
-        return {
-            "data_nav": np.load(paths["data_nav"], mmap_mode="r"),
-            "data_search": HostBF16(np.load(paths["data_search"],
-                                            mmap_mode="r")),
-            "queries_nav": np.load(paths["queries_nav"]),
-            "queries_search": np.load(paths["queries_search"]),
-        }
-    if backend != "host":
-        raise NotImplementedError(
-            f"synthetic_dataset_big(backend={backend!r}) generates with "
-            "jax.random and is not ported (ROADMAP.md); use backend='host'")
-    return _synthetic_big_host(n, n_queries, d_nav, d_search, n_clusters, seed,
-                               cluster_std, skew, chunk, paths)
+        return _load_big(paths)
+    t = time.perf_counter()
+    draws = _big_draws(n, n_queries, d_nav, d_search, n_clusters, seed,
+                       cluster_std, skew)
+    draws_s = time.perf_counter() - t
+    if backend == "host":
+        _synthetic_big_host(draws, seed, chunk, paths)
+    else:
+        _synthetic_big_device(draws, seed, chunk, paths, device, draws_s)
+    return _load_big(paths)
 
 
-def _synthetic_big_host(n, n_queries, d_nav, d_search, n_clusters, seed,
-                        cluster_std, skew, chunk, paths):
-    """The chunked host generator of `synthetic_dataset_big`: writes the
-    ``.npy`` cache as memory maps and returns read-only maps of it."""
-    from tpulmi_torch.hoststore import (HostBF16, bf16_bits_to_f32,
-                                        f32_to_bf16_bits)
+def _load_big(paths):
+    from tpulmi_torch.hoststore import HostBF16
 
+    return {
+        "data_nav": np.load(paths["data_nav"], mmap_mode="r"),
+        "data_search": HostBF16(np.load(paths["data_search"],
+                                        mmap_mode="r")),
+        "queries_nav": np.load(paths["queries_nav"]),
+        "queries_search": np.load(paths["queries_search"]),
+    }
+
+
+def _big_draws(n, n_queries, d_nav, d_search, n_clusters, seed, cluster_std,
+               skew):
+    """The numpy-side draws of both big generators, in the JAX package's
+    order: (assignments, query assignments, unit centers, projection,
+    noise scale as float32)."""
     rng = np.random.default_rng(seed)
     weights = rng.random(n_clusters) ** skew
     weights /= weights.sum()
     assignments = rng.choice(n_clusters, size=n, p=weights).astype(np.int32)
     q_assign = rng.choice(n_clusters, size=n_queries, p=weights).astype(
         np.int32)
-
     centers = rng.normal(size=(n_clusters, d_search)).astype(np.float32)
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
     proj = rng.normal(size=(d_search, d_nav)).astype(np.float32) / np.sqrt(
         d_search)
-    noise_scale = np.float32(cluster_std / np.sqrt(d_search))
+    return (assignments, q_assign, centers, proj,
+            np.float32(cluster_std / np.sqrt(d_search)))
 
-    def gen_chunk(stream_key, assign_chunk):
-        rs = np.random.default_rng([seed, 11, stream_key])
-        x = centers[assign_chunk]
-        x += noise_scale * rs.standard_normal(x.shape, dtype=np.float32)
-        x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True),
-                        np.float32(1e-12))
-        nav = x @ proj
-        nav /= np.maximum(np.linalg.norm(nav, axis=1, keepdims=True),
-                          np.float32(1e-12))
-        return x, nav
 
-    # Per-chunk random streams do not depend on the order chunks finish in,
-    # so a killed generation resumes at the first unwritten chunk (the
-    # sidecar marker records the rows done).
+def _open_big_cache(paths, n, d_search, d_nav):
+    """The two memory maps a generator writes, the rows a killed
+    generation already wrote (its marker) and the marker's path."""
     marker = paths["data_search"] + ".progress"
     done_rows = 0
     if (os.path.exists(marker) and os.path.exists(paths["data_search"])
@@ -257,6 +283,46 @@ def _synthetic_big_host(n, n_queries, d_nav, d_search, n_clusters, seed,
             shape=(n, d_search))
         dn_mm = np.lib.format.open_memmap(
             paths["data_nav"], mode="w+", dtype=np.float32, shape=(n, d_nav))
+    return ds_mm, dn_mm, done_rows, marker
+
+
+def _mark(marker, rows):
+    with open(marker, "w") as f:
+        f.write(str(rows))
+
+
+def _save_queries(paths, q_bits, q_nav):
+    """The queries' files: the search queries go through bfloat16 and are
+    normalized again in float32."""
+    from tpulmi_torch.hoststore import bf16_bits_to_f32
+
+    qx = bf16_bits_to_f32(q_bits)
+    qx /= np.maximum(np.linalg.norm(qx, axis=1, keepdims=True), 1e-12)
+    np.save(paths["queries_nav"], q_nav)
+    np.save(paths["queries_search"], qx)
+
+
+def _synthetic_big_host(draws, seed, chunk, paths):
+    """The chunked host generator of `synthetic_dataset_big`: writes the
+    ``.npy`` cache through memory maps."""
+    from tpulmi_torch.hoststore import f32_to_bf16_bits
+
+    assignments, q_assign, centers, proj, noise_scale = draws
+    n, d_search, d_nav = len(assignments), centers.shape[1], proj.shape[1]
+
+    def gen_chunk(stream_key, assign_chunk):
+        rs = np.random.default_rng([seed, 11, stream_key])
+        x = centers[assign_chunk]
+        x += noise_scale * rs.standard_normal(x.shape, dtype=np.float32)
+        x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True),
+                        np.float32(1e-12))
+        nav = x @ proj
+        nav /= np.maximum(np.linalg.norm(nav, axis=1, keepdims=True),
+                          np.float32(1e-12))
+        return x, nav
+
+    ds_mm, dn_mm, done_rows, marker = _open_big_cache(paths, n, d_search,
+                                                      d_nav)
     if done_rows:
         log.info("big datagen (host): resuming at %d/%d rows", done_rows, n)
     for i, lo in enumerate(range(0, n, chunk)):
@@ -266,25 +332,130 @@ def _synthetic_big_host(n, n_queries, d_nav, d_search, n_clusters, seed,
         x, nav = gen_chunk(i, assignments[lo:hi])
         ds_mm[lo:hi] = f32_to_bf16_bits(x)
         dn_mm[lo:hi] = nav
-        with open(marker, "w") as f:
-            f.write(str(hi))
+        _mark(marker, hi)
         log.info("big datagen (host): %d/%d rows", hi, n)
     ds_mm.flush()
     dn_mm.flush()
     del ds_mm, dn_mm
     if os.path.exists(marker):
         os.remove(marker)
+    qx, qnav = gen_chunk(QUERY_STREAM, q_assign)
+    _save_queries(paths, f32_to_bf16_bits(qx), qnav)
 
-    qx, qnav = gen_chunk(1_000_003, q_assign)  # no chunk has this index
-    # the queries go through bfloat16 and are normalized again in float32
-    qx = bf16_bits_to_f32(f32_to_bf16_bits(qx))
-    qx /= np.maximum(np.linalg.norm(qx, axis=1, keepdims=True), 1e-12)
-    np.save(paths["queries_nav"], qnav)
-    np.save(paths["queries_search"], qx)
-    return {
-        "data_nav": np.load(paths["data_nav"], mmap_mode="r"),
-        "data_search": HostBF16(np.load(paths["data_search"],
-                                        mmap_mode="r")),
-        "queries_nav": qnav,
-        "queries_search": qx,
-    }
+
+@contextlib.contextmanager
+def _full_float32():
+    """float32 matrix products in full float32 (no TF32) inside, whatever
+    the caller set; restored after."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def gen_chunk(centers: torch.Tensor, proj: torch.Tensor,
+              assign: torch.Tensor, noise: torch.Tensor, noise_scale: float):
+    """One chunk of the device generator, as the JAX package writes it
+    (``tpulmi/data.py``, ``backend="device"``): the rows' centers plus
+    ``noise_scale * noise``, L2-normalized (norms floored at 1e-12),
+    projected by `proj` in float32 and normalized again. Returns (the
+    search rows rounded to bfloat16, the navigation rows in float32)."""
+    x = centers[assign] + noise_scale * noise
+    x = x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True),
+                        min=1e-12)
+    with _full_float32():
+        nav = x @ proj
+    nav = nav / torch.clamp(torch.linalg.vector_norm(nav, dim=1,
+                                                     keepdim=True),
+                            min=1e-12)
+    return x.to(torch.bfloat16), nav
+
+
+def chunk_noise(seed: int, index: int, shape, device) -> torch.Tensor:
+    """The standard normal float32 noise of chunk `index` (`QUERY_STREAM`:
+    the queries), from a `torch.Generator` on `device` seeded from (seed,
+    index) alone."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, 13, index])
+                        .generate_state(1, np.uint64)[0]))
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+def _synthetic_big_device(draws, seed, chunk, paths, device, draws_s):
+    """The chunked device generator of `synthetic_dataset_big`: each chunk
+    is made on `device`, copied into one of two pinned buffers and written
+    into the memory maps by a writer thread while the next chunk is made
+    (a buffer is reused once its write has finished)."""
+    t_all = time.perf_counter()
+    assignments, q_assign, centers, proj, noise_scale = draws
+    n, d_search, d_nav = len(assignments), centers.shape[1], proj.shape[1]
+    scale = float(noise_scale)
+    centers_d = torch.as_tensor(centers, device=device)
+    proj_d = torch.as_tensor(proj, dtype=torch.float32, device=device)
+    assign_d = torch.as_tensor(assignments, device=device)
+    ds_mm, dn_mm, done_rows, marker = _open_big_cache(paths, n, d_search,
+                                                      d_nav)
+    if done_rows:
+        log.info("big datagen (%s): resuming at %d/%d rows", device.type,
+                 done_rows, n)
+    rows = min(chunk, n)
+    pin = device.type == "cuda"
+    bufs = [(torch.empty((rows, d_search), dtype=torch.int16, pin_memory=pin),
+             torch.empty((rows, d_nav), dtype=torch.float32, pin_memory=pin))
+            for _ in range(2)]
+    secs = {"gen": 0.0, "copy": 0.0, "write": 0.0}
+
+    def write(buf, lo, hi):
+        t = time.perf_counter()
+        ds_mm[lo:hi] = buf[0][:hi - lo].numpy().view(np.uint16)
+        dn_mm[lo:hi] = buf[1][:hi - lo].numpy()
+        _mark(marker, hi)
+        secs["write"] += time.perf_counter() - t
+
+    pending = [None, None]
+    with ThreadPoolExecutor(max_workers=1) as writer:
+        for i, lo in enumerate(range(0, n, chunk)):
+            hi = min(lo + chunk, n)
+            if hi <= done_rows:
+                continue
+            t = time.perf_counter()
+            x, nav = gen_chunk(
+                centers_d, proj_d, assign_d[lo:hi].long(),
+                chunk_noise(seed, i, (hi - lo, d_search), device), scale)
+            sync(device)
+            secs["gen"] += time.perf_counter() - t
+            slot = i % 2
+            if pending[slot] is not None:
+                pending[slot].result()
+            t = time.perf_counter()
+            bufs[slot][0][:hi - lo].copy_(x.view(torch.int16))
+            bufs[slot][1][:hi - lo].copy_(nav)
+            secs["copy"] += time.perf_counter() - t
+            del x, nav
+            pending[slot] = writer.submit(write, bufs[slot], lo, hi)
+            log.info("big datagen (%s): %d/%d rows", device.type, hi, n)
+        for job in pending:
+            if job is not None:
+                job.result()
+    t = time.perf_counter()
+    ds_mm.flush()
+    dn_mm.flush()
+    del ds_mm, dn_mm
+    flush_s = time.perf_counter() - t
+    if os.path.exists(marker):
+        os.remove(marker)
+    qx, qnav = gen_chunk(
+        centers_d, proj_d, torch.as_tensor(q_assign, device=device).long(),
+        chunk_noise(seed, QUERY_STREAM, (len(q_assign), d_search), device),
+        scale)
+    _save_queries(paths, qx.view(torch.int16).cpu().numpy().view(np.uint16),
+                  qnav.cpu().numpy())
+    log.info("big datagen (%s): %d rows written from row %d: draws %.2fs, "
+             "generation on the device %.2fs, copy back %.2fs, write into "
+             "the memory maps %.2fs (beside the next chunks), flush to disk "
+             "%.2fs; %.2fs in all", device.type, n - done_rows, done_rows,
+             draws_s, secs["gen"], secs["copy"], secs["write"], flush_s,
+             draws_s + time.perf_counter() - t_all)

@@ -35,6 +35,7 @@ caches (bfloat16 saved as uint16), and the native library reads them as
 dtype code 2.
 """
 
+import mmap
 import os
 import queue
 import threading
@@ -171,15 +172,57 @@ def host_tensor(arr) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- materialization
+# the memory limit of this process's control group (cgroup v2, then v1)
+CGROUP_LIMITS = ("/sys/fs/cgroup/memory.max",
+                 "/sys/fs/cgroup/memory/memory.limit_in_bytes")
+
+
 def _mem_total_bytes():
+    """The host's RAM, or the control group's memory limit where that is
+    lower (a container may hold less than the machine has)."""
+    total = None
     try:
         with open("/proc/meminfo") as f:
             for line in f:
                 if line.startswith("MemTotal:"):
-                    return int(line.split()[1]) * 1024
+                    total = int(line.split()[1]) * 1024
+                    break
     except (OSError, ValueError, IndexError):
         pass
-    return None
+    for path in CGROUP_LIMITS:
+        try:
+            with open(path) as f:
+                limit = int(f.read().strip())    # "max": no limit
+        except (OSError, ValueError):
+            continue
+        total = limit if total is None else min(total, limit)
+        break
+    return total
+
+
+COPY_SLICE_BYTES = 256 << 20   # ensure_in_ram's copy, slice by slice
+
+
+def release_pages(arr) -> None:
+    """Drop the pages of a memory-mapped array (np.memmap, a view of one,
+    or a HostBF16 over either) from this process and from the page cache;
+    the file keeps its contents and a later read faults them in again.
+    For a pass over a corpus near the memory a process may hold: the
+    pages it has read otherwise count against it. Anything else, and a
+    copy-on-write map, is left alone."""
+    bits = getattr(arr, "bits", arr)
+    mm = bits if isinstance(bits, np.memmap) else getattr(bits, "base", None)
+    if not isinstance(mm, np.memmap) or mm.mode == "c":
+        return
+    raw = getattr(mm, "_mmap", None)
+    if raw is not None:
+        raw.madvise(mmap.MADV_DONTNEED)
+    if mm.filename:
+        fd = os.open(mm.filename, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
 
 
 def ensure_in_ram(arr, max_frac: float = None):
@@ -203,9 +246,15 @@ def ensure_in_ram(arr, max_frac: float = None):
                  total / 1e9)
         return arr
     log.info("materializing memory-mapped corpus in RAM (%s)", arr.shape)
-    if isinstance(arr, HostBF16):
-        return HostBF16(np.array(arr.bits))
-    return np.array(arr)
+    # slice by slice, each slice's pages released once copied, so that
+    # the map's pages and the copy are not held at once
+    src = arr.bits if isinstance(arr, HostBF16) else arr
+    out = np.empty(src.shape, src.dtype)
+    step = max(1, COPY_SLICE_BYTES // max(1, src[:1].nbytes))
+    for lo in range(0, len(src), step):
+        out[lo:lo + step] = src[lo:lo + step]
+        release_pages(src)
+    return HostBF16(out) if isinstance(arr, HostBF16) else out
 
 
 # ------------------------------------------------------------------- layout

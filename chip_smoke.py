@@ -118,9 +118,10 @@ result line.
              after its 5th block, resumed at row 4 x 262144 and equal to
              the uninterrupted pass to the bit; Baseline on the main data;
              one block's product (also under TF32), top-k and merge timed;
-10. hier20m - the hier phase's configuration at bench_20m.py's own
-             size, uncut: 20M x 768 rows (96 navigation features) in 244
-             data clusters and 10k queries, made on the card by
+10. hier20m - the hier phase's configuration with bench_20m.py's own
+             data clusters: HIER20M_N x 768 rows (96 navigation features;
+             cut from 20M, see HIER40M_N) in 244 data clusters and 10k
+             queries, made on the card by
              synthetic_dataset_big(backend="device") into a temporary
              directory of its own (the host's RAM, disk and cores logged
              first; seconds by stage and GB/s written); the streamed exact
@@ -136,14 +137,34 @@ result line.
              version on the path's probes, store and first 1000 queries;
              K3's time and bound; the peak card memory; the directory
              removed;
-11. prune  - SearchConfig(backend="xla", prune_after=1) against the
+11. hier40m - bench_40m.py's configuration (16 x 61 = 976 buckets, 488
+             data clusters, a packed int4 host store, int8 queries) at
+             HIER40M_N rows (cut from 40M to what a run may write to the
+             disk; the RAM rules scaled alike), in a temporary directory
+             of its own: the corpus made on the
+             card and flushed out of the page cache as it is written
+             (the free disk checked first); the streamed float32 oracle;
+             the int4 host-store build, the corpus left memory-mapped
+             through the layout and its codes made on the card (rows a
+             second, peak host memory); calibrate_outer_weight at 24
+             probes; the sweep at 16 / 20 / 24 probes at rerank depth 30,
+             then depth 60 and 100 until recall@10 reaches 0.90 (failing
+             if it never does), beside the JAX package's round 4; at that
+             (budget, depth) the worklist and the 128-row tile equal to
+             the dense search but for ties, float queries (K2) within
+             0.01, the pool's recall, the float16 rerank copy (refused
+             where the host cannot hold it, else within 0.01), 4 stream
+             batches equal to search; every kernel of the path
+             launched, then each against its plain version on int4 codes;
+             K3's time and bound; the directory removed;
+12. prune  - SearchConfig(backend="xla", prune_after=1) against the
              unpruned xla scan at 7 probes, to the bit, in float32 and
              bfloat16 on the main index after compute_bounds, on its int8
              store, and on an index of tight clusters (cluster_std 0.3),
              where rows must be skipped; rows scanned of nominal and ms
              of each; the scan's ids equal to the kernel's outside ties,
              and no kernel launched by it;
-12. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
+13. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
              configuration at 1, 2 and 3 probes, equal to the main index's
              searches and recalls (cli.main in this process, the result
              writer replaced so that no h5py is needed); cli.run with an int8
@@ -153,7 +174,7 @@ result line.
              learning rate and resumed (one new row); train_lr_sweep over
              four learning rates beside one single-lr run, its first 20
              steps equal to BucketClassifier's; one search inside trace;
-13. timing - each kernel, its plain version and one library call for the
+14. timing - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -170,6 +191,7 @@ name and power limit as nvidia-smi reports them, and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import itertools
 import json
 import re
@@ -200,8 +222,29 @@ OWN_ROWS = 16_384   # slots whose distances are recomputed at once
 STREAM_CHUNK = 262_144   # rows of a block of the streamed ground truth
 # the first row whose first element lies past 2**31 in a 768-wide store
 FAR_ROWS = 2 ** 31 // D_SEARCH + 1
-HIER20M_N = 20_000_000   # bench_20m.py's rows
+# bench_40m.py's configuration (:20-42): 16 x 61 buckets, 488 data clusters,
+# packed int4, the sweep at 16 / 20 / 24 probes and the rerank-depth ladder
+# of bench_20m.py (:146-151, :346-400). A run on the card's machine may
+# write 45 GiB to its disk, deleted files included, and a corpus takes
+# 1920 bytes a row: 40M rows alone are 76.8 GB. So the 40M rows are cut to
+# 16M (30.7 GB) and phase hier20m's 20M rows to 3M (5.8 GB). The RAM
+# rules that choose the layout's path and the rerank's copy are scaled by
+# the same 0.4 (HIER40M_FRACS), so that the 16M corpus stays memory-mapped
+# through the layout and is copied into RAM for the rerank, as the 40M
+# corpus is on a host of the same RAM.
+HIER20M_N = 3_000_000
 HIER20M_HOLD = 1000      # queries of phase hier20m's kernels-vs-plain checks
+HIER40M_N, HIER40M_FULL_N = 16_000_000, 40_000_000
+HIER40M_FRACS = {"TPULMI_MATERIALIZE_MAX_FRAC": 0.45,
+                 "TPULMI_RERANK_MATERIALIZE_MAX_FRAC": 0.6}
+HIER40M_GROUPS, HIER40M_CLUSTERS = 16, 488
+HIER40M_BUDGETS = (16, 20, 24)
+HIER40M_DEPTHS = (30, 60, 100)
+HIER40M_DISK_SPARE = 3e9   # free disk the phase asks beyond its corpus
+# the JAX package's round-4 recall@10 at 40M by rerank depth and budget
+# (BENCH_40M.md:67-76), printed beside the port's as a quality target only
+JAX40M_RECALL = {30: {16: 0.8673, 20: 0.8817, 24: 0.8916},
+                 60: {16: 0.9040, 20: 0.9201, 24: 0.9310}}
 
 # Dense bf16 tensor-core rate and memory rate of each card (NVIDIA's data
 # sheets); the first name fragment that matches the device name is used.
@@ -1677,47 +1720,53 @@ def hier_digest(hi, pred) -> str:
     return h.hexdigest()
 
 
-def hier_config():
-    """bench_20m.py's hierarchical configuration (:188-206): 8 groups x 61
-    = 488 buckets, an MLP-5 outer router (6 epochs) and inner routers (8
-    epochs, batch 4096), row_align 1024; calibrated as a step of its own."""
+def hier_config(n_groups=8):
+    """bench_20m.py's hierarchical configuration (:188-206): `n_groups`
+    groups (8; bench_40m.py's 16) x 61 buckets, an MLP-5 outer router (6
+    epochs) and inner routers (8 epochs, batch 4096), row_align 1024;
+    calibrated as a step of its own."""
     from tpulmi_torch import HierarchicalConfig, IndexConfig
 
     return HierarchicalConfig(
-        n_groups=8, outer_epochs=6, outer_lr=0.003, calibrate_budget=0,
+        n_groups=n_groups, outer_epochs=6, outer_lr=0.003, calibrate_budget=0,
         router_restarts=1,
         inner=IndexConfig(n_categories=61, epochs=8, lr=0.003,
                           model_type="MLP-5", batch_size=4096, seed=SEED,
                           row_align=1024))
 
 
-def hier_build(tag, big, dev):
-    """HierarchicalIndex(hier_config()).build_with_host_store of `big`
-    (navigation rows rounded to bfloat16 on the card, as bench_20m.py
-    rounds them on the host; int8 host store, overlapped upload), logged
-    with its stages, bucket sizes, store bytes, where the rerank's corpus
+def hier_build(tag, big, dev, store_dtype="int8", n_groups=8):
+    """HierarchicalIndex(hier_config(n_groups)).build_with_host_store of
+    `big` (navigation rows rounded to bfloat16 on the card, as bench_20m.py
+    rounds them on the host; an int8 or int4 host store, overlapped
+    upload), logged with its stages, the layout's own lines (its path and
+    rows a second), bucket sizes, store bytes, where the rerank's corpus
     lives and a digest. Returns (index, pred)."""
     import numpy as np
     import torch
     from tpulmi_torch import HierarchicalIndex
     from tpulmi_torch.hoststore import is_memory_mapped, release_pages
 
-    cfg = hier_config()
-    n_groups, n_cat = cfg.n_groups, cfg.inner.n_categories
+    cfg = hier_config(n_groups)
+    n_cat = cfg.inner.n_categories
     nav = big["data_nav"]
     t = time.perf_counter()
     nav_bf16 = torch.empty(nav.shape, dtype=torch.bfloat16, device=dev)
     for s in range(0, nav.shape[0], 1 << 21):
         nav_bf16[s:s + (1 << 21)] = torch.from_numpy(
             np.array(nav[s:s + (1 << 21)])).to(dev)
-    release_pages(nav)
+        release_pages(nav)
     conv_s = time.perf_counter() - t
     hi = HierarchicalIndex(cfg, device=dev)
     torch.cuda.synchronize()
-    pred, build_s = hi.build_with_host_store(
-        nav_bf16, big["data_search"], normalized=True, store_dtype="int8",
-        overlap_upload=True)
+    with kept_log("tpulmi_torch.hoststore") as lines:
+        pred, build_s = hi.build_with_host_store(
+            nav_bf16, big["data_search"], normalized=True,
+            store_dtype=store_dtype, overlap_upload=True)
     del nav_bf16
+    for line in lines:
+        if "host layout" in line or "memory-mapped" in line:
+            log(f"{tag} {line}")
     stages = hi.last_build_stages
     st = hi.built.store
     counts = st.counts.cpu().numpy()
@@ -1726,14 +1775,15 @@ def hier_build(tag, big, dev):
                    + st.ids_sorted.numel() * 4)
     kept = hi._host_corpus[0]
     log(f"{tag} {nav.shape[0]} rows, {n_groups} x {n_cat} = "
-        f"{st.n_categories} buckets, int8 host store: build_with_host_store "
+        f"{st.n_categories} buckets, {store_dtype} host store: "
+        f"build_with_host_store "
         f"{build_s:.2f}s = nav stages {stages['nav']:.2f}s + waiting for the "
         f"corpus copy {stages['materialize_wait']:.2f}s + layout and upload "
         f"{stages['layout_upload']:.2f}s (navigation rows rounded to "
         f"bfloat16 in {conv_s:.2f}s); outer groups {groups.tolist()}; "
         f"bucket rows max / mean / min {counts.max()} / {counts.mean():.0f}"
         f" / {counts.min()}; store on the card "
-        f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
+        f"{tuple(st.data_sorted.shape)} {store_dtype} + scales + ids = "
         f"{store_bytes / 1e9:.3f} GB; the rerank's corpus "
         f"({kept.nbytes / 1e9:.2f} GB) "
         + ("left memory-mapped" if is_memory_mapped(kept)
@@ -1752,10 +1802,11 @@ def hier_calibrate(tag, hi, data_nav, beside=""):
         f"{time.perf_counter() - t:.2f}s{beside}")
 
 
-def hier_searcher(hi, queries):
+def hier_searcher(hi, queries, rerank_extra=10):
     """search(p, batch=queries, **opts) -> (dists, ids, seconds, rerank
     seconds): a warm-up and one timed search, int8 queries, rerank depth
-    10, items of 1024 rows (bench_20m.py's)."""
+    `rerank_extra` (10; opts may name another), items of 1024 rows
+    (bench_20m.py's)."""
     import numpy as np
     import torch
     from tpulmi_torch import SearchConfig
@@ -1770,9 +1821,10 @@ def hier_searcher(hi, queries):
         return out
 
     def search(p, batch=queries, int8_queries=True, **opts):
+        opts.setdefault("rerank_extra", rerank_extra)
         kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
-            k=10, n_buckets=p, int8_queries=int8_queries, rerank_extra=10,
-            pallas_mc=1024, **opts))
+            k=10, n_buckets=p, int8_queries=int8_queries, pallas_mc=1024,
+            **opts))
         hi._rerank_host = timed_rerank
         try:
             hi.search(*batch, **kw)
@@ -1788,35 +1840,47 @@ def hier_searcher(hi, queries):
     return search
 
 
-def hier_sweep(tag, search, oracles, n_buckets, beside=""):
-    """bench_20m.py's probe sweep (6 to 48 probes) until recall@10 against
-    the first of `oracles` ({label: 0-based ids}) reaches RECALL_GATE; the
-    phase fails if no budget does. Returns (budget, (dists, ids))."""
+def hier_sweep(tag, search, oracles, n_buckets, beside="",
+               budgets=(6, 8, 12, 16, 24, 32, 48), required=True, ref=None,
+               **opts):
+    """bench_20m.py's probe sweep over `budgets` (6 to 48 probes) until
+    recall@10 against the first of `oracles` ({label: 0-based ids}) reaches
+    RECALL_GATE; `opts` go to every search (a rerank depth), and `ref`
+    ({budget: recall@10}) is printed beside each budget it names. Returns
+    (budget, (dists, ids)); if no budget does, the phase fails, or with
+    ``required=False`` None is returned."""
     from tpulmi_torch.evaluate import recall_at_k
 
-    for p in (6, 8, 12, 16, 24, 32, 48):
-        d, ids, secs, rr = search(p)
+    depth = (f" depth {opts['rerank_extra']}" if "rerank_extra" in opts
+             else "")
+    for p in budgets:
+        d, ids, secs, rr = search(p, **opts)
         recs = {lbl: recall_at_k(ids - 1, gt, 10)
                 for lbl, gt in oracles.items()}
-        log(f"{tag} probes={p}: recall@10 " + ", ".join(
+        log(f"{tag} probes={p}{depth}: recall@10 " + ", ".join(
             f"{r:.4f} against the {lbl} oracle" for lbl, r in recs.items())
+            + (f" (the JAX package: {ref[p]})" if ref and p in ref else "")
             + f"; search {secs:.4f}s = {len(ids) / secs:.0f} QPS, of which "
             f"rerank {rr:.4f}s ({rr / secs:.1%})")
         if next(iter(recs.values())) >= RECALL_GATE:
             log(f"{tag} first budget with recall@10 >= {RECALL_GATE}: {p} "
-                f"of {n_buckets} probes{beside}")
+                f"of {n_buckets} probes{depth}{beside}")
             return p, (d, ids)
-    raise AssertionError(f"no probe budget up to 48 reached recall@10 "
-                         f"{RECALL_GATE}")
+    if not required:
+        return None
+    raise AssertionError(f"no probe budget up to {budgets[-1]} reached "
+                         f"recall@10 {RECALL_GATE}")
 
 
-def hier_variants(tag, search, p, dense, queries, corpus, gt):
+def hier_variants(tag, search, p, dense, queries, corpus, gt,
+                  hold_pool=True, pool_beside=""):
     """At budget p: the worklist and the 128-row tile equal to the dense
     search but for ties; the pool and float queries (K2), whose candidate
     lists differ from the dense kernel's by design (the pool's extras are
     per-class best rows; bfloat16 queries round otherwise than int8
     codes), with the rows whose distances differ and a recall within 0.01
-    of the dense search's."""
+    of the dense search's (the pool's only with `hold_pool`: its extras
+    cap the rerank's depth, which an int4 store needs deep)."""
     import numpy as np
     from tpulmi_torch.evaluate import recall_at_k
 
@@ -1835,10 +1899,82 @@ def hier_variants(tag, search, p, dense, queries, corpus, gt):
         moved = int((np.abs(d - dense[0]) > 1e-6).any(axis=1).sum())
         log(f"{tag} {label} at {p} probes: recall@10 {rec:.4f} (dense "
             f"{want:.4f}); {int((ids != dense[1]).any(axis=1).sum())} rows "
-            f"hold other ids, {moved} of them other distances; {secs:.4f}s")
+            f"hold other ids, {moved} of them other distances; {secs:.4f}s"
+            + (pool_beside if label == "pool" else ""))
+        if label == "pool" and not hold_pool:
+            continue
         if not abs(rec - want) <= 0.01:
             raise AssertionError(f"{label}: recall@10 {rec} is more than "
                                  f"0.01 from the dense search's {want}")
+
+
+def hier_stream(tag, hi, queries, p, rerank_extra=10):
+    """search_stream (depth STREAM_DEPTH) over 4 batches of the queries
+    (rolled by 2500 each), every batch equal to search's result, with int8
+    queries at p probes and rerank depth `rerank_extra`; the seconds a
+    batch of each. Returns the search keywords."""
+    import numpy as np
+    import torch
+    from tpulmi_torch import SearchConfig
+
+    batches = [tuple(np.roll(x, -2500 * i, axis=0) for x in queries)
+               for i in range(4)]
+    kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
+        k=10, n_buckets=p, int8_queries=True, rerank_extra=rerank_extra,
+        pallas_mc=1024))
+    hi.search(*batches[0], **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = [hi.search(*b, **kw) for b in batches]
+    search_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got = list(hi.search_stream(batches, depth=STREAM_DEPTH, **kw))
+    stream_s = time.perf_counter() - t
+    if len(got) != len(batches):
+        raise AssertionError(f"the stream gave {len(got)} results")
+    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
+        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
+            raise AssertionError(f"stream batch {i} differs from search")
+    log(f"{tag} search_stream: {len(batches)} batches of "
+        f"{len(queries[0])} equal to search; {stream_s:.4f}s = "
+        f"{stream_s / len(batches):.4f}s a batch (search "
+        f"{search_s / len(batches):.4f}s a batch)")
+    return kw
+
+
+def hier_float16_shadow(tag, hi, search, p, dense, gt):
+    """rerank_dtype="float16" at budget p: the port's guard refuses a
+    float16 copy of the corpus that the host's available memory cannot
+    hold, before allocating it (the JAX package's 40M run was refused,
+    BENCH_40M.md); where the guard admits it, the search with the copy
+    must come within 0.01 of the float32 rerank's recall@10, and the copy
+    is dropped after it."""
+    import gc
+
+    from tpulmi_torch.evaluate import recall_at_k
+
+    t = time.perf_counter()
+    try:
+        _, ids, secs, _ = search(p, rerank_dtype="float16")
+    except RuntimeError as e:
+        if "shadow" not in str(e):
+            raise
+        log(f"{tag} rerank_dtype='float16' refused before the copy was "
+            f"allocated ({e}); {host_memory()}")
+        return
+    made = time.perf_counter() - t
+    shadow = hi._rerank_shadow[1]
+    rec, want = (recall_at_k(x - 1, gt, 10) for x in (ids, dense[1]))
+    log(f"{tag} rerank_dtype='float16' admitted by the guard at this size: "
+        f"a {shadow.nbytes / 1e9:.2f} GB float16 copy of the corpus, made "
+        f"and searched twice in {made:.2f}s; recall@10 {rec:.4f} (float32 "
+        f"rerank {want:.4f}); {secs:.4f}s a search; {host_memory()}")
+    del shadow
+    hi._rerank_shadow = None
+    gc.collect()
+    if not abs(rec - want) <= 0.01:
+        raise AssertionError(f"the float16 rerank's recall@10 {rec} is more "
+                             f"than 0.01 from the float32 rerank's {want}")
 
 
 def hier_on_path(hi, queries, p, dev):
@@ -1859,12 +1995,13 @@ def hier_on_path(hi, queries, p, dev):
     return qf, group_slots(probes, store.offsets, store.counts)
 
 
-def hier_hold(tag, hi, queries, p, dev, errs):
+def hier_hold(tag, hi, queries, p, dev, errs, bits=8, depth=10):
     """Each kernel of the hierarchical path against its plain version on
-    the inputs that the path gives it (its probes, its store and
-    `queries`): K3 dense, the worklist with its merge kernel (the merge to
-    the bit) and the 128-row tile at k 20, the pool at k 10 / k_out 20, K2
-    with bfloat16 queries; their errors go into `errs`."""
+    the inputs that the path gives it (its probes, its store of `bits`-bit
+    codes and `queries`): K3 dense, the worklist with its merge kernel (the
+    merge to the bit) and the 128-row tile at k 10 + `depth` (the rerank's
+    list), the pool at k 10 / k_out 10 + `depth`, K2 with bfloat16
+    queries; their errors go into `errs`."""
     import torch
     from tpulmi_torch.ops.probe_topk import (
         apply_query_scale, merge_items, merge_items_plain, probe_topk_int8q,
@@ -1878,26 +2015,26 @@ def hier_hold(tag, hi, queries, p, dev, errs):
 
     t = time.perf_counter()
     st = hi.built.store
-    k_eff, k_pool, mc = 20, 10, 1024    # k + rerank depth; pallas_mc
+    k_eff, k_pool, mc = 10 + depth, 10, 1024   # k + rerank depth; pallas_mc
     qf, lay = hier_on_path(hi, queries, p, dev)
     n_q = qf.shape[0]
     n_slots = n_q * p
     q_codes, q_scales = quantize_rows(qf)
     args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
             lay.blocks)
-    own8q = own_quant(q_codes, st.data_sorted, st.scales, 8, q_scales)
+    own8q = own_quant(q_codes, st.data_sorted, st.scales, bits, q_scales)
     items = worklist_total(lay, st.counts, mc)
-    on = (f"at {p} probes over {st.n_categories} buckets, {n_q} queries, "
-          f"{lay.blocks.shape[0]} blocks")
-    plain = probe_topk_int8q_plain(*args, k_eff, 8)
-    hold("probe_topk_int8q_int8", compare(
-        probe_topk_int8q(*args, k_eff, 8), plain, own8q, lay, n_slots,
+    on = (f"at {p} probes over {st.n_categories} buckets of int{bits} "
+          f"codes, {n_q} queries, {lay.blocks.shape[0]} blocks")
+    plain = probe_topk_int8q_plain(*args, k_eff, bits)
+    hold(f"probe_topk_int8q_int{bits}", compare(
+        probe_topk_int8q(*args, k_eff, bits), plain, own8q, lay, n_slots,
         INT8Q_TOL), f"(k {k_eff}) {on}")
     hold("probe_worklist", compare(
-        probe_topk_int8q(*args, k_eff, 8, wl_pad=items,
+        probe_topk_int8q(*args, k_eff, bits, wl_pad=items,
                          item_rows=mc)[:2], plain, own8q, lay, n_slots,
         INT8Q_TOL), f"(k {k_eff}, {items} items of {mc} rows) {on}")
-    parts = probe_topk_int8q(*args, k_eff, 8, wl_pad=items, item_rows=mc,
+    parts = probe_topk_int8q(*args, k_eff, bits, wl_pad=items, item_rows=mc,
                              merge=False)
     merged = merge_items(lay.blocks, parts, k_eff)
     want = merge_items_plain(lay.blocks, parts, k_eff)
@@ -1909,57 +2046,60 @@ def hier_hold(tag, hi, queries, p, dev, errs):
     hold("merge_items", 0.0, f"({items} items, k {k_eff}) {on}",
          "to the bit")
     hold("probe_pair", compare(
-        probe_topk_int8q(*args, k_eff, 8, pair=True), plain, own8q, lay,
+        probe_topk_int8q(*args, k_eff, bits, pair=True), plain, own8q, lay,
         n_slots, INT8Q_TOL), f"(k {k_eff}) {on}")
     del plain, parts, merged, want
     hold("probe_pool", compare_pool(
-        probe_topk_int8q(*args, k_pool, 8, k_out=k_eff),
-        probe_topk_int8q_plain(*args, k_pool, 8, k_out=k_eff),
-        probe_topk_int8q_plain(*args, k_pool, 8, k_out=k_eff, merge=False,
-                               wl_pad=items, item_rows=mc),
+        probe_topk_int8q(*args, k_pool, bits, k_out=k_eff),
+        probe_topk_int8q_plain(*args, k_pool, bits, k_out=k_eff),
+        probe_topk_int8q_plain(*args, k_pool, bits, k_out=k_eff,
+                               merge=False, wl_pad=items, item_rows=mc),
         lambda out: apply_query_scale(out, q_scales, lay.qidx), own8q, lay,
         n_slots, k_pool, INT8Q_TOL), f"(k {k_pool}, k_out {k_eff}) {on}")
     qb = qf.to(torch.bfloat16)
-    quant = (qb, lay.qidx, st.data_sorted, st.scales, lay.blocks, k_eff, 8)
-    hold("probe_topk_quant_int8", compare(
+    quant = (qb, lay.qidx, st.data_sorted, st.scales, lay.blocks, k_eff,
+             bits)
+    hold(f"probe_topk_quant_int{bits}", compare(
         probe_topk_quant(*quant), probe_topk_quant_plain(*quant),
-        own_quant(qb, st.data_sorted, st.scales, 8), lay, n_slots,
+        own_quant(qb, st.data_sorted, st.scales, bits), lay, n_slots,
         DIST_TOL), f"(bfloat16 queries, k {k_eff}) {on}")
     log(f"{tag} the kernels against their plain versions on the path's "
         f"inputs: {time.perf_counter() - t:.1f}s")
 
 
-def hier_k3_time(tag, hi, queries, p, dev, name):
-    """K3 (int8 x int8, k 20) on the path's probes, queries and store, by
-    CUDA events, beside the least time the card could take, reckoned as
-    phase timing does: each probed bucket's rows and scales, the queries
-    and the slot layout read once, the results written once; 2 d slots
-    rows operations per bucket at the int8 tensor-core rate."""
+def hier_k3_time(tag, hi, queries, p, dev, name, bits=8, depth=10):
+    """K3 (int8 queries x `bits`-bit codes, k 10 + `depth`) on the path's
+    probes, queries and store, by CUDA events, beside the least time the
+    card could take, reckoned as phase timing does: each probed bucket's
+    rows (d bits / 8 bytes each) and scales, the queries and the slot
+    layout read once, the results written once; 2 d slots rows operations
+    per bucket at the int8 tensor-core rate."""
     from tpulmi_torch.ops.probe_topk import probe_topk_int8q
     from tpulmi_torch.ops.quantize import quantize_rows
 
     st = hi.built.store
     qf, lay = hier_on_path(hi, queries, p, dev)
     q_codes, q_scales = quantize_rows(qf)
+    k = 10 + depth
     args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
-            lay.blocks, 20, 8)
+            lay.blocks, k, bits)
     ms = cuda_ms(lambda: probe_topk_int8q(*args), 20)
     slots, rows = lay.slot_counts.double(), st.counts.double()
     n_q = qf.shape[0]
     ops = float(2 * D_SEARCH * (slots * rows).sum())
-    nbytes = (float(rows[slots > 0].sum()) * (D_SEARCH + 4)
+    nbytes = (float(rows[slots > 0].sum()) * (D_SEARCH * bits // 8 + 4)
               + n_q * (D_SEARCH + 4) + lay.qidx.numel() * 4
-              + lay.blocks.numel() * 4 + n_q * p * 20 * 8)
+              + lay.blocks.numel() * 4 + n_q * p * k * 8)
     peak_flops, peak_bw = peaks(name)
     t_ops = ops / (peak_flops * INT8_OVER_BF16) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
-    log(f"{tag} K3 (int8 x int8, k 20) at {p} probes over "
+    log(f"{tag} K3 (int8 x int{bits}, k {k}) at {p} probes over "
         f"{st.n_categories} buckets, {n_q} queries: {ms:.4f} ms (CUDA "
         f"events, mean of 20); {ops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
         f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms; bound "
         f"{max(t_ops, t_bytes):.4f} ms by "
         f"{'operations' if t_ops >= t_bytes else 'bytes'}")
-    return ms
+    return ms, max(t_ops, t_bytes)
 
 
 def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
@@ -1985,7 +2125,7 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
     import numpy as np
     import torch
     from tpulmi_torch import (HierarchicalConfig, HierarchicalIndex,
-                              IndexConfig, SearchConfig)
+                              IndexConfig)
     from tpulmi_torch.evaluate import recall_at_k
     from tpulmi_torch.ops.probe_topk import (launch_counts, probe_topk,
                                              probe_topk_plain,
@@ -2018,24 +2158,7 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
             f"a query on average; {secs:.4f}s")
 
     # ---- serving ----
-    batches = [(np.roll(qn, -2500 * i, axis=0), np.roll(qs, -2500 * i,
-                                                        axis=0))
-               for i in range(4)]
-    kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
-        k=10, n_buckets=p, int8_queries=True, rerank_extra=10,
-        pallas_mc=1024))
-    want = [hi.search(*b, **kw) for b in batches]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    got = list(hi.search_stream(batches, depth=STREAM_DEPTH, **kw))
-    stream_s = time.perf_counter() - t
-    if len(got) != len(batches):
-        raise AssertionError(f"the stream gave {len(got)} results")
-    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
-        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
-            raise AssertionError(f"stream batch {i} differs from search")
-    log(f"{tag} search_stream: {len(batches)} batches of {N_QUERIES} equal "
-        f"to search; {stream_s:.4f}s")
+    kw = hier_stream(tag, hi, queries, p)
 
     # ---- checkpoint ----
     path = os.path.join(cache, "hier_ckpt")
@@ -2139,6 +2262,87 @@ def host_memory() -> str:
             f"control group {group}")
 
 
+@contextlib.contextmanager
+def environ(values):
+    """The environment variables `values` set inside the block, restored
+    after it."""
+    import os
+
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def kept_log(name):
+    """The messages that logger `name` emits inside the block, from any
+    thread, as a list."""
+    import logging
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Keep()
+    logging.getLogger(name).addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logging.getLogger(name).removeHandler(handler)
+
+
+class PeakMemory:
+    """The largest resident set of this process and the largest host memory
+    in use with the page cache counted (MemTotal - MemFree; the card's
+    machine counts a command's page cache against it) seen while the block
+    runs, sampled every 0.2 s from a thread of its own, GB."""
+
+    def __enter__(self):
+        import threading
+
+        self.rss = self.used = 0.0
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+        return self
+
+    def _run(self):
+        while True:
+            self._sample()
+            if self._stop.wait(0.2):
+                return
+
+    def _sample(self):
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    self.rss = max(self.rss, int(line.split()[1]) * 1024e-9)
+        mem = {}
+        with open("/proc/meminfo") as f:
+            for line in f:
+                key, val = line.split(":", 1)
+                mem[key] = int(val.split()[0]) * 1024e-9
+        self.used = max(self.used, mem["MemTotal"] - mem["MemFree"])
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+        self._sample()
+
+    def __str__(self):
+        return (f"peak resident set {self.rss:.2f} GB, peak host memory in "
+                f"use with the page cache {self.used:.2f} GB")
+
+
 def host_resources(path) -> str:
     """The host's RAM (total, available), the free disk under `path` and
     the core count."""
@@ -2157,10 +2361,63 @@ def host_resources(path) -> str:
             f"{disk.total / 1e9:.1f} GB, {os.cpu_count()} cores")
 
 
+def big_corpus(tag, n, n_clusters, cache, dev):
+    """synthetic_dataset_big(n, n_clusters, backend="device") of 10k
+    queries into `cache`, logged with its seconds, GB written a second,
+    seconds by stage and the peak host memory while writing."""
+    from tpulmi_torch.data import synthetic_dataset_big
+
+    t = time.perf_counter()
+    with kept_log("tpulmi_torch.data") as lines, PeakMemory() as peak:
+        big = synthetic_dataset_big(
+            n=n, n_queries=N_QUERIES, d_nav=D_NAV, d_search=D_SEARCH,
+            n_clusters=n_clusters, seed=SEED, cache_dir=cache,
+            backend="device", device=dev)
+    gen_s = time.perf_counter() - t
+    written = big["data_search"].nbytes + big["data_nav"].nbytes
+    log(f"{tag} synthetic_dataset_big(backend='device'): {n} x {D_SEARCH} "
+        f"bfloat16 + {D_NAV} float32 navigation features, "
+        f"{written / 1e9:.2f} GB written in {gen_s:.2f}s = "
+        f"{written / gen_s / 1e9:.2f} GB/s; "
+        + "; ".join(s for s in lines if "rows written" in s)
+        + f"; while writing: {peak}; {host_memory()}")
+    return big
+
+
+def big_oracles(tag, big, dev, dtypes):
+    """The streamed exact oracle (exact_knn_streamed) of the big corpus in
+    each of `dtypes` ({label: compute dtype}), seconds, GB/s and peak host
+    memory each; the corpus's pages released after them (the build copies
+    the corpus into RAM, and the pages read would count beside the copy).
+    Returns {label: 0-based ids}."""
+    import torch
+    from tpulmi_torch.baseline import exact_knn_streamed
+    from tpulmi_torch.hoststore import release_pages
+
+    corpus = big["data_search"]
+    gts = {}
+    for label, dtype in dtypes.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with PeakMemory() as peak:
+            _, gts[label] = exact_knn_streamed(
+                big["queries_search"], corpus, k=10, chunk=STREAM_CHUNK,
+                compute_dtype=dtype, device=dev)
+        secs = time.perf_counter() - t
+        log(f"{tag} exact_knn_streamed in {label}: "
+            f"{-(-corpus.shape[0] // STREAM_CHUNK)} blocks of "
+            f"{STREAM_CHUNK} rows, {N_QUERIES} queries, {secs:.2f}s = "
+            f"{corpus.nbytes / secs / 1e9:.2f} GB/s host to card; {peak}; "
+            f"{host_memory()}")
+    release_pages(corpus)
+    log(f"{tag} the corpus's pages released: {host_memory()}")
+    return gts
+
+
 def phase_hier20m(dev, name, errs):
-    """The hierarchical index at the JAX package's own 20M configuration,
-    uncut (bench_20m.py:67-75, 188-206: HIER20M_N rows of 768 and 96
-    features in 244 data clusters, seed 2023, 10k queries; `hier_config`'s
+    """The hierarchical index at the JAX package's own 20M configuration
+    (bench_20m.py:67-75, 188-206: HIER20M_N rows, cut from 20M, of 768 and
+    96 features in 244 data clusters, seed 2023, 10k queries; `hier_config`'s
     8 x 61 buckets; int8 store and queries, rerank depth 10), in a
     temporary directory of its own that is removed at the end. Steps: the
     host's RAM, disk and cores; synthetic_dataset_big(backend="device"),
@@ -2174,11 +2431,7 @@ def phase_hier20m(dev, name, errs):
     its items one by one); K3's time and bound; the peak card memory.
     Launches made after the path's count was read are not counted."""
     import gc
-    import logging
     import torch
-    from tpulmi_torch.baseline import exact_knn_streamed
-    from tpulmi_torch.data import synthetic_dataset_big
-    from tpulmi_torch.hoststore import release_pages
     from tpulmi_torch.ops.probe_topk import (launch_counts,
                                              reset_launch_counts)
 
@@ -2190,54 +2443,10 @@ def phase_hier20m(dev, name, errs):
         log(f"{tag} host: {host_resources(cache)}; {host_cpu_line()}; "
             f"{host_memory()}")
 
-        # ---- the corpus, made on the card ----
-        lines = []
-
-        class Keep(logging.Handler):
-            def emit(self, record):
-                lines.append(record.getMessage())
-
-        handler = Keep()
-        logging.getLogger("tpulmi_torch.data").addHandler(handler)
-        t = time.perf_counter()
-        try:
-            big = synthetic_dataset_big(
-                n=HIER20M_N, n_queries=N_QUERIES, d_nav=D_NAV,
-                d_search=D_SEARCH, n_clusters=244, seed=SEED,
-                cache_dir=cache, backend="device", device=dev)
-        finally:
-            logging.getLogger("tpulmi_torch.data").removeHandler(handler)
-        gen_s = time.perf_counter() - t
-        corpus = big["data_search"]
-        written = corpus.nbytes + big["data_nav"].nbytes
-        log(f"{tag} synthetic_dataset_big(backend='device'): "
-            f"{corpus.shape[0]} x {D_SEARCH} bfloat16 + {D_NAV} float32 "
-            f"navigation features, {written / 1e9:.2f} GB written in "
-            f"{gen_s:.2f}s = {written / gen_s / 1e9:.2f} GB/s; "
-            + "; ".join(s for s in lines if "rows written" in s)
-            + f"; {host_memory()}")
-
-        # ---- the streamed exact oracles ----
-        qs = big["queries_search"]
-        gts = {}
-        for label, dtype in (("float32", torch.float32),
-                             ("bf16-input", torch.bfloat16)):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            _, ids = exact_knn_streamed(qs, corpus, k=10,
-                                        chunk=STREAM_CHUNK,
-                                        compute_dtype=dtype, device=dev)
-            secs = time.perf_counter() - t
-            gts[label] = ids
-            log(f"{tag} exact_knn_streamed in {label}: "
-                f"{-(-corpus.shape[0] // STREAM_CHUNK)} blocks of "
-                f"{STREAM_CHUNK} rows, {N_QUERIES} queries, {secs:.2f}s = "
-                f"{corpus.nbytes / secs / 1e9:.2f} GB/s host to card; "
-                f"{host_memory()}")
-        # the build copies the corpus into RAM: the pages the oracles read
-        # would count beside the copy against the process's memory
-        release_pages(corpus)
-        log(f"{tag} the corpus's pages released: {host_memory()}")
+        big = big_corpus(tag, HIER20M_N, 244, cache, dev)
+        corpus, qs = big["data_search"], big["queries_search"]
+        gts = big_oracles(tag, big, dev, {"float32": torch.float32,
+                                          "bf16-input": torch.bfloat16})
 
         # ---- the build, the calibration, the sweep ----
         reset_launch_counts()
@@ -2268,6 +2477,152 @@ def phase_hier20m(dev, name, errs):
                   errs)
         hier_k3_time(tag, hi, queries, p, dev, name)
         del hi, search, dense, big, corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"{tag} {host_memory()}")
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f}s; peak card "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, of "
+        f"which earlier phases held {held / 1e9:.2f} GB; {name}")
+
+
+def phase_hier40m(dev, name, errs):
+    """bench_40m.py's configuration on the card (HIER40M_*: 16 x 61 = 976
+    buckets, 488 data clusters, a packed int4 host store, int8 queries,
+    items of 1024 rows, the rerank depth 30 rising to 60 and 100), at
+    HIER40M_N rows, in a temporary directory of its own that is removed at
+    the end. Steps, each followed by the host's memory: the host's RAM,
+    cores and free disk (the phase fails if the disk cannot hold the
+    corpus and HIER40M_DISK_SPARE); synthetic_dataset_big(backend=
+    "device"), its seconds, GB/s and peak memory; the streamed exact oracle
+    in float32; `hier_build` with an int4 store (the corpus stays
+    memory-mapped through the layout; the layout's rows a second, the
+    build's peak memory); calibrate_outer_weight at 24 probes; the sweep
+    at 16 / 20 / 24 probes at depth 30 and, if none reaches recall@10
+    0.90, depth 60 then 100 at 24 probes and back down to the lowest
+    budget that still reaches it (the phase fails if nothing does), each
+    beside the JAX package's round 4; at the found (budget, depth)
+    `hier_variants` (the pool's recall printed, not held), what the port
+    does with the worklist at this shape, `hier_float16_shadow` and
+    `hier_stream`; every kernel of the
+    path launched; `hier_hold` on the first HIER20M_HOLD queries with int4
+    codes; K3's time and bound; the peak card memory. Launches made after
+    the path's count was read are not counted."""
+    import gc
+    import shutil
+
+    import torch
+    from tpulmi_torch.hoststore import is_memory_mapped
+    from tpulmi_torch.ops.probe_topk import (launch_counts,
+                                             reset_launch_counts)
+
+    tag = "[hier40m]"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory() as cache:
+        log(f"{tag} host: {host_resources(cache)}; {host_cpu_line()}; "
+            f"{host_memory()}")
+        need = HIER40M_N * (D_SEARCH * 2 + D_NAV * 4) + HIER40M_DISK_SPARE
+        free = shutil.disk_usage(cache).free
+        if free < need:
+            raise AssertionError(
+                f"phase hier40m needs {need / 1e9:.1f} GB of free disk under "
+                f"{cache} ({HIER40M_N} rows of bfloat16 and navigation "
+                f"features, and {HIER40M_DISK_SPARE / 1e9:.0f} GB spare), "
+                f"but only {free / 1e9:.1f} GB are free")
+
+        big = big_corpus(tag, HIER40M_N, HIER40M_CLUSTERS, cache, dev)
+        qs = big["queries_search"]
+        gt = big_oracles(tag, big, dev, {"float32": torch.float32})[
+            "float32"]
+
+        # ---- the build, the calibration ----
+        scale = HIER40M_N / HIER40M_FULL_N
+        fracs = {k: f"{v * scale:g}" for k, v in HIER40M_FRACS.items()}
+        log(f"{tag} the build runs with " + ", ".join(
+            f"{k}={v}" for k, v in fracs.items()) + f" ({HIER40M_N} of "
+            f"{HIER40M_FULL_N} rows times the defaults "
+            + " and ".join(f"{v:g}" for v in HIER40M_FRACS.values())
+            + "): the corpus meets the RAM rules as the uncut one would")
+        reset_launch_counts()
+        with PeakMemory() as peak, environ(fracs):
+            hi, _ = hier_build(tag, big, dev, store_dtype="int4",
+                               n_groups=HIER40M_GROUPS)
+        n_buckets = hi.built.store.n_categories
+        log(f"{tag} the build: {peak}; after it: {host_memory()}")
+        hier_calibrate(tag, hi, big["data_nav"],
+                       " (the JAX package's 40M run: containment@24 0.9707 "
+                       "at w 0.25, 0.8208 at w=1, BENCH_40M.md)")
+
+        # ---- the sweep and the rerank-depth ladder ----
+        queries = (big["queries_nav"], qs)
+        oracles = {"float32": gt}
+        rerank_corpus = hi._host_corpus[0]
+        search = hier_searcher(hi, queries)
+        depth = HIER40M_DEPTHS[0]
+        found = hier_sweep(tag, search, oracles, n_buckets,
+                           budgets=HIER40M_BUDGETS, required=False,
+                           ref=JAX40M_RECALL[depth], rerank_extra=depth)
+        for deeper in HIER40M_DEPTHS[1:]:
+            if found is not None:
+                break
+            depth = deeper
+            found = hier_sweep(tag, search, oracles, n_buckets,
+                               budgets=HIER40M_BUDGETS[-1:], required=False,
+                               ref=JAX40M_RECALL.get(depth),
+                               rerank_extra=depth)
+            # a deeper rerank may reach the gate at a lower budget
+            for lower in reversed(HIER40M_BUDGETS[:-1]):
+                if found is None:
+                    break
+                got = hier_sweep(tag, search, oracles, n_buckets,
+                                 budgets=(lower,), required=False,
+                                 ref=JAX40M_RECALL.get(depth),
+                                 rerank_extra=depth)
+                if got is None:
+                    break
+                found = got
+        if found is None:
+            raise AssertionError(
+                f"no probe budget of {HIER40M_BUDGETS} at a rerank depth of "
+                f"{HIER40M_DEPTHS} reached recall@10 {RECALL_GATE}")
+        p, dense = found
+        log(f"{tag} the lowest budget reaching recall@10 {RECALL_GATE}: {p} "
+            f"of {n_buckets} probes at rerank depth {depth} (the JAX "
+            f"package's round 4: 16 probes at depth 60, 0.9040)")
+
+        # ---- the variants at the found (budget, depth) ----
+        search = hier_searcher(hi, queries, depth)
+        hier_variants(tag, search, p, dense, queries, rerank_corpus, gt,
+                      hold_pool=False,
+                      pool_beside=" (the JAX package's round 4: 0.8773 at "
+                      "16 probes, depth 60, rejected by its gate)")
+        wl = hi._wl_pads.get((N_QUERIES, p), 0)
+        log(f"{tag} the worklist at {N_QUERIES} queries x {p} probes: "
+            + (f"a list of {wl} items" if wl > 0 else
+               "declined, one CTA per block kept (its scratch would pass "
+               "the limit; the JAX package declined its worklist at "
+               "61,440 items, BENCH_40M.md)"))
+        hier_float16_shadow(tag, hi, search, p, dense, gt)
+        hier_stream(tag, hi, queries, p, depth)
+        launches = launch_counts()
+        path = ["probe_topk_quant_int4", "probe_topk_int8q_int4",
+                "probe_pool", "probe_pair"]
+        if wl > 0:
+            path += ["probe_worklist", "merge_items"]
+        for kname in path:
+            if not launches[kname] > 0:
+                raise AssertionError(f"phase hier40m launched no {kname}")
+        log(f"{tag} launches {({n: c for n, c in launches.items() if c})}")
+
+        # ---- the kernels on the path's inputs ----
+        hier_hold(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p, dev,
+                  errs, bits=4, depth=depth)
+        hier_k3_time(tag, hi, queries, p, dev, name, bits=4, depth=depth)
+        log(f"{tag} the rerank's corpus "
+            + ("left memory-mapped" if is_memory_mapped(rerank_corpus)
+               else "copied into RAM") + f"; {host_memory()}")
+        del hi, search, dense, big, rerank_corpus
         gc.collect()
         torch.cuda.empty_cache()
     log(f"{tag} {host_memory()}")
@@ -3683,6 +4038,8 @@ def main(args) -> int:
         del big
     phase_hier20m(dev, name, kernel_errs)
     done("hier20m")
+    phase_hier40m(dev, name, kernel_errs)
+    done("hier40m")
     phase_prune(index, stores, ds, dev)
     done("prune")
     phase_cli(index, ds, dev, gt)

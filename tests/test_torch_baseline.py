@@ -230,3 +230,42 @@ def test_cross_package_resume(corpus, tmp_path, monkeypatch, writer):
     assert merged[0] == 4 * 256
     np.testing.assert_array_equal(np.asarray(i), i_ref)
     np.testing.assert_allclose(np.asarray(d), d_ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("host", ["memmap", "bf16-memmap", "array"])
+def test_streamed_releases_each_blocks_pages(corpus, tmp_path, monkeypatch,
+                                             host):
+    """Over a memory map the pass drops the pages of every block once it is
+    in the pinned buffer (`hoststore.release_pages`, counted by a spy); the
+    result equals a pass that releases nothing, to the bit. An array in RAM
+    is never released."""
+    from tpulmi_torch import hoststore
+
+    data, queries = corpus
+    if host == "array":
+        t_host = data
+    else:
+        bits = (data.astype(ml_dtypes.bfloat16).view(np.uint16)
+                if host == "bf16-memmap" else data)
+        np.save(tmp_path / "corpus.npy", bits)
+        t_host = np.load(tmp_path / "corpus.npy", mmap_mode="r")
+        if host == "bf16-memmap":
+            t_host = HostBF16(t_host)
+    real, calls = hoststore.release_pages, []
+
+    def spy(arr):
+        calls.append(arr)
+        real(arr)
+
+    monkeypatch.setattr(hoststore, "release_pages", spy)
+    got = tbase.exact_knn_streamed(queries, t_host, k=K, chunk=CHUNK,
+                                   compute_dtype=torch.float32, device="cpu")
+    blocks = -(-N // CHUNK)
+    assert len(calls) == (0 if host == "array" else blocks)
+    assert all(a is t_host for a in calls)
+    monkeypatch.setattr(hoststore, "release_pages", lambda arr: None)
+    kept = tbase.exact_knn_streamed(queries, t_host, k=K, chunk=CHUNK,
+                                    compute_dtype=torch.float32,
+                                    device="cpu")
+    for a, b in zip(got, kept):
+        np.testing.assert_array_equal(a, b)

@@ -245,3 +245,40 @@ def test_cuda_raises_without_a_card(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="backend"):
         synthetic_dataset_big(cache_dir=str(tmp_path / "c"), backend="tpu",
                               **KW)
+
+
+def test_generator_flushes_and_releases_every_chunk(tmp_path, monkeypatch):
+    """Each chunk written is flushed and its maps' pages dropped
+    (`hoststore.release_pages` on both maps, counted by a spy) before the
+    resume marker moves past it; the cache equals a generation that
+    releases nothing, byte for byte, and a killed generation resumes to
+    the bit with its pages released (test_killed_generation_resumes_to_
+    the_bit)."""
+    from tpulmi_torch import hoststore
+
+    real, calls, marks = hoststore.release_pages, [], []
+
+    def spy(arr):
+        calls.append(os.path.basename(arr.filename))
+        real(arr)
+
+    def mark(marker, rows):
+        marks.append((rows, len(calls)))
+        real_mark(marker, rows)
+
+    real_mark = tdata._mark
+    monkeypatch.setattr(hoststore, "release_pages", spy)
+    monkeypatch.setattr(tdata, "_mark", mark)
+    _port(tmp_path, sub="released")
+    chunks = -(-KW["n"] // KW["chunk"])
+    assert len(calls) == 2 * chunks
+    assert sorted(set(calls)) == sorted(
+        p.name for p in (tmp_path / "released").glob("*_data_*.npy"))
+    # the marker names a chunk's rows only after both maps were released
+    assert marks == [(KW["chunk"] * (i + 1), 2 * (i + 1))
+                     for i in range(chunks)]
+    monkeypatch.setattr(hoststore, "release_pages", lambda arr: None)
+    _port(tmp_path, sub="kept")
+    for name in sorted(os.listdir(tmp_path / "kept")):
+        assert (tmp_path / "released" / name).read_bytes() == (
+            tmp_path / "kept" / name).read_bytes(), name

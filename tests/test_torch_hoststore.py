@@ -289,3 +289,32 @@ def test_synthetic_big_cache_equals_reference(tmp_path):
     assert dev["data_search"].shape == got["data_search"].shape
     assert not np.array_equal(dev["data_search"].bits,
                               got["data_search"].bits)
+
+
+@pytest.mark.parametrize("src", ["float32", "bfloat16"])
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_source_sequential_layout_releases_each_chunks_pages(
+        monkeypatch, tmp_path, src, store):
+    """The source-sequential scatter drops the map's pages after every
+    chunk it has read (`release_pages`, counted by a spy), and lays out the
+    same store as a scatter that releases nothing, to the bit; the gather
+    over an array in RAM releases nothing."""
+    pred, x = _data()
+    _, port_src = _pair(x, src, tmp_path)
+    monkeypatch.setenv("TPULMI_MATERIALIZE_MAX_FRAC", "0")
+    kw = dict(row_align=64, store_dtype=store, normalized=True,
+              pad_rows=100, chunk=700)
+    real, calls = hoststore.release_pages, []
+
+    def spy(arr):
+        calls.append(arr)
+        real(arr)
+
+    monkeypatch.setattr(hoststore, "release_pages", spy)
+    got = layout_host_store(pred, port_src, N_CAT, **kw)
+    assert len(calls) == -(-N // 700)
+    assert all(a is port_src for a in calls)
+    layout_host_store(pred, x, N_CAT, **kw)
+    assert len(calls) == -(-N // 700)
+    monkeypatch.setattr(hoststore, "release_pages", lambda arr: None)
+    _same(got, layout_host_store(pred, port_src, N_CAT, **kw))

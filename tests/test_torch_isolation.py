@@ -119,6 +119,8 @@ def test_new_sources_are_covered():
     assert "def phase_cli" in smoke and "tpulmi_torch.cli" in smoke
     assert "def phase_far" in smoke and "def phase_hier20m" in smoke
     assert 'backend="device"' in smoke
+    assert "def phase_hier40m" in smoke and "phase_hier40m(dev" in smoke
+    assert 'store_dtype="int4"' in smoke
 
 
 def test_default_device_without_card_raises(monkeypatch, tmp_path):

@@ -7,6 +7,8 @@ only torch is installed:
     python -m pytest tests/test_torch_kernels_card.py -m cuda -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -747,7 +749,8 @@ def _as_bits(t):
 def test_host_store_build_on_card_equals_cpu_layout(card, store_dtype):
     """build_with_host_store on the card: `build`'s pred to the bit, and
     the store on the card is the host layout of that pred, byte for
-    byte."""
+    byte (a layout on the card's device: int4 codes are made there, see
+    test_int4_layout_on_card_equals_cpu_twin_but_near_ties)."""
     from tpulmi_torch import IndexConfig, LearnedIndex
     from tpulmi_torch.hoststore import host_tensor, layout_host_store
 
@@ -761,7 +764,7 @@ def test_host_store_build_on_card_equals_cpu_layout(card, store_dtype):
                                        overlap_upload=True)
     np.testing.assert_array_equal(pred, want_pred)
     arrays = layout_host_store(pred, ds["data_search"], 16, row_align=256,
-                               store_dtype=store_dtype)
+                               store_dtype=store_dtype, device=card)
     st = li.built.store
     assert st.data_sorted.device.type == "cuda"
     assert torch.equal(_as_bits(st.data_sorted),
@@ -961,6 +964,118 @@ def test_int8q_kernels_on_a_488_bucket_store(store_488, variant):
         assert after["probe_pair"] > before["probe_pair"]
     assert bool((got[1] >= 0).any())
 
+
+@pytest.fixture(scope="module")
+def store_976():
+    """A packed int4 store of bench_40m.py's geometry, narrowed in rows:
+    16 x 61 = 976 buckets of skewed sizes at d=768, row_align 1024, 4000
+    queries at 16 probes (k + rerank depth = 40)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(40)
+    n, d, n_cat, q, p = 240_000, 768, 976, 4000, 16
+    sizes = rng.pareto(1.5, size=n_cat) + 0.05
+    labels = rng.choice(n_cat, size=n, p=sizes / sizes.sum()).astype(np.int32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    full = build_bucket_store(torch.from_numpy(labels).to(dev),
+                              torch.from_numpy(x).to(dev), n_cat,
+                              row_align=1024)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    qs = torch.from_numpy(qs / np.linalg.norm(qs, axis=1,
+                                              keepdims=True)).to(dev)
+    probes = torch.from_numpy(np.argsort(rng.random((q, n_cat)), axis=1)[
+        :, :p].astype(np.int32)).to(dev)
+    return quantize_store(full, bits=4), qs, probes
+
+
+@pytest.mark.parametrize("variant", ["dense", "worklist", "pair"])
+@pytest.mark.parametrize("kernel", ["K3", "K2"])
+def test_int4_kernels_on_a_976_bucket_store(store_976, kernel, variant):
+    """K3 (int8 queries) and K2 (bfloat16 queries) on packed int4 codes
+    over the 40M run's 976 buckets: the dense kernel equals its plain
+    version but for ties, and the worklist (with its merge kernel) and the
+    128-row tile equal the dense kernel to the bit."""
+    from tpulmi_torch.ops.probe_topk import probe_search
+
+    store, qs, probes = store_976
+    assert store.quant_bits == 4 and store.n_categories == 976
+    int8q = kernel == "K3"
+    opts = dict(k=40, int8_queries=int8q, item_rows=1024)
+    tol = 1e-5 if int8q else 1e-4
+    name = f"probe_topk_{'int8q' if int8q else 'quant'}_int4"
+    before = launch_counts()
+    dense = probe_search(probes, qs, store, backend="cuda", **opts)
+    if variant == "dense":
+        got = dense
+        pd, pi, _ = probe_search(probes, qs, store, backend="torch", **opts)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dense[0], pd, atol=tol, rtol=0)
+        apart = torch.from_numpy(_apart(pd.cpu().numpy(), tol)).to(
+            pd.device)
+        apart[:, -1] = False
+        assert torch.equal(dense[1][apart], pi[apart])
+    else:
+        wl = 1 << 17 if variant == "worklist" else 0
+        got = probe_search(probes, qs, store, backend="cuda",
+                           pair=variant == "pair", wl_pad=wl, **opts)
+        torch.cuda.synchronize()
+        if wl:
+            assert int(got[3]) <= wl
+        assert torch.equal(got[0], dense[0])
+        assert torch.equal(got[1], dense[1])
+    after = launch_counts()
+    assert after[name] > before[name]
+    if variant == "worklist":
+        assert after["merge_items"] > before["merge_items"]
+    if variant == "pair":
+        assert after["probe_pair"] > before["probe_pair"]
+    assert bool((got[1] >= 0).all())
+
+
+def test_int4_layout_on_card_equals_cpu_twin_but_near_ties(card):
+    """The int4 host layout of 1M rows of d=768 with its codes made on the
+    card (`hoststore.Int4OnDevice`, from bfloat16 bits as the big runs
+    give them, and from 100k float32 rows) against the CPU twin
+    (`quantize_rows_int4_host`): ids, offsets and counts to the bit; codes
+    and scales equal but on the rows whose two best clip points lie within
+    float32 rounding (at most 1% of the rows, the count printed), where
+    both picks reconstruct the row within 1e-5 of each other."""
+    from tpulmi_torch.hoststore import HostBF16, layout_host_store
+
+    rng = np.random.default_rng(41)
+    n, d, n_cat = 1_000_000, 768, 61
+    pred = rng.integers(0, n_cat, size=n).astype(np.int32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    for src, m in ((HostBF16.from_float32(x), n), (x[:100_000], 100_000)):
+        kw = dict(row_align=1024, store_dtype="int4", normalized=True)
+        t = time.perf_counter()
+        got = layout_host_store(pred[:m], src, n_cat, device=card, **kw)
+        t_card = time.perf_counter() - t
+        want = layout_host_store(pred[:m], src, n_cat, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t - t_card
+        for name in ("ids_sorted", "offsets", "counts"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name))
+        differ = np.flatnonzero(
+            (got.data_sorted != want.data_sorted).any(axis=1)
+            | (got.scales != want.scales))
+        print(f"int4 layout of {m} rows ({src.dtype}): codes made on the "
+              f"card {m / t_card:.0f} rows/s, by the CPU twin "
+              f"{m / t_cpu:.0f} rows/s; {len(differ)} near-tie rows differ")
+        assert len(differ) <= 0.01 * m, len(differ)
+        rows = np.asarray(src[got.ids_sorted[differ]], np.float32)
+
+        def sq_err(arrays):
+            b = arrays.data_sorted[differ].astype(np.int32)
+            q = np.concatenate([((b & 0xF) ^ 8) - 8, b >> 4], axis=1)
+            scale = arrays.scales[differ, None].astype(np.float64) / 7.0
+            return ((q * scale - rows) ** 2).sum(axis=1)
+
+        np.testing.assert_allclose(sq_err(got), sq_err(want), rtol=1e-5,
+                                   atol=0)
 
 # ------------------------------------------------ several shards on one card
 SHARDED = {"K1": dict(), "K6": dict(pallas_pair=True),

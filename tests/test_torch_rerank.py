@@ -110,6 +110,39 @@ def test_rerank_float16_shadow(rng, monkeypatch):
     assert index_mod._host_mem_available.__name__ == "<lambda>"
 
 
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float64"])
+def test_float16_shadow_is_made_slice_by_slice(rng, monkeypatch, kind):
+    """The shadow of a float32, bfloat16 (`HostBF16`) or float64 corpus is
+    built a slice at a time, never through a float32 copy of the whole
+    corpus, and equals numpy's cast of the whole to the bit."""
+    import tpulmi_torch.index as index_mod
+    from tpulmi_torch.hoststore import HostBF16
+
+    x = _unit(rng, 1000, 48) * 3.0
+    x[0, :3] = (70000.0, 1e-6, -3e-8)     # past float16's range, subnormals
+    corpus = {"bfloat16": HostBF16.from_float32(x), "float32": x,
+              "float64": x.astype(np.float64) / 3.0}[kind]
+    with np.errstate(over="ignore"):       # 70000 is past float16's range
+        want = np.asarray(corpus, np.float64 if kind == "float64"
+                          else np.float32).astype(np.float16)
+    monkeypatch.setattr(index_mod, "SHADOW_SLICE_BYTES", 48 * 4 * 64)
+    sizes = []
+    real = index_mod.host_tensor
+
+    def spy(a):
+        sizes.append(len(a))
+        return real(a)
+
+    monkeypatch.setattr(index_mod, "host_tensor", spy)
+    got = index_mod._float16_copy(corpus)
+    assert got.dtype == np.float16 and got.shape == x.shape
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+    if kind == "float64":
+        assert sizes == []
+    else:
+        assert max(sizes) == 64 and len(sizes) == -(-1000 // 64)
+
+
 @pytest.fixture(scope="module")
 def corpus_queries():
     rng = np.random.default_rng(11)

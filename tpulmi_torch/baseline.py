@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from tpulmi_torch import hoststore
 from tpulmi_torch.hoststore import HostBF16
 from tpulmi_torch.ops.distance import (SENTINEL_DIST, _topk_stable,
                                        exact_knn, l2_normalize)
@@ -105,7 +106,9 @@ def exact_knn_streamed(queries, host_data, k: int = 10, chunk: int = 262144,
     `host_data` is a float32 or float16 array or memory map, or a
     `HostBF16`; the rows are used as given (normalized), the queries are
     normalized unless ``normalized``. Each block is copied from a pinned
-    buffer that is reused only after the device has finished reading it.
+    buffer that is reused only after the device has finished reading it;
+    over a memory map, the block's pages are dropped once it is in that
+    buffer (`hoststore.release_pages`).
 
     ``resume_path`` makes the scan resumable: every `checkpoint_every`
     blocks the running lists and the next row are written to
@@ -151,6 +154,7 @@ def exact_knn_streamed(queries, host_data, k: int = 10, chunk: int = 262144,
     # bfloat16 bits cross as int16 (torch has no uint16 copies everywhere)
     buf_dtype = np.int16 if bf16 else np.asarray(host_data[:1]).dtype
     pin = device.type == "cuda"
+    mapped = hoststore.is_memory_mapped(host_data)
     bufs = [torch.from_numpy(np.zeros((chunk, d), buf_dtype))
             for _ in range(2)]
     if pin:
@@ -165,6 +169,11 @@ def exact_knn_streamed(queries, host_data, k: int = 10, chunk: int = 262144,
         rows = _host_block(host_data, lo, hi)
         host[: hi - lo] = rows.view(buf_dtype) if bf16 else rows
         host[hi - lo:] = 0
+        if mapped:
+            # the block is in the pinned buffer: its pages would otherwise
+            # stay resident, and a corpus near the host's memory would
+            # count twice against it
+            hoststore.release_pages(host_data)
         block = bufs[slot].to(device, non_blocking=True)
         if bf16:
             block = block.view(torch.bfloat16)

@@ -388,7 +388,11 @@ def _synthetic_big_device(draws, seed, chunk, paths, device, draws_s):
     """The chunked device generator of `synthetic_dataset_big`: each chunk
     is made on `device`, copied into one of two pinned buffers and written
     into the memory maps by a writer thread while the next chunk is made
-    (a buffer is reused once its write has finished)."""
+    (a buffer is reused once its write has finished); a flusher thread then
+    puts each written chunk on disk, drops the maps' pages and only then
+    moves the resume marker past it."""
+    from tpulmi_torch import hoststore
+
     t_all = time.perf_counter()
     assignments, q_assign, centers, proj, noise_scale = draws
     n, d_search, d_nav = len(assignments), centers.shape[1], proj.shape[1]
@@ -406,40 +410,63 @@ def _synthetic_big_device(draws, seed, chunk, paths, device, draws_s):
     bufs = [(torch.empty((rows, d_search), dtype=torch.int16, pin_memory=pin),
              torch.empty((rows, d_nav), dtype=torch.float32, pin_memory=pin))
             for _ in range(2)]
-    secs = {"gen": 0.0, "copy": 0.0, "write": 0.0}
+    secs = {"gen": 0.0, "copy": 0.0, "write": 0.0, "flush": 0.0}
+    fds = [os.open(paths[k], os.O_RDWR) for k in ("data_search", "data_nav")]
+
+    def flush(hi):
+        # to disk, then out of the page cache: a corpus larger than the
+        # host's memory must not stay resident as it is written; the
+        # marker names only rows that are on disk
+        t = time.perf_counter()
+        for fd, mm in zip(fds, (ds_mm, dn_mm)):
+            os.fsync(fd)
+            hoststore.release_pages(mm)
+        _mark(marker, hi)
+        secs["flush"] += time.perf_counter() - t
 
     def write(buf, lo, hi):
+        if len(flushes) >= 2:
+            # at most two chunks' pages wait for the disk beside this one
+            flushes[-2].result()
         t = time.perf_counter()
         ds_mm[lo:hi] = buf[0][:hi - lo].numpy().view(np.uint16)
         dn_mm[lo:hi] = buf[1][:hi - lo].numpy()
-        _mark(marker, hi)
         secs["write"] += time.perf_counter() - t
+        flushes.append(flusher.submit(flush, hi))
 
-    pending = [None, None]
-    with ThreadPoolExecutor(max_workers=1) as writer:
-        for i, lo in enumerate(range(0, n, chunk)):
-            hi = min(lo + chunk, n)
-            if hi <= done_rows:
-                continue
-            t = time.perf_counter()
-            x, nav = gen_chunk(
-                centers_d, proj_d, assign_d[lo:hi].long(),
-                chunk_noise(seed, i, (hi - lo, d_search), device), scale)
-            sync(device)
-            secs["gen"] += time.perf_counter() - t
-            slot = i % 2
-            if pending[slot] is not None:
-                pending[slot].result()
-            t = time.perf_counter()
-            bufs[slot][0][:hi - lo].copy_(x.view(torch.int16))
-            bufs[slot][1][:hi - lo].copy_(nav)
-            secs["copy"] += time.perf_counter() - t
-            del x, nav
-            pending[slot] = writer.submit(write, bufs[slot], lo, hi)
-            log.info("big datagen (%s): %d/%d rows", device.type, hi, n)
-        for job in pending:
-            if job is not None:
-                job.result()
+    pending, flushes = [None, None], []
+    try:
+        # the writer shuts down first, so every chunk it wrote is flushed
+        with ThreadPoolExecutor(max_workers=1) as flusher, \
+                ThreadPoolExecutor(max_workers=1) as writer:
+            for i, lo in enumerate(range(0, n, chunk)):
+                hi = min(lo + chunk, n)
+                if hi <= done_rows:
+                    continue
+                t = time.perf_counter()
+                x, nav = gen_chunk(
+                    centers_d, proj_d, assign_d[lo:hi].long(),
+                    chunk_noise(seed, i, (hi - lo, d_search), device), scale)
+                sync(device)
+                secs["gen"] += time.perf_counter() - t
+                slot = i % 2
+                if pending[slot] is not None:
+                    pending[slot].result()
+                t = time.perf_counter()
+                bufs[slot][0][:hi - lo].copy_(x.view(torch.int16))
+                bufs[slot][1][:hi - lo].copy_(nav)
+                secs["copy"] += time.perf_counter() - t
+                del x, nav
+                pending[slot] = writer.submit(write, bufs[slot], lo, hi)
+                log.info("big datagen (%s): %d/%d rows", device.type, hi, n)
+            for job in pending:
+                if job is not None:
+                    job.result()
+        for job in flushes:
+            job.result()
+    finally:
+        for fd in fds:
+            os.close(fd)
     t = time.perf_counter()
     ds_mm.flush()
     dn_mm.flush()
@@ -455,7 +482,8 @@ def _synthetic_big_device(draws, seed, chunk, paths, device, draws_s):
                   qnav.cpu().numpy())
     log.info("big datagen (%s): %d rows written from row %d: draws %.2fs, "
              "generation on the device %.2fs, copy back %.2fs, write into "
-             "the memory maps %.2fs (beside the next chunks), flush to disk "
-             "%.2fs; %.2fs in all", device.type, n - done_rows, done_rows,
-             draws_s, secs["gen"], secs["copy"], secs["write"], flush_s,
-             draws_s + time.perf_counter() - t_all)
+             "the memory maps %.2fs and flush to disk with the pages dropped "
+             "%.2fs (each beside the next chunks), last flush %.2fs; %.2fs "
+             "in all", device.type, n - done_rows, done_rows, draws_s,
+             secs["gen"], secs["copy"], secs["write"], secs["flush"],
+             flush_s, draws_s + time.perf_counter() - t_all)

@@ -18,7 +18,15 @@ The layout takes one of three paths, chosen up front:
 - the source-sequential scatter when the corpus is a memory map that
   `ensure_in_ram` did not copy into RAM: the corpus is read in sequential
   chunks and scattered into the store, since a random gather over a disk
-  memory map is an IO storm.
+  memory map is an IO storm; each chunk's pages are dropped once read.
+
+Packed int4 codes are made by the numpy quantizer
+(``quantize_rows_int4_host``) when the layout has no device or a CPU one,
+and on the card (`quantize_rows_int4`, block by block through pinned
+buffers) when its device is a CUDA one: the numpy grid search runs on one
+core, far too slow for the 10M-40M layouts. The codes differ from the
+numpy ones only on the rows whose two best clip points lie within float32
+rounding of each other (see `quantize_rows_int4_host`).
 
 The native path rounds int8 codes as ``nearbyintf(x * (127 / amax))``, the
 numpy paths as ``rint(x / amax * 127)``; a code can differ by one between
@@ -46,7 +54,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpulmi_torch.ops.quantize import quantize_rows_int4_host
+from tpulmi_torch.ops.quantize import (quantize_rows_int4,
+                                       quantize_rows_int4_host)
 from tpulmi_torch.utils.logging import get_logger
 
 log = get_logger("tpulmi_torch.hoststore")
@@ -283,15 +292,66 @@ def _quantize_int8_host(rows: np.ndarray):
     return codes.astype(np.int8), s
 
 
-def _write_rows(store_host, scales_host, idx, rows: np.ndarray,
-                packed4: bool) -> None:
-    """Write normalized float32 `rows` to store positions `idx`: cast on
-    assignment (a HostBF16 rounds to nearest even), or as codes and scales
-    when the store is quantized."""
+class Int4OnDevice:
+    """Packed int4 codes of host rows made on `device` by
+    `quantize_rows_int4`, `block` rows at a time: each block is copied into
+    a pinned buffer (on a CUDA device), across, quantized there, and its
+    codes and scales come back as numpy arrays. Rows are float32 rows, or
+    normalized source rows as they are (float16, float32, or a `HostBF16`,
+    whose bits cross as int16): the widening to float32 is exact."""
+
+    def __init__(self, device, block: int = 262_144):
+        self.device = torch.device(device)
+        self.block = int(block)
+        self._staging = {}
+
+    def _stage(self, part: np.ndarray) -> torch.Tensor:
+        """`part` in a reused host tensor of its dtype (pinned for a CUDA
+        device); the caller's sync on the result frees it for reuse."""
+        buf = self._staging.get(part.dtype)
+        if buf is None or buf.shape[1] != part.shape[1]:
+            buf = torch.empty((self.block, part.shape[1]),
+                              dtype=torch.from_numpy(
+                                  np.empty(0, part.dtype)).dtype,
+                              pin_memory=self.device.type == "cuda")
+            self._staging[part.dtype] = buf
+        buf[:len(part)].numpy()[...] = part
+        return buf[:len(part)]
+
+    def __call__(self, rows):
+        bf16 = isinstance(rows, HostBF16)
+        src = rows.bits.view(np.int16) if bf16 else np.asarray(rows)
+        m, d = src.shape
+        codes = np.empty((m, d // 2), np.int8)
+        scales = np.empty((m,), np.float32)
+        for lo in range(0, m, self.block):
+            hi = min(lo + self.block, m)
+            x = self._stage(src[lo:hi]).to(self.device, non_blocking=True)
+            if bf16:
+                x = x.view(torch.bfloat16)
+            c, s = quantize_rows_int4(x)
+            # the copies back wait for the device, so the staging buffer
+            # is free again after them
+            codes[lo:hi] = c.cpu().numpy()
+            scales[lo:hi] = s.cpu().numpy()
+        return codes, scales
+
+
+def _int4_quantizer(device):
+    """The int4 quantizer of a layout: on the card for a CUDA `device`,
+    else the numpy twin."""
+    if device is not None and torch.device(device).type == "cuda":
+        return Int4OnDevice(device)
+    return quantize_rows_int4_host
+
+
+def _write_rows(store_host, scales_host, idx, rows, quantize) -> None:
+    """Write normalized `rows` to store positions `idx`: cast on assignment
+    (a HostBF16 rounds to nearest even), or as the codes and scales of
+    ``quantize(rows)`` when the store is quantized."""
     if scales_host is None:
         store_host[idx] = rows
         return
-    quantize = quantize_rows_int4_host if packed4 else _quantize_int8_host
     codes, s = quantize(rows)
     store_host[idx] = codes
     scales_host[idx] = s
@@ -315,6 +375,7 @@ def layout_host_store(
     chunk: int = 1_000_000,
     progress_cb=None,
     on_alloc=None,
+    device=None,
 ) -> HostStoreArrays:
     """Lay `data_search_host` out in bucket-sorted aligned order on the
     host. `pred` is the (n,) bucket of every row. `store_dtype` is
@@ -327,7 +388,9 @@ def layout_host_store(
     written again (store positions rise with the stable label sort), which
     lets an uploader copy them while the tail is laid out.
     ``on_alloc(store_host, total_rows)`` is called once, right after the
-    store buffer is allocated."""
+    store buffer is allocated. `device`: where int4 codes are made (a CUDA
+    device: on the card; None or the CPU: numpy, see the module
+    docstring)."""
     align = max(row_align, 1)
     quantized = store_dtype in ("int8", "int4")
     packed4 = store_dtype == "int4"
@@ -364,10 +427,26 @@ def layout_host_store(
     pos = offsets[sorted_labels].astype(np.int64) + rank
     if on_alloc is not None:
         on_alloc(store_host, rows_total)
+    quantize = None
+    if quantized:
+        quantize = (_int4_quantizer(device) if packed4
+                    else _quantize_int8_host)
+    # the card's quantizer takes normalized source rows as they are
+    raw = normalized and isinstance(quantize, Int4OnDevice)
+
+    def prepared(src_rows):
+        if raw:
+            return src_rows
+        rows = np.asarray(src_rows, dtype=np.float32)
+        return rows if normalized else _normalize_rows(rows)
 
     def arrays():
-        log.info("host layout: %d rows -> %d aligned (+%d pad) in %.1fs",
-                 n, n_total, pad_rows, time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        log.info("host layout: %d rows -> %d aligned (+%d pad) in %.1fs = "
+                 "%.0f rows/s%s", n, n_total, pad_rows, secs,
+                 n / max(secs, 1e-9),
+                 (f"; int4 codes made on {quantize.device}"
+                  if isinstance(quantize, Int4OnDevice) else ""))
         if progress_cb is not None:
             # alignment gaps and the tail pad are final too
             progress_cb(rows_total)
@@ -396,11 +475,12 @@ def layout_host_store(
                  "(the corpus stays on disk)", len(starts))
         for ci, lo in enumerate(starts):
             hi = min(lo + chunk, n)
-            rows = np.asarray(data_search_host[lo:hi], dtype=np.float32)
-            if not normalized:
-                rows = _normalize_rows(rows)
             d_chunk = dst[lo:hi]
-            _write_rows(store_host, scales_host, d_chunk, rows, packed4)
+            _write_rows(store_host, scales_host, d_chunk,
+                        prepared(data_search_host[lo:hi]), quantize)
+            # the chunk's pages would otherwise stay resident beside the
+            # store: the corpus is larger than the RAM copy allows
+            release_pages(data_search_host)
             ids_host[d_chunk] = np.arange(lo, hi, dtype=np.int32)
             if progress_cb is not None:
                 progress_cb(int(suffix[ci + 1]))
@@ -428,11 +508,8 @@ def layout_host_store(
         elif direct:
             store_host[pos[lo:hi]] = data_search_host[order[lo:hi]]
         else:
-            rows = np.asarray(data_search_host[order[lo:hi]],
-                              dtype=np.float32)
-            if not normalized:
-                rows = _normalize_rows(rows)
-            _write_rows(store_host, scales_host, pos[lo:hi], rows, packed4)
+            _write_rows(store_host, scales_host, pos[lo:hi],
+                        prepared(data_search_host[order[lo:hi]]), quantize)
         ids_host[pos[lo:hi]] = order[lo:hi]
         if progress_cb is not None:
             progress_cb(int(pos[hi - 1]) + 1)
@@ -548,7 +625,7 @@ def layout_and_upload(
         arrays = layout_host_store(
             pred, data_search_host, n_categories, row_align=row_align,
             store_dtype=store_dtype, normalized=normalized,
-            pad_rows=pad_rows, chunk=chunk)
+            pad_rows=pad_rows, chunk=chunk, device=device)
         return arrays, _slab_upload_serial(arrays.data_sorted, slab_rows,
                                            device)
 
@@ -589,7 +666,7 @@ def layout_and_upload(
         arrays = layout_host_store(
             pred, data_search_host, n_categories, row_align=row_align,
             store_dtype=store_dtype, normalized=normalized,
-            pad_rows=pad_rows, chunk=chunk,
+            pad_rows=pad_rows, chunk=chunk, device=device,
             on_alloc=lambda store, total: marks.put(("alloc", (store, total))),
             progress_cb=lambda rows: marks.put(("rows", rows)))
     except BaseException:

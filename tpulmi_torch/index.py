@@ -51,7 +51,7 @@ import torch
 
 from tpulmi_torch.buckets import (BucketStore, bucket_stats,
                                   build_bucket_store)
-from tpulmi_torch.hoststore import HostBF16, host_dtype
+from tpulmi_torch.hoststore import HostBF16, host_dtype, host_tensor
 from tpulmi_torch.models.train import BucketClassifier
 from tpulmi_torch.native import native_layout
 from tpulmi_torch.ops.distance import SENTINEL_DIST, l2_normalize
@@ -87,6 +87,28 @@ def _host_mem_available():
     except OSError:
         pass
     return None
+
+
+SHADOW_SLICE_BYTES = 256 << 20   # float32 bytes a slice of the shadow
+
+
+def _float16_copy(corpus) -> np.ndarray:
+    """A float16 copy of a host corpus (float32, float16, or bfloat16 as a
+    `HostBF16`), slice by slice and with torch's threads: nothing wider
+    than a slice is made beside the copy, and each value is rounded to
+    nearest even, as numpy's cast rounds it."""
+    out = np.empty(corpus.shape, np.float16)
+    step = max(1, SHADOW_SLICE_BYTES // max(1, 4 * int(np.prod(
+        corpus.shape[1:]))))
+    exact = isinstance(corpus, HostBF16) or str(corpus.dtype) in (
+        "float32", "float16")      # torch widens float64 through float32
+    for lo in range(0, len(corpus), step):
+        if exact:
+            torch.from_numpy(out[lo:lo + step]).copy_(
+                host_tensor(corpus[lo:lo + step]))
+        else:
+            out[lo:lo + step] = np.asarray(corpus[lo:lo + step], np.float16)
+    return out
 
 
 class _materialize_async:
@@ -325,6 +347,10 @@ class LearnedIndex:
             centroids.to(self.device), classifier, store,
             torch.as_tensor(pred, device=self.device), cfg,
             int(arrays.counts.max()) if arrays.counts.size else 0), sharded)
+        # the host layout is on the card now (a mesh's store keeps its own
+        # reference): drop it before the copy below
+        del arrays
+        gc.collect()
         # keep the host corpus for the exact rerank of a quantized store. A
         # corpus that stayed on disk through the layout is copied into RAM
         # now if it fits a wider share (the store, navigation and staging
@@ -385,7 +411,7 @@ class LearnedIndex:
             arrays = layout_host_store(
                 pred, data_search_host, n_categories,
                 row_align=cfg.row_align, store_dtype=store_dtype,
-                normalized=normalized)
+                normalized=normalized, device=self.device)
             store = BucketStore(
                 data_sorted=host_tensor(arrays.data_sorted),
                 ids_sorted=host_tensor(arrays.ids_sorted),
@@ -605,7 +631,7 @@ class LearnedIndex:
                     raise RuntimeError(
                         f"f16 rerank shadow needs {need / 2**30:.1f} GiB but "
                         f"only {avail / 2**30:.1f} GiB host RAM is available")
-                shadow = (corpus, np.asarray(corpus, np.float16))
+                shadow = (corpus, _float16_copy(corpus))
                 self._rerank_shadow = shadow
             src = shadow[1]
         else:

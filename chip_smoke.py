@@ -78,7 +78,7 @@ result line.
              (bench_20m.py:188-206: 8 groups x 61 = 488 buckets, int8
              store, int8 queries, rerank depth 10) on the hoststore phase's
              2M corpus (cut from 20M rows and 244 data clusters: ~4.1k
-             rows a bucket, not ~41k; phase 10 runs it uncut):
+             rows a bucket, not ~41k; phase 11 runs 244 clusters):
              build_with_host_store with a sha256
              of what it built, calibrate_outer_weight at 24 probes, a probe
              sweep from 6 to 48 until recall@10 against the float32 oracle
@@ -118,7 +118,25 @@ result line.
              after its 5th block, resumed at row 4 x 262144 and equal to
              the uninterrupted pass to the bit; Baseline on the main data;
              one block's product (also under TF32), top-k and merge timed;
-10. hier20m - the hier phase's configuration with bench_20m.py's own
+10. flat10m - bench_10m.py's flat configuration, uncut (FLAT10M_N =
+             10M x 768 rows, 96 navigation features, 122 data clusters,
+             seed 2023, 10k queries; its IndexConfig and 122 buckets), in
+             a temporary directory of its own: the corpus made on the card
+             (the free disk checked first), the streamed float32 oracle,
+             the navigation rows rounded to bfloat16 and passed as a
+             HostBF16 (they stay bfloat16 on the card), the int8
+             host-store build (stages, store bytes, bucket sizes, digest,
+             peak host memory), the search at 4 probes with int8 queries
+             and the native rerank (recall@10 must reach 0.90), then
+             bench_10m.py's variants, each best of 3: the worklist (equal
+             to the dense search but for ties, or declined with its
+             scratch), probe_mass 0.95 / 0.98, the float16 rerank copy,
+             rerank_extra 6 / 4, rerank off; 4 stream batches with the
+             host mirror equal to search; the kernels of the path
+             launched, then each against its plain version on the path's
+             first 1000 queries; K3's time, bound and library time; the
+             probe's work model against the card's peaks;
+11. hier20m - the hier phase's configuration with bench_20m.py's own
              data clusters: HIER20M_N x 768 rows (96 navigation features;
              cut from 20M, see HIER40M_N) in 244 data clusters and 10k
              queries, made on the card by
@@ -135,9 +153,9 @@ result line.
              and float queries (K2) within 0.01 of its recall; every
              kernel of the path launched, then each against its plain
              version on the path's probes, store and first 1000 queries;
-             K3's time and bound; the peak card memory; the directory
-             removed;
-11. hier40m - bench_40m.py's configuration (16 x 61 = 976 buckets, 488
+             K3's time, bound and library time; the peak card memory; the
+             directory removed;
+12. hier40m - bench_40m.py's configuration (16 x 61 = 976 buckets, 488
              data clusters, a packed int4 host store, int8 queries) at
              HIER40M_N rows (cut from 40M to what a run may write to the
              disk; the RAM rules scaled alike), in a temporary directory
@@ -156,15 +174,15 @@ result line.
              where the host cannot hold it, else within 0.01), 4 stream
              batches equal to search; every kernel of the path
              launched, then each against its plain version on int4 codes;
-             K3's time and bound; the directory removed;
-12. prune  - SearchConfig(backend="xla", prune_after=1) against the
+             K3's time, bound and library time; the directory removed;
+13. prune  - SearchConfig(backend="xla", prune_after=1) against the
              unpruned xla scan at 7 probes, to the bit, in float32 and
              bfloat16 on the main index after compute_bounds, on its int8
              store, and on an index of tight clusters (cluster_std 0.3),
              where rows must be skipped; rows scanned of nominal and ms
              of each; the scan's ids equal to the kernel's outside ties,
              and no kernel launched by it;
-13. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
+14. cli    - the experiment CLI (tpulmi_torch.cli) with phase main's
              configuration at 1, 2 and 3 probes, equal to the main index's
              searches and recalls (cli.main in this process, the result
              writer replaced so that no h5py is needed); cli.run with an int8
@@ -174,7 +192,7 @@ result line.
              learning rate and resumed (one new row); train_lr_sweep over
              four learning rates beside one single-lr run, its first 20
              steps equal to BucketClassifier's; one search inside trace;
-14. timing - each kernel, its plain version and one library call for the
+15. timing - each kernel, its plain version and one library call for the
              same function, on the main path's inputs at 2 probes, beside
              the least time the card could take for that work and the
              rates it reached; K1, K2 and K3 also under the staged main
@@ -222,25 +240,34 @@ OWN_ROWS = 16_384   # slots whose distances are recomputed at once
 STREAM_CHUNK = 262_144   # rows of a block of the streamed ground truth
 # the first row whose first element lies past 2**31 in a 768-wide store
 FAR_ROWS = 2 ** 31 // D_SEARCH + 1
+# bench_10m.py's configuration (:37-52, 78-100): 10M rows of 768 and 96
+# features in 122 data clusters, 122 buckets, bench_10m's IndexConfig, the
+# navigation rows passed as bfloat16, an int8 host store, int8 queries and
+# the host rerank at 4 probes, uncut (19.2 GB on disk).
 # bench_40m.py's configuration (:20-42): 16 x 61 buckets, 488 data clusters,
 # packed int4, the sweep at 16 / 20 / 24 probes and the rerank-depth ladder
 # of bench_20m.py (:146-151, :346-400). A run on the card's machine may
 # write 45 GiB to its disk, deleted files included, and a corpus takes
-# 1920 bytes a row: 40M rows alone are 76.8 GB. So the 40M rows are cut to
-# 16M (30.7 GB) and phase hier20m's 20M rows to 3M (5.8 GB). The RAM
-# rules that choose the layout's path and the rerank's copy are scaled by
-# the same 0.4 (HIER40M_FRACS), so that the 16M corpus stays memory-mapped
-# through the layout and is copied into RAM for the rerank, as the 40M
-# corpus is on a host of the same RAM.
+# 1920 bytes a row: 40M rows alone are 76.8 GB. So phase hier20m's 20M rows
+# are cut to 3M (5.8 GB) and the 40M rows to 6M (11.5 GB), which leaves
+# room for the flat 10M uncut: 3.8 (hoststore) + 19.2 + 5.8 + 11.5 = 40.3
+# GB. The RAM rules that choose the layout's path and the rerank's copy
+# are scaled by the same 0.15 (HIER40M_FRACS), so that the 6M corpus stays
+# memory-mapped through the layout and is copied into RAM for the rerank,
+# as the 40M corpus is on a host of the same RAM.
+FLAT10M_N, FLAT10M_PROBES = 10_000_000, 4
+DISK_SPARE = 3e9   # free disk a big phase asks beyond its corpus
+# the JAX package's recall@10 at 10M with the float32 and the float16
+# rerank (BENCH_10M.md:12-24), printed as quality targets only
+JAX10M_RECALL = {"float32": 0.9795, "float16": 0.9611}
 HIER20M_N = 3_000_000
 HIER20M_HOLD = 1000      # queries of phase hier20m's kernels-vs-plain checks
-HIER40M_N, HIER40M_FULL_N = 16_000_000, 40_000_000
+HIER40M_N, HIER40M_FULL_N = 6_000_000, 40_000_000
 HIER40M_FRACS = {"TPULMI_MATERIALIZE_MAX_FRAC": 0.45,
                  "TPULMI_RERANK_MATERIALIZE_MAX_FRAC": 0.6}
 HIER40M_GROUPS, HIER40M_CLUSTERS = 16, 488
 HIER40M_BUDGETS = (16, 20, 24)
 HIER40M_DEPTHS = (30, 60, 100)
-HIER40M_DISK_SPARE = 3e9   # free disk the phase asks beyond its corpus
 # the JAX package's round-4 recall@10 at 40M by rerank depth and budget
 # (BENCH_40M.md:67-76), printed beside the port's as a quality target only
 JAX40M_RECALL = {30: {16: 0.8673, 20: 0.8817, 24: 0.8916},
@@ -1704,15 +1731,15 @@ def phase_hoststore(index, ds, dev, gt, cache):
     return big, gt_big
 
 
-def hier_digest(hi, pred) -> str:
-    """sha256 of a hierarchical build's outer centroids, router parameters
-    (by name) and every row's bucket."""
+def router_digest(index, pred) -> str:
+    """sha256 of a build's centroids (a hierarchy's outer ones), router
+    parameters (by name) and every row's bucket."""
     import hashlib
 
     import numpy as np
 
     h = hashlib.sha256()
-    built = hi.built
+    built = index.built
     state = built.classifier.model.state_dict()
     for t in (built.centroids, *(state[n] for n in sorted(state))):
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
@@ -1789,7 +1816,7 @@ def hier_build(tag, big, dev, store_dtype="int8", n_groups=8):
         + ("left memory-mapped" if is_memory_mapped(kept)
            else "copied into RAM"))
     log(f"{tag} build digest (sha256 of outer centroids, router "
-        f"parameters, pred): {hier_digest(hi, pred)}")
+        f"parameters, pred): {router_digest(hi, pred)}")
     return hi, pred
 
 
@@ -1908,13 +1935,42 @@ def hier_variants(tag, search, p, dense, queries, corpus, gt,
                                  f"0.01 from the dense search's {want}")
 
 
-def hier_stream(tag, hi, queries, p, rerank_extra=10):
-    """search_stream (depth STREAM_DEPTH) over 4 batches of the queries
-    (rolled by 2500 each), every batch equal to search's result, with int8
-    queries at p probes and rerank depth `rerank_extra`; the seconds a
-    batch of each. Returns the search keywords."""
+def stream_equal(tag, index, batches, kw):
+    """search_stream (depth STREAM_DEPTH) over `batches` ((nav, search) or
+    (nav, search, host mirror)), every batch equal to search's result to
+    the bit; the seconds a batch of each."""
     import numpy as np
     import torch
+
+    def search(b):
+        return index.search(*b[:2], queries_search_host=(
+            b[2] if len(b) > 2 else None), **kw)
+
+    search(batches[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = [search(b) for b in batches]
+    search_s = (time.perf_counter() - t) / len(batches)
+    t = time.perf_counter()
+    got = list(index.search_stream(batches, depth=STREAM_DEPTH, **kw))
+    stream_s = (time.perf_counter() - t) / len(batches)
+    if len(got) != len(batches):
+        raise AssertionError(f"the stream gave {len(got)} results")
+    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
+        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
+            raise AssertionError(f"stream batch {i} differs from search")
+    log(f"{tag} search_stream: {len(batches)} batches of "
+        f"{len(batches[0][0])} "
+        + ("with the host mirror of the queries " if len(batches[0]) > 2
+           else "") + f"equal to search; {stream_s:.4f}s a batch (search "
+        f"{search_s:.4f}s a batch)")
+
+
+def hier_stream(tag, hi, queries, p, rerank_extra=10):
+    """`stream_equal` over 4 batches of the queries (rolled by 2500 each),
+    with int8 queries at p probes and rerank depth `rerank_extra`.
+    Returns the search keywords."""
+    import numpy as np
     from tpulmi_torch import SearchConfig
 
     batches = [tuple(np.roll(x, -2500 * i, axis=0) for x in queries)
@@ -1922,23 +1978,7 @@ def hier_stream(tag, hi, queries, p, rerank_extra=10):
     kw = dict(n_buckets=p, k=10, search_config=SearchConfig(
         k=10, n_buckets=p, int8_queries=True, rerank_extra=rerank_extra,
         pallas_mc=1024))
-    hi.search(*batches[0], **kw)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    want = [hi.search(*b, **kw) for b in batches]
-    search_s = time.perf_counter() - t
-    t = time.perf_counter()
-    got = list(hi.search_stream(batches, depth=STREAM_DEPTH, **kw))
-    stream_s = time.perf_counter() - t
-    if len(got) != len(batches):
-        raise AssertionError(f"the stream gave {len(got)} results")
-    for i, ((gd, gi), (wd, wi)) in enumerate(zip(got, want)):
-        if not (np.array_equal(gi, wi) and np.array_equal(gd, wd)):
-            raise AssertionError(f"stream batch {i} differs from search")
-    log(f"{tag} search_stream: {len(batches)} batches of "
-        f"{len(queries[0])} equal to search; {stream_s:.4f}s = "
-        f"{stream_s / len(batches):.4f}s a batch (search "
-        f"{search_s / len(batches):.4f}s a batch)")
+    stream_equal(tag, hi, batches, kw)
     return kw
 
 
@@ -1977,31 +2017,37 @@ def hier_float16_shadow(tag, hi, search, p, dense, gt):
                              f"than 0.01 from the float32 rerank's {want}")
 
 
-def hier_on_path(hi, queries, p, dev):
+def on_path(index, queries, p, dev):
     """The normalized queries and the slot layout of a search of `queries`
-    at p probes over `hi`'s store, as the search program makes them."""
+    at p probes over the store of `index` (flat or hierarchical), as the
+    search program makes them."""
     import torch
     from tpulmi_torch.ops.distance import l2_normalize
     from tpulmi_torch.ops.probe_topk import group_slots
     from tpulmi_torch.search import route_probes, routing_logits
 
-    store = hi.built.store
+    store = index.built.store
     with torch.no_grad():
         probes = route_probes(routing_logits(
-            hi.built.classifier.model, torch.as_tensor(
+            index.built.classifier.model, torch.as_tensor(
                 queries[0], dtype=torch.float32, device=dev),
             need_mass=False)[0], p)
         qf = l2_normalize(torch.as_tensor(queries[1], device=dev).float())
     return qf, group_slots(probes, store.offsets, store.counts)
 
 
-def hier_hold(tag, hi, queries, p, dev, errs, bits=8, depth=10):
-    """Each kernel of the hierarchical path against its plain version on
-    the inputs that the path gives it (its probes, its store of `bits`-bit
-    codes and `queries`): K3 dense, the worklist with its merge kernel (the
-    merge to the bit) and the 128-row tile at k 10 + `depth` (the rerank's
-    list), the pool at k 10 / k_out 10 + `depth`, K2 with bfloat16
-    queries; their errors go into `errs`."""
+HOLD_ALL = ("int8q", "worklist", "pair", "pool", "quant")
+
+
+def hold_on_path(tag, index, queries, p, dev, errs, bits=8, depth=10,
+                 kernels=HOLD_ALL):
+    """Each kernel of a path against its plain version on the inputs that
+    the path gives it (its probes, its store of `bits`-bit codes and
+    `queries`), those of `kernels`: "int8q" K3 dense, "worklist" the
+    worklist with its merge kernel (the merge to the bit), "pair" the
+    128-row tile, each at k 10 + `depth` (the rerank's list), "pool" the
+    pool at k 10 / k_out 10 + `depth`, "quant" K2 with bfloat16 queries;
+    their errors go into `errs`."""
     import torch
     from tpulmi_torch.ops.probe_topk import (
         apply_query_scale, merge_items, merge_items_plain, probe_topk_int8q,
@@ -2014,9 +2060,9 @@ def hier_hold(tag, hi, queries, p, dev, errs, bits=8, depth=10):
             f"max |err| {err:.3g}")
 
     t = time.perf_counter()
-    st = hi.built.store
+    st = index.built.store
     k_eff, k_pool, mc = 10 + depth, 10, 1024   # k + rerank depth; pallas_mc
-    qf, lay = hier_on_path(hi, queries, p, dev)
+    qf, lay = on_path(index, queries, p, dev)
     n_q = qf.shape[0]
     n_slots = n_q * p
     q_codes, q_scales = quantize_rows(qf)
@@ -2027,63 +2073,101 @@ def hier_hold(tag, hi, queries, p, dev, errs, bits=8, depth=10):
     on = (f"at {p} probes over {st.n_categories} buckets of int{bits} "
           f"codes, {n_q} queries, {lay.blocks.shape[0]} blocks")
     plain = probe_topk_int8q_plain(*args, k_eff, bits)
-    hold(f"probe_topk_int8q_int{bits}", compare(
-        probe_topk_int8q(*args, k_eff, bits), plain, own8q, lay, n_slots,
-        INT8Q_TOL), f"(k {k_eff}) {on}")
-    hold("probe_worklist", compare(
-        probe_topk_int8q(*args, k_eff, bits, wl_pad=items,
-                         item_rows=mc)[:2], plain, own8q, lay, n_slots,
-        INT8Q_TOL), f"(k {k_eff}, {items} items of {mc} rows) {on}")
-    parts = probe_topk_int8q(*args, k_eff, bits, wl_pad=items, item_rows=mc,
-                             merge=False)
-    merged = merge_items(lay.blocks, parts, k_eff)
-    want = merge_items_plain(lay.blocks, parts, k_eff)
-    live = lay.slot_of_row < n_slots
-    if not (torch.equal(merged[0][live], want[0][live])
-            and torch.equal(merged[1][live], want[1][live])):
-        raise AssertionError("the merge kernel differs from its plain "
-                             "version on the hierarchical path's items")
-    hold("merge_items", 0.0, f"({items} items, k {k_eff}) {on}",
-         "to the bit")
-    hold("probe_pair", compare(
-        probe_topk_int8q(*args, k_eff, bits, pair=True), plain, own8q, lay,
-        n_slots, INT8Q_TOL), f"(k {k_eff}) {on}")
-    del plain, parts, merged, want
-    hold("probe_pool", compare_pool(
-        probe_topk_int8q(*args, k_pool, bits, k_out=k_eff),
-        probe_topk_int8q_plain(*args, k_pool, bits, k_out=k_eff),
-        probe_topk_int8q_plain(*args, k_pool, bits, k_out=k_eff,
-                               merge=False, wl_pad=items, item_rows=mc),
-        lambda out: apply_query_scale(out, q_scales, lay.qidx), own8q, lay,
-        n_slots, k_pool, INT8Q_TOL), f"(k {k_pool}, k_out {k_eff}) {on}")
-    qb = qf.to(torch.bfloat16)
-    quant = (qb, lay.qidx, st.data_sorted, st.scales, lay.blocks, k_eff,
-             bits)
-    hold(f"probe_topk_quant_int{bits}", compare(
-        probe_topk_quant(*quant), probe_topk_quant_plain(*quant),
-        own_quant(qb, st.data_sorted, st.scales, bits), lay, n_slots,
-        DIST_TOL), f"(bfloat16 queries, k {k_eff}) {on}")
+    if "int8q" in kernels:
+        hold(f"probe_topk_int8q_int{bits}", compare(
+            probe_topk_int8q(*args, k_eff, bits), plain, own8q, lay,
+            n_slots, INT8Q_TOL), f"(k {k_eff}) {on}")
+    if "worklist" in kernels:
+        hold("probe_worklist", compare(
+            probe_topk_int8q(*args, k_eff, bits, wl_pad=items,
+                             item_rows=mc)[:2], plain, own8q, lay, n_slots,
+            INT8Q_TOL), f"(k {k_eff}, {items} items of {mc} rows) {on}")
+        parts = probe_topk_int8q(*args, k_eff, bits, wl_pad=items,
+                                 item_rows=mc, merge=False)
+        merged = merge_items(lay.blocks, parts, k_eff)
+        want = merge_items_plain(lay.blocks, parts, k_eff)
+        live = lay.slot_of_row < n_slots
+        if not (torch.equal(merged[0][live], want[0][live])
+                and torch.equal(merged[1][live], want[1][live])):
+            raise AssertionError("the merge kernel differs from its plain "
+                                 "version on the path's items")
+        hold("merge_items", 0.0, f"({items} items, k {k_eff}) {on}",
+             "to the bit")
+        del parts, merged, want
+    if "pair" in kernels:
+        hold("probe_pair", compare(
+            probe_topk_int8q(*args, k_eff, bits, pair=True), plain, own8q,
+            lay, n_slots, INT8Q_TOL), f"(k {k_eff}) {on}")
+    del plain
+    if "pool" in kernels:
+        hold("probe_pool", compare_pool(
+            probe_topk_int8q(*args, k_pool, bits, k_out=k_eff),
+            probe_topk_int8q_plain(*args, k_pool, bits, k_out=k_eff),
+            probe_topk_int8q_plain(*args, k_pool, bits, k_out=k_eff,
+                                   merge=False, wl_pad=items, item_rows=mc),
+            lambda out: apply_query_scale(out, q_scales, lay.qidx), own8q,
+            lay, n_slots, k_pool, INT8Q_TOL),
+            f"(k {k_pool}, k_out {k_eff}) {on}")
+    if "quant" in kernels:
+        qb = qf.to(torch.bfloat16)
+        quant = (qb, lay.qidx, st.data_sorted, st.scales, lay.blocks, k_eff,
+                 bits)
+        hold(f"probe_topk_quant_int{bits}", compare(
+            probe_topk_quant(*quant), probe_topk_quant_plain(*quant),
+            own_quant(qb, st.data_sorted, st.scales, bits), lay, n_slots,
+            DIST_TOL), f"(bfloat16 queries, k {k_eff}) {on}")
     log(f"{tag} the kernels against their plain versions on the path's "
         f"inputs: {time.perf_counter() - t:.1f}s")
 
 
-def hier_k3_time(tag, hi, queries, p, dev, name, bits=8, depth=10):
+def library_int8q(q_codes, codes, scales, bits, layout, k):
+    """K3's function as library calls, one set a probed bucket of
+    `layout`: torch._int_mm of the bucket's int8 query codes and its codes
+    (packed int4 unpacked first), the rows' scales applied, torch.topk (the
+    queries' scales, one positive factor a row, are left out). Returns the
+    callable; the buckets' query rows are gathered before."""
+    import torch
+    from tpulmi_torch.ops.probe_topk import Q_LEVELS, bucket_runs
+    from tpulmi_torch.ops.quantize import unpack_int4
+
+    sc = scales / Q_LEVELS[bits]
+    runs = bucket_runs(layout.blocks)
+    qrows = [layout.qidx[rows].long() for _, _, rows in runs]
+
+    def library():
+        for (start, cnt, _), qr in zip(runs, qrows):
+            # _int_mm wants more than 16 rows and a width in eights
+            if qr.numel() <= 16:
+                qr = qr.repeat(-(-17 // qr.numel()))
+            wide = min(-(-cnt // 8) * 8, codes.shape[0] - start)
+            x = codes[start:start + wide]
+            x = unpack_int4(x) if bits == 4 else x
+            dots = torch._int_mm(q_codes[qr], x.T)[:, :cnt]
+            torch.topk(dots.float() * sc[start:start + cnt], min(k, cnt),
+                       dim=1)
+    return library
+
+
+def k3_time(tag, index, queries, p, dev, name, bits=8, depth=10):
     """K3 (int8 queries x `bits`-bit codes, k 10 + `depth`) on the path's
     probes, queries and store, by CUDA events, beside the least time the
-    card could take, reckoned as phase timing does: each probed bucket's
-    rows (d bits / 8 bytes each) and scales, the queries and the slot
+    card could take, reckoned as phase timing does (each probed bucket's
+    rows, d bits / 8 bytes each, and scales, the queries and the slot
     layout read once, the results written once; 2 d slots rows operations
-    per bucket at the int8 tensor-core rate."""
+    per bucket at the int8 tensor-core rate), and beside `library_int8q`
+    on the same slots. Returns K3's ms."""
     from tpulmi_torch.ops.probe_topk import probe_topk_int8q
     from tpulmi_torch.ops.quantize import quantize_rows
 
-    st = hi.built.store
-    qf, lay = hier_on_path(hi, queries, p, dev)
+    st = index.built.store
+    qf, lay = on_path(index, queries, p, dev)
     q_codes, q_scales = quantize_rows(qf)
     k = 10 + depth
     args = (q_codes, q_scales, lay.qidx, st.data_sorted, st.scales,
             lay.blocks, k, bits)
     ms = cuda_ms(lambda: probe_topk_int8q(*args), 20)
+    lib_ms = cuda_ms(library_int8q(q_codes, st.data_sorted, st.scales, bits,
+                                   lay, k), 3)
     slots, rows = lay.slot_counts.double(), st.counts.double()
     n_q = qf.shape[0]
     ops = float(2 * D_SEARCH * (slots * rows).sum())
@@ -2093,13 +2177,16 @@ def hier_k3_time(tag, hi, queries, p, dev, name, bits=8, depth=10):
     peak_flops, peak_bw = peaks(name)
     t_ops = ops / (peak_flops * INT8_OVER_BF16) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
+    bound = max(t_ops, t_bytes)
     log(f"{tag} K3 (int8 x int{bits}, k {k}) at {p} probes over "
         f"{st.n_categories} buckets, {n_q} queries: {ms:.4f} ms (CUDA "
         f"events, mean of 20); {ops / 1e9:.2f} GOP -> {t_ops:.4f} ms, "
-        f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms; bound "
-        f"{max(t_ops, t_bytes):.4f} ms by "
-        f"{'operations' if t_ops >= t_bytes else 'bytes'}")
-    return ms, max(t_ops, t_bytes)
+        f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms; bound {bound:.4f} ms "
+        f"by {'operations' if t_ops >= t_bytes else 'bytes'} "
+        f"({ms / bound:.1f}x); library {lib_ms:.4f} ms (per probed bucket "
+        f"torch._int_mm, scale, topk; mean of 3), {lib_ms / ms:.2f}x K3's "
+        f"time")
+    return ms
 
 
 def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
@@ -2115,7 +2202,7 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
     batches, each equal to search; one save / load; a device-store
     HierarchicalIndex.build of the main data (2 x 61 buckets) searched in
     bfloat16 at 2 probes (K1) beside the flat index. Every kernel of the
-    path must launch. Then `hier_hold` on all 10k queries and K1 on the
+    path must launch. Then `hold_on_path` on all 10k queries and K1 on the
     device store against its plain version; their errors go into `errs`.
     Last, K3's time at the found budget. Launches made after the path's
     count was read are not counted."""
@@ -2212,9 +2299,9 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
 
     # ---- each kernel against its plain version on the path's inputs
     # (these launches come after the count was read) ----
-    hier_hold(tag, hi, queries, p, dev, errs)
+    hold_on_path(tag, hi, queries, p, dev, errs)
     sst = small.built.store
-    qf1, lay1 = hier_on_path(small, host, 2, dev)
+    qf1, lay1 = on_path(small, host, 2, dev)
     q1, data1 = qf1.to(torch.bfloat16), sst.data_as(torch.bfloat16)
     full = (q1, lay1.qidx, data1, lay1.blocks, 10)
     err = compare(probe_topk(*full), probe_topk_plain(*full),
@@ -2224,7 +2311,7 @@ def phase_hier(index, ds, dev, gt, big, gt_big, cache, name, errs):
         f"store's {sst.n_categories} buckets: equal to its plain version "
         f"but for ties, max |err| {err:.3g}")
     del small, sst, data1, full
-    hier_k3_time(tag, hi, queries, p, dev, name)
+    k3_time(tag, hi, queries, p, dev, name)
     # what phase_shard holds its mesh build to; the flat store stays on
     # the card until then
     ref = dict(cfg=hier_config(), pred=pred, store=st, p=p, dense=dense,
@@ -2361,6 +2448,25 @@ def host_resources(path) -> str:
             f"{disk.total / 1e9:.1f} GB, {os.cpu_count()} cores")
 
 
+def check_disk(tag, cache, n):
+    """Log the host's RAM, disk and cores; fail unless the disk under
+    `cache` holds a corpus of n rows (bfloat16 and navigation features)
+    and DISK_SPARE."""
+    import shutil
+
+    log(f"{tag} host: {host_resources(cache)}; {host_cpu_line()}; "
+        f"{host_memory()}")
+    need = n * (D_SEARCH * 2 + D_NAV * 4) + DISK_SPARE
+    free = shutil.disk_usage(cache).free
+    log(f"{tag} free disk {free / 1e9:.1f} GB against {need / 1e9:.1f} GB "
+        f"({n} rows of bfloat16 and navigation features, and "
+        f"{DISK_SPARE / 1e9:.0f} GB spare)")
+    if free < need:
+        raise AssertionError(f"{tag} needs {need / 1e9:.1f} GB of free disk "
+                             f"under {cache}, but only {free / 1e9:.1f} GB "
+                             f"are free")
+
+
 def big_corpus(tag, n, n_clusters, cache, dev):
     """synthetic_dataset_big(n, n_clusters, backend="device") of 10k
     queries into `cache`, logged with its seconds, GB written a second,
@@ -2414,6 +2520,296 @@ def big_oracles(tag, big, dev, dtypes):
     return gts
 
 
+def phase_flat10m(dev, name, errs):
+    """bench_10m.py's flat configuration on the card, uncut (FLAT10M_*,
+    bench_10m.py:37-52, 78-100: 10M rows of 768 and 96 features in 122
+    data clusters, seed 2023, 10k queries; its IndexConfig, 122 buckets;
+    the navigation rows rounded to bfloat16 and passed as a HostBF16; an
+    int8 host store with the overlapped upload; int8 queries and the
+    native rerank at 4 probes), in a temporary directory of its own that is
+    removed at the end. Steps, each followed by the host's memory:
+    `check_disk`; synthetic_dataset_big(backend="device"); the streamed
+    float32 oracle; build_with_host_store (stages, the navigation rows'
+    type and bytes on the card, bucket sizes, store shape and bytes, a
+    digest, peak host memory); the search, whose recall@10 against the
+    oracle must reach 0.90, and bench_10m.py's variants in its order
+    (:136-225; each one warm call, then the best of 3, and adopted as
+    bench_10m.py adopts it): the worklist (taken: equal to the dense
+    search but for ties; or declined, with its items and scratch bytes),
+    probe_mass 0.95 and 0.98, the float16 rerank copy, rerank_extra 6 and
+    4, rerank off; `stream_equal` over 4 batches with the host mirror;
+    every kernel of the path launched; `hold_on_path` on the first
+    HIER20M_HOLD queries; `k3_time`, then K3 dense and on the worklist in
+    turns; probe_work_model against the card's peaks; the peak card
+    memory. Launches made after the path's count was
+    read are not counted."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
+    from tpulmi_torch.evaluate import recall_at_k
+    from tpulmi_torch.hoststore import (HostBF16, f32_to_bf16_bits,
+                                        is_memory_mapped, release_pages)
+    from tpulmi_torch.native import native_layout
+    from tpulmi_torch.ops.probe_topk import (BLOCK_SLOTS,
+                                             WL_SCRATCH_BYTES_MAX,
+                                             launch_counts,
+                                             probe_topk_int8q,
+                                             reset_launch_counts,
+                                             worklist_scratch_bytes)
+    from tpulmi_torch.ops.quantize import quantize_rows
+    from tpulmi_torch.utils.profiling import probe_work_model
+
+    tag, p = "[flat10m]", FLAT10M_PROBES
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory() as cache:
+        check_disk(tag, cache, FLAT10M_N)
+        big = big_corpus(tag, FLAT10M_N, N_CAT, cache, dev)
+        corpus = big["data_search"]
+        gt = big_oracles(tag, big, dev, {"float32": torch.float32})[
+            "float32"]
+
+        # ---- the navigation rows in bfloat16 (bench_10m.py:97-100) ----
+        nav = big["data_nav"]
+        t = time.perf_counter()
+        nav_bf16 = HostBF16.zeros(nav.shape)
+        for s in range(0, nav.shape[0], 1 << 21):
+            rows = torch.from_numpy(np.array(nav[s:s + (1 << 21)])).to(dev)
+            nav_bf16.bits[s:s + (1 << 21)] = rows.to(torch.bfloat16).view(
+                torch.int16).cpu().numpy().view(np.uint16)
+        if not np.array_equal(nav_bf16.bits[:1 << 16],
+                              f32_to_bf16_bits(nav[:1 << 16])):
+            raise AssertionError("the card's rounding to bfloat16 differs "
+                                 "from the host's")
+        release_pages(nav)
+        log(f"{tag} navigation rows rounded to bfloat16 on the card "
+            f"(nearest even, as the host rounds them): a HostBF16 of "
+            f"{nav_bf16.nbytes / 1e9:.2f} GB in RAM in "
+            f"{time.perf_counter() - t:.2f}s")
+
+        # ---- the build: bench_10m.py's IndexConfig (:78-83) ----
+        cfg = IndexConfig(n_categories=N_CAT, epochs=8, lr=0.003,
+                          model_type="MLP-5", batch_size=4096, seed=SEED,
+                          row_align=1024)
+        li = LearnedIndex(cfg, device=dev)
+        seen = {}
+        to_card = li._nav_tensor
+
+        def nav_tensor(x):
+            out = to_card(x)
+            seen["nav"] = (out.dtype, out.numel() * out.element_size())
+            return out
+
+        li._nav_tensor = nav_tensor
+        reset_launch_counts()
+        native_layout.reset_calls()
+        torch.cuda.synchronize()
+        with kept_log("tpulmi_torch.hoststore") as lines, \
+                PeakMemory() as peak:
+            pred, build_s = li.build_with_host_store(
+                nav_bf16, corpus, normalized=True, store_dtype="int8",
+                overlap_upload=True)
+        del li._nav_tensor, nav_bf16
+        if seen["nav"][0] != torch.bfloat16:
+            raise AssertionError(f"the navigation rows reached the card as "
+                                 f"{seen['nav'][0]}, not bfloat16")
+        if not native_layout.calls["scatter_rows"] > 0:
+            raise AssertionError("the int8 host store did not take the "
+                                 "native gather")
+        for line in lines:
+            if "host layout" in line or "memory-mapped" in line:
+                log(f"{tag} {line}")
+        stages = li.last_build_stages
+        st = li.built.store
+        counts = st.counts.cpu().numpy()
+        store_bytes = (st.data_sorted.numel() + st.scales.numel() * 4
+                       + st.ids_sorted.numel() * 4)
+        kept = li._host_corpus[0]
+        log(f"{tag} {FLAT10M_N} rows, {st.n_categories} buckets, int8 host "
+            f"store: build_with_host_store {build_s:.2f}s = nav stages "
+            f"{stages['nav']:.2f}s + waiting for the corpus copy "
+            f"{stages['materialize_wait']:.2f}s + layout and upload "
+            f"{stages['layout_upload']:.2f}s; navigation rows on the card "
+            f"{seen['nav'][0]} ({seen['nav'][1] / 1e9:.2f} GB); bucket rows "
+            f"max / mean / min {counts.max()} / {counts.mean():.0f} / "
+            f"{counts.min()}; store on the card "
+            f"{tuple(st.data_sorted.shape)} int8 + scales + ids = "
+            f"{store_bytes / 1e9:.3f} GB; the rerank's corpus "
+            f"({kept.nbytes / 1e9:.2f} GB) "
+            + ("left memory-mapped" if is_memory_mapped(kept)
+               else "copied into RAM") + f"; {peak}")
+        log(f"{tag} build digest (sha256 of centroids, router parameters, "
+            f"pred): {router_digest(li, pred)}; {host_memory()}")
+
+        # ---- bench_10m.py's searches (:104-225) ----
+        qn = torch.as_tensor(big["queries_nav"], device=dev)
+        qs = torch.as_tensor(big["queries_search"], device=dev)
+        q_host = np.ascontiguousarray(big["queries_search"], np.float32)
+        rerank_s = []
+        plain_rerank = li._rerank_host
+
+        def timed_rerank(*a, **kw):
+            t = time.perf_counter()
+            out = plain_rerank(*a, **kw)
+            rerank_s.append(time.perf_counter() - t)
+            return out
+
+        li._rerank_host = timed_rerank
+
+        def run_cfg(label, scfg, beside=""):
+            """bench_10m.py's run_cfg: a warm call, then the best of 3."""
+            li.search(qn, qs, n_buckets=p, k=10, search_config=scfg,
+                      queries_search_host=q_host)
+            best = None
+            for _ in range(3):
+                torch.cuda.synchronize()
+                del rerank_s[:]
+                t = time.perf_counter()
+                d, ids = li.search(qn, qs, n_buckets=p, k=10,
+                                   search_config=scfg,
+                                   queries_search_host=q_host)
+                secs = time.perf_counter() - t
+                if best is None or secs < best[0]:
+                    best = (secs, sum(rerank_s), d, ids)
+            secs, rr, d, ids = best
+            if d.shape != (N_QUERIES, 10) or not np.isfinite(d).all():
+                raise AssertionError(f"bad 10M result {d.shape}")
+            rec = recall_at_k(ids - 1, gt, 10)
+            log(f"{tag} {label}: {secs:.4f}s = {N_QUERIES / secs:.0f} QPS"
+                + (f", of which rerank {rr:.4f}s ({rr / secs:.1%})" if rr
+                   else "") + f"; recall@10 {rec:.4f}{beside}")
+            return secs, rec, d, ids
+
+        before = native_layout.calls["rerank_dot"]
+        base = SearchConfig(k=10, int8_queries=True)
+        t_base, rec, dense_d, dense_i = run_cfg(
+            f"int8 queries + native rerank at {p} of {N_CAT} probes",
+            base, f" against the float32 oracle (the JAX package's 10M "
+            f"run: {JAX10M_RECALL['float32']} with the float32 rerank, "
+            f"{JAX10M_RECALL['float16']} with the float16 one, "
+            f"BENCH_10M.md; quality targets only, on other data)")
+        if not native_layout.calls["rerank_dot"] > before:
+            raise AssertionError("the rerank did not take rerank_dot")
+        if not rec >= RECALL_GATE:
+            raise AssertionError(f"10M recall@10 {rec} under the gate")
+        best, t_best, mass_used = base, t_base, None
+
+        # the worklist, taken or declined by the port's scratch rule
+        cfgw = dataclasses.replace(base, pallas_worklist=True)
+        tw, rw, dw, iw = run_cfg("the worklist", cfgw)
+        wl = li._wl_pads.get((N_QUERIES, p), 0)
+        _, lay = on_path(li, (qn, qs), p, dev)
+        items = worklist_total(lay, st.counts, base.pallas_mc)
+        pad = max(-(-int(items * 1.15) // 1024) * 1024, 1024)
+        scratch = worklist_scratch_bytes(
+            max(wl, pad), 20, int(lay.blocks.shape[0]), False)
+        about = (f"{items} items of {base.pallas_mc} rows at {N_QUERIES} "
+                 f"queries x {p} probes, {scratch / 1e9:.3f} GB of scratch "
+                 f"(limit {WL_SCRATCH_BYTES_MAX / 1e9:.3f})")
+        if wl > 0:
+            rows = equal_but_ties(iw, dw, dense_i, dense_d, q_host, kept,
+                                  1e-6)
+            log(f"{tag} the worklist taken: a list of {wl} for {about}; "
+                f"equal to the dense search but for ties ({rows} rows "
+                f"differ); {tw:.4f}s against {t_base:.4f}s")
+        else:
+            log(f"{tag} the worklist declined, one CTA per block kept: "
+                f"{about}")
+        use_wl = wl > 0 and rw >= RECALL_GATE and tw < t_best
+        if use_wl:
+            best, t_best = cfgw, tw
+        for mass in (0.95, 0.98):
+            cfgm = dataclasses.replace(base, probe_mass=mass,
+                                       pallas_worklist=use_wl)
+            tm, rm, _, _ = run_cfg(f"probe_mass={mass}", cfgm)
+            if rm >= RECALL_GATE and tm < t_best:
+                best, t_best, mass_used = cfgm, tm, mass
+                break
+        cfg16 = dataclasses.replace(base, rerank_dtype="float16",
+                                    probe_mass=mass_used,
+                                    pallas_worklist=use_wl)
+        t = time.perf_counter()
+        t16, r16, _, _ = run_cfg("rerank_dtype='float16'", cfg16)
+        log(f"{tag} the float16 rerank copy: "
+            f"{li._rerank_shadow[1].nbytes / 1e9:.2f} GB, made and searched "
+            f"4 times in {time.perf_counter() - t:.2f}s; {host_memory()}")
+        if r16 >= RECALL_GATE and t16 < t_best:
+            best, t_best = cfg16, t16
+        else:
+            li._rerank_shadow = None
+            gc.collect()
+        for extra in (6, 4):
+            cfge = dataclasses.replace(best, rerank_extra=extra)
+            te, re_, _, _ = run_cfg(f"rerank_extra={extra}", cfge)
+            if re_ >= RECALL_GATE and te < t_best:
+                best, t_best = cfge, te
+        t_dev, _, _, _ = run_cfg("rerank off", dataclasses.replace(
+            base, rerank=False, pallas_worklist=use_wl))
+        log(f"{tag} adopted as bench_10m.py adopts: worklist {use_wl}, "
+            f"probe_mass {best.probe_mass}, rerank_dtype "
+            f"{best.rerank_dtype!r}, rerank_extra {best.rerank_extra}: "
+            f"{t_best:.4f}s = {N_QUERIES / t_best:.0f} QPS; the host rerank "
+            f"~{max(t_best - t_dev, 0):.4f}s of it (rerank off "
+            f"{t_dev:.4f}s)")
+        del li._rerank_host
+
+        # ---- 4 stream batches with the host mirror (:227-250) ----
+        batches = [(torch.roll(qn, -2500 * i, 0), torch.roll(qs, -2500 * i, 0),
+                    np.roll(q_host, -2500 * i, 0)) for i in range(4)]
+        stream_equal(tag, li, batches, dict(n_buckets=p, k=10,
+                                            search_config=best))
+        launches = launch_counts()
+        path = ["probe_topk_int8q_int8"]
+        if wl > 0:
+            path += ["probe_worklist", "merge_items"]
+        for kname in path:
+            if not launches[kname] > 0:
+                raise AssertionError(f"phase flat10m launched no {kname}")
+        log(f"{tag} launches {({n: c for n, c in launches.items() if c})}")
+
+        # ---- the kernels on the path's inputs ----
+        queries = (big["queries_nav"], big["queries_search"])
+        hold_on_path(tag, li, tuple(x[:HIER20M_HOLD] for x in queries), p,
+                     dev, errs, kernels=("int8q", "worklist") if wl > 0
+                     else ("int8q",))
+        k3_ms = k3_time(tag, li, queries, p, dev, name)
+        qf, lay = on_path(li, queries, p, dev)
+        args = (*quantize_rows(qf), lay.qidx, st.data_sorted, st.scales,
+                lay.blocks, 20, 8)
+        listed = dict(wl_pad=max(wl, pad), item_rows=base.pallas_mc)
+        turns = [cuda_ms(lambda o=o: probe_topk_int8q(*args, **o), 10)
+                 for o in ({}, listed, listed, {})]
+        log(f"{tag} K3 on the path by CUDA events, in turns: one CTA per "
+            f"block {(turns[0] + turns[3]) / 2:.4f} ms, the worklist with "
+            f"its merge {(turns[1] + turns[2]) / 2:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns)})")
+
+        # ---- the probe's work model (bench_10m.py:256-275) ----
+        peak_flops, peak_bw = peaks(name)
+        flops, nbytes = probe_work_model(
+            lay.slot_counts.cpu().numpy(), counts, D_SEARCH, BLOCK_SLOTS,
+            64, 1)
+        share = [f"{flops / t / (peak_flops * INT8_OVER_BF16):.3f} of the "
+                 f"int8 peak and {nbytes / t / peak_bw:.3f} of the memory "
+                 f"rate" for t in (k3_ms / 1e3, t_best)]
+        log(f"{tag} probe_work_model at the port's tiling (blocks of "
+            f"{BLOCK_SLOTS} slots, tiles of 64 rows): {flops / 1e12:.3f} "
+            f"TOP, {nbytes / 1e9:.3f} GB; over K3's {k3_ms:.4f} ms "
+            f"{share[0]}, over the search's {t_best:.4f}s {share[1]} "
+            f"({name})")
+        del li, big, corpus, kept, qn, qs, qf, batches, lay, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"{tag} {host_memory()}")
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f}s; peak card "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, of "
+        f"which earlier phases held {held / 1e9:.2f} GB; {name}")
+
+
 def phase_hier20m(dev, name, errs):
     """The hierarchical index at the JAX package's own 20M configuration
     (bench_20m.py:67-75, 188-206: HIER20M_N rows, cut from 20M, of 768 and
@@ -2427,9 +2823,10 @@ def phase_hier20m(dev, name, errs):
     JAX package's containment; `hier_sweep` against both oracles until the
     float32 one's recall@10 reaches 0.90 (the phase fails if none does);
     `hier_variants` at that budget; every kernel of the path launched;
-    `hier_hold` on the first HIER20M_HOLD queries (the plain worklist walks
-    its items one by one); K3's time and bound; the peak card memory.
-    Launches made after the path's count was read are not counted."""
+    `hold_on_path` on the first HIER20M_HOLD queries (the plain worklist
+    walks its items one by one); K3's time, bound and library time; the
+    peak card memory. Launches made after the path's count was read are
+    not counted."""
     import gc
     import torch
     from tpulmi_torch.ops.probe_topk import (launch_counts,
@@ -2473,9 +2870,9 @@ def phase_hier20m(dev, name, errs):
         log(f"{tag} launches {({n: c for n, c in launches.items() if c})}")
 
         # ---- the kernels on the path's inputs ----
-        hier_hold(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p, dev,
-                  errs)
-        hier_k3_time(tag, hi, queries, p, dev, name)
+        hold_on_path(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p,
+                     dev, errs)
+        k3_time(tag, hi, queries, p, dev, name)
         del hi, search, dense, big, corpus
         gc.collect()
         torch.cuda.empty_cache()
@@ -2487,28 +2884,24 @@ def phase_hier20m(dev, name, errs):
 
 def phase_hier40m(dev, name, errs):
     """bench_40m.py's configuration on the card (HIER40M_*: 16 x 61 = 976
-    buckets, 488 data clusters, a packed int4 host store, int8 queries,
-    items of 1024 rows, the rerank depth 30 rising to 60 and 100), at
-    HIER40M_N rows, in a temporary directory of its own that is removed at
-    the end. Steps, each followed by the host's memory: the host's RAM,
-    cores and free disk (the phase fails if the disk cannot hold the
-    corpus and HIER40M_DISK_SPARE); synthetic_dataset_big(backend=
-    "device"), its seconds, GB/s and peak memory; the streamed exact oracle
-    in float32; `hier_build` with an int4 store (the corpus stays
-    memory-mapped through the layout; the layout's rows a second, the
-    build's peak memory); calibrate_outer_weight at 24 probes; the sweep
-    at 16 / 20 / 24 probes at depth 30 and, if none reaches recall@10
-    0.90, depth 60 then 100 at 24 probes and back down to the lowest
-    budget that still reaches it (the phase fails if nothing does), each
-    beside the JAX package's round 4; at the found (budget, depth)
-    `hier_variants` (the pool's recall printed, not held), what the port
-    does with the worklist at this shape, `hier_float16_shadow` and
-    `hier_stream`; every kernel of the
-    path launched; `hier_hold` on the first HIER20M_HOLD queries with int4
-    codes; K3's time and bound; the peak card memory. Launches made after
-    the path's count was read are not counted."""
+    buckets, 488 data clusters, a packed int4 host store, int8 queries, items
+    of 1024 rows, the rerank depth 30 rising to 60 and 100), at HIER40M_N rows,
+    in a temporary directory of its own that is removed at the end. Steps, each
+    followed by the host's memory: `check_disk`;
+    synthetic_dataset_big(backend="device"), its seconds, GB/s and peak memory;
+    the streamed exact oracle in float32; `hier_build` with an int4 store (the
+    corpus stays memory-mapped through the layout; the layout's rows a second,
+    the build's peak memory); calibrate_outer_weight at 24 probes; the sweep at
+    16 / 20 / 24 probes at depth 30 and, if none reaches recall@10 0.90, depth
+    60 then 100 at 24 probes and back down to the lowest budget that still
+    reaches it (the phase fails if nothing does), each beside the JAX package's
+    round 4; at the found (budget, depth) `hier_variants` (the pool's recall
+    printed, not held), what the port does with the worklist at this shape,
+    `hier_float16_shadow` and `hier_stream`; every kernel of the path launched;
+    `hold_on_path` on the first HIER20M_HOLD queries with int4 codes; K3's
+    time, bound and library time; the peak card memory. Launches made after the
+    path's count was read are not counted."""
     import gc
-    import shutil
 
     import torch
     from tpulmi_torch.hoststore import is_memory_mapped
@@ -2520,17 +2913,7 @@ def phase_hier40m(dev, name, errs):
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     with tempfile.TemporaryDirectory() as cache:
-        log(f"{tag} host: {host_resources(cache)}; {host_cpu_line()}; "
-            f"{host_memory()}")
-        need = HIER40M_N * (D_SEARCH * 2 + D_NAV * 4) + HIER40M_DISK_SPARE
-        free = shutil.disk_usage(cache).free
-        if free < need:
-            raise AssertionError(
-                f"phase hier40m needs {need / 1e9:.1f} GB of free disk under "
-                f"{cache} ({HIER40M_N} rows of bfloat16 and navigation "
-                f"features, and {HIER40M_DISK_SPARE / 1e9:.0f} GB spare), "
-                f"but only {free / 1e9:.1f} GB are free")
-
+        check_disk(tag, cache, HIER40M_N)
         big = big_corpus(tag, HIER40M_N, HIER40M_CLUSTERS, cache, dev)
         qs = big["queries_search"]
         gt = big_oracles(tag, big, dev, {"float32": torch.float32})[
@@ -2616,9 +2999,9 @@ def phase_hier40m(dev, name, errs):
         log(f"{tag} launches {({n: c for n, c in launches.items() if c})}")
 
         # ---- the kernels on the path's inputs ----
-        hier_hold(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p, dev,
-                  errs, bits=4, depth=depth)
-        hier_k3_time(tag, hi, queries, p, dev, name, bits=4, depth=depth)
+        hold_on_path(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p,
+                     dev, errs, bits=4, depth=depth)
+        k3_time(tag, hi, queries, p, dev, name, bits=4, depth=depth)
         log(f"{tag} the rerank's corpus "
             + ("left memory-mapped" if is_memory_mapped(rerank_corpus)
                else "copied into RAM") + f"; {host_memory()}")
@@ -3851,21 +4234,11 @@ def phase_timing(index, stores, ds, dev, name):
         iargs = (q_codes, q_scales, layout.qidx, codes, scales, layout.blocks,
                  k, bits)
 
-        def library_int8q():    # per bucket: torch._int_mm, scale, topk
-            for (start, cnt, _), qr in zip(runs, qrows):
-                # _int_mm wants more than 16 rows and a width in eights
-                if qr.numel() <= 16:
-                    qr = qr.repeat(-(-17 // qr.numel()))
-                wide = min(-(-cnt // 8) * 8, codes.shape[0] - start)
-                dots = torch._int_mm(q_codes[qr],
-                                     bucket_codes(start, wide).T)[:, :cnt]
-                sims = dots.float() * sc[start:start + cnt]
-                torch.topk(sims, min(k, cnt), dim=1)
-
         results[f"probe_topk_int8q_int{bits}"] = measure(
             f"probe_topk_int8q int{bits} store, int8 queries",
             lambda: probe_topk_int8q(*iargs),
-            lambda: probe_topk_int8q_plain(*iargs), library_int8q,
+            lambda: probe_topk_int8q_plain(*iargs),
+            library_int8q(q_codes, codes, scales, bits, layout, k),
             own_quant(q_codes, codes, scales, bits, q_scales), INT8Q_TOL,
             bound(row_bytes, n_q * (d + 4), peak_flops * INT8_OVER_BF16),
             staged=lambda: probe_topk_int8q(*iargs, loop="staged"))
@@ -4036,6 +4409,8 @@ def main(args) -> int:
         phase_baseline(ds, dev, gt, big, gt_big)
         done("baseline")
         del big
+    phase_flat10m(dev, name, kernel_errs)
+    done("flat10m")
     phase_hier20m(dev, name, kernel_errs)
     done("hier20m")
     phase_hier40m(dev, name, kernel_errs)

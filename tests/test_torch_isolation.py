@@ -121,6 +121,7 @@ def test_new_sources_are_covered():
     assert 'backend="device"' in smoke
     assert "def phase_hier40m" in smoke and "phase_hier40m(dev" in smoke
     assert 'store_dtype="int4"' in smoke
+    assert "def phase_flat10m" in smoke and "phase_flat10m(dev" in smoke
 
 
 def test_default_device_without_card_raises(monkeypatch, tmp_path):

@@ -1034,6 +1034,105 @@ def test_int4_kernels_on_a_976_bucket_store(store_976, kernel, variant):
     assert bool((got[1] >= 0).all())
 
 
+@pytest.fixture(scope="module")
+def store_10m():
+    """An int8 store of bench_10m.py's geometry, made on the card: 10M rows
+    of 768 random codes (random scales in [0.5, 1.5)) in 122 buckets whose
+    sizes follow the generator's skew 1.5 (weights ``random(122) ** 1.5``,
+    the JAX package's `synthetic_dataset_big`), a mean of ~82k rows,
+    row_align 1024; 10k queries at 4 probes drawn in proportion to bucket
+    size, as the router draws the popular buckets (int8 queries, k +
+    rerank depth = 20)."""
+    from tpulmi_torch.buckets import BucketStore
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    n, d, n_cat, q, p = 10_000_000, 768, 122, 10_000, 4
+    w = rng.random(n_cat) ** 1.5
+    counts = rng.multinomial(n, w / w.sum())
+    offsets = np.concatenate([[0], np.cumsum(-(-counts // 1024) * 1024)])
+    rows = int(offsets[-1]) + 4096
+    gen = torch.Generator(device=dev).manual_seed(10)
+    codes = torch.randint(-127, 128, (rows, d), dtype=torch.int8,
+                          device=dev, generator=gen)
+    scales = torch.rand(rows, device=dev, generator=gen) + 0.5
+    ids = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    for b in range(n_cat):
+        lo, first = int(offsets[b]), int(counts[:b].sum())
+        ids[lo:lo + counts[b]] = torch.arange(first, first + counts[b],
+                                              dtype=torch.int32, device=dev)
+    store = BucketStore(
+        data_sorted=codes, ids_sorted=ids,
+        offsets=torch.from_numpy(offsets.astype(np.int32)).to(dev),
+        counts=torch.from_numpy(counts.astype(np.int32)).to(dev), n=n,
+        pad_rows=4096, row_align=1024, scales=scales, quant_bits=8)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    qs = torch.from_numpy(qs / np.linalg.norm(qs, axis=1,
+                                              keepdims=True)).to(dev)
+    keys = np.log(counts + 1e-9)[None, :] + rng.gumbel(size=(q, n_cat))
+    probes = torch.from_numpy(np.argsort(-keys, axis=1)[:, :p].astype(
+        np.int32)).to(dev)
+    return store, qs, probes
+
+
+@pytest.mark.parametrize("variant", ["dense", "worklist"])
+def test_int8q_kernels_on_the_10m_flat_store(store_10m, variant):
+    """K3 and the worklist (K4 + its merge kernel) on bench_10m.py's flat
+    geometry, 122 skewed buckets of ~82k rows: the dense kernel equals its
+    plain version but for ties; the worklist, sized as the index sizes it,
+    equals the dense kernel to the bit, and its merge kernel the merge's
+    plain version on the same item lists."""
+    from tpulmi_torch.ops.probe_topk import (merge_items, merge_items_plain,
+                                             probe_search)
+
+    store, qs, probes = store_10m
+    k = 20
+    opts = dict(k=k, int8_queries=True, item_rows=1024)
+    before = launch_counts()
+    dense = probe_search(probes, qs, store, backend="cuda", **opts)
+    if variant == "dense":
+        pd, pi, _ = probe_search(probes, qs, store, backend="torch", **opts)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dense[0], pd, atol=1e-5, rtol=0)
+        apart = torch.from_numpy(_apart(pd.cpu().numpy(), 1e-5)).to(
+            pd.device)
+        apart[:, -1] = False
+        assert torch.equal(dense[1][apart], pi[apart])
+        assert after_count(before, "probe_topk_int8q_int8") > 0
+    else:
+        lay = group_slots(probes, store.offsets, store.counts)
+        steps = torch.clamp(-(-store.counts.long() // 1024), min=1)
+        total = int((-(-lay.slot_counts // 64) * steps
+                     * (lay.slot_counts > 0)).sum())
+        wl = max(-(-int(total * 1.15) // 1024) * 1024, 1024)
+        got = probe_search(probes, qs, store, backend="cuda", wl_pad=wl,
+                           **opts)
+        torch.cuda.synchronize()
+        assert int(got[3]) == total <= wl
+        assert torch.equal(got[0], dense[0])
+        assert torch.equal(got[1], dense[1])
+        q_codes, q_scales = quantize_rows(qs)
+        parts = probe_topk_int8q(q_codes, q_scales, lay.qidx,
+                                 store.data_sorted, store.scales, lay.blocks,
+                                 k, 8, wl_pad=wl, item_rows=1024,
+                                 merge=False)
+        merged = merge_items(lay.blocks, parts, k)
+        want = merge_items_plain(lay.blocks, parts, k)
+        live = lay.slot_of_row < probes.numel()
+        assert torch.equal(merged[0][live], want[0][live])
+        assert torch.equal(merged[1][live], want[1][live])
+        for name in ("probe_worklist", "merge_items"):
+            assert after_count(before, name) > 0
+    assert bool((dense[1] >= 0).all())
+
+
+def after_count(before, name):
+    """Launches of kernel `name` since the counts `before`."""
+    return launch_counts()[name] - before[name]
+
+
 def test_int4_layout_on_card_equals_cpu_twin_but_near_ties(card):
     """The int4 host layout of 1M rows of d=768 with its codes made on the
     card (`hoststore.Int4OnDevice`, from bfloat16 bits as the big runs

@@ -38,7 +38,6 @@ from torch import nn
 
 from tpulmi_torch.buckets import bucket_stats, build_bucket_store
 from tpulmi_torch.build import BuildPlan, StageInputs, build_plan, fused_build
-from tpulmi_torch.hoststore import HostBF16
 from tpulmi_torch.index import BuiltIndex, LearnedIndex
 # StackedMLP lives beside MLP; imported here under its old home too
 from tpulmi_torch.models.mlp import MLP, MODEL_HIDDEN_DIMS, StackedMLP
@@ -173,17 +172,6 @@ class HierarchicalIndex(LearnedIndex):
         self.stage_inputs: Optional[Callable[..., StageInputs]] = None
 
     # ------------------------------------------------------------------ build
-    def _nav_tensor(self, data_nav) -> torch.Tensor:
-        """The navigation rows on the index's device, in the caller's
-        precision: a `HostBF16` or bfloat16 tensor stays bfloat16 (every
-        stage casts its chunk to float32)."""
-        if isinstance(data_nav, HostBF16):
-            data_nav = data_nav.to_torch()
-        x = torch.as_tensor(data_nav, device=self.device)
-        if x.dtype in (torch.bfloat16, torch.float16, torch.float32):
-            return x
-        return x.float()
-
     def _build_navigation(self, data_nav):
         """The outer router, one inner router per group and the joint
         argmax of every row; with ``router_restarts > 1`` the best of that

@@ -181,6 +181,18 @@ class LearnedIndex:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _nav_tensor(self, data_nav) -> torch.Tensor:
+        """The navigation rows on the index's device, in the caller's
+        precision, as the JAX package uploads them: a `HostBF16` (in RAM or
+        memory-mapped) or bfloat16 tensor stays bfloat16, and so does
+        float16; every build stage casts its chunk to float32."""
+        if isinstance(data_nav, HostBF16):
+            data_nav = data_nav.to_torch()
+        x = torch.as_tensor(data_nav, device=self.device)
+        if x.dtype in (torch.bfloat16, torch.float16, torch.float32):
+            return x
+        return x.float()
+
     def _generator(self) -> torch.Generator:
         return torch.Generator().manual_seed(self.config.seed)
 
@@ -289,12 +301,15 @@ class LearnedIndex:
         search store is laid out on the host and copied to the card once:
         for corpora whose store and source copy do not both fit the card.
 
-        `data_search_host` stays a host array: float32, float16, or
-        bfloat16 as a `tpulmi_torch.hoststore.HostBF16`, possibly a memory
-        map (copied into RAM beside the navigation stages where the host
-        has room; else laid out source-sequentially). `store_dtype` is
-        "bfloat16", "float32", "int8" or "int4"; with a quantized store,
-        `search` reranks the candidates against `data_search_host`.
+        `data_nav` is float32, or bfloat16 as a tensor or a `HostBF16`
+        (possibly memory-mapped), which stays bfloat16 on the card
+        (`_nav_tensor`). `data_search_host` stays a host array: float32,
+        float16, or bfloat16 as a `tpulmi_torch.hoststore.HostBF16`,
+        possibly a memory map (copied into RAM beside the navigation stages
+        where the host has room; else laid out source-sequentially).
+        `store_dtype` is "bfloat16", "float32", "int8" or "int4"; with a
+        quantized store, `search` reranks the candidates against
+        `data_search_host`.
         ``overlap_upload=True`` copies finished slabs of the store while
         the layout writes its tail (`hoststore.layout_and_upload`).
 
@@ -371,7 +386,7 @@ class LearnedIndex:
 
         cfg = self.config
         n_categories = cfg.n_categories
-        data_nav = self._tensor(data_nav)
+        data_nav = self._nav_tensor(data_nav)
         n, d_nav = int(data_nav.shape[0]), int(data_nav.shape[1])
         if n < n_categories:   # the reference's small-data fallback
             n_categories = max(n // 5, 2)

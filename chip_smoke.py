@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--profile | --kernels-only]
 
-Phases, in order; any failure exits non-zero. ``--profile`` adds, after the
-timing, one search's time by stage and by device kernel. ``--kernels-only``
-stops after phase 2 (a short check of a changed kernel) and prints no
-result line.
+Phases, in order; any failure exits non-zero. ``--profile`` adds, in the
+serving phase, the device's busy share and time by kernel of two streams
+(a search's own spans: run it under `tpulmi_torch.utils.profiling.trace`
+and read `profiling.records()`). ``--kernels-only`` stops after phase 2 (a
+short check of a changed kernel) and prints no result line.
 
 1. build   - compile every CUDA kernel library of tpulmi_torch/csrc with
              nvcc, all at once, and beside them the native host library
@@ -1100,7 +1101,7 @@ def phase_main(dev):
     from tpulmi_torch.data import synthetic_dataset
     from tpulmi_torch.evaluate import recall_at_k
     from tpulmi_torch.ops.probe_topk import (launch_counts,
-                                             loop_launch_counts, probe_topk,
+                                             loop_launch_counts,
                                              reset_launch_counts)
 
     t0 = time.perf_counter()
@@ -1123,12 +1124,12 @@ def phase_main(dev):
         runs = []
         # first call of a shape, steady state, steady with staged queries
         for queries in (host, host, staged):
-            before = probe_topk.launches
+            before = launch_counts()["probe_topk"]
             torch.cuda.synchronize()
             t = time.perf_counter()
             dists, ids = index.search(*queries, n_buckets=p, k=10)
             runs.append(time.perf_counter() - t)
-            if probe_topk.launches <= before:
+            if launch_counts()["probe_topk"] <= before:
                 raise AssertionError(f"search at {p} probes launched no "
                                      f"probe kernel")
         searches[p] = (runs, dists, ids)
@@ -1137,13 +1138,13 @@ def phase_main(dev):
         raise AssertionError(f"the main path's searches did not all take "
                              f"the wgmma loop: {loops}")
     # a float32 search (compute_dtype=None) goes through the kernel too
-    before = probe_topk.launches
+    before = launch_counts()["probe_topk"]
     torch.cuda.synchronize()
     t = time.perf_counter()
     f32_ids = index.search(*host, n_buckets=2, k=10,
                            search_config=SearchConfig(compute_dtype=None))[1]
     f32_s = time.perf_counter() - t
-    if probe_topk.launches <= before:
+    if launch_counts()["probe_topk"] <= before:
         raise AssertionError("float32 search launched no probe kernel")
     launches = launch_counts()["probe_topk"]
 
@@ -4295,73 +4296,6 @@ def phase_timing_skewed(dev):
         f"clusters of {rule}")
 
 
-def phase_stages(index, ds, dev, p=2, reps=5):
-    """Where one search's time goes: each stage of LearnedIndex.search at
-    `p` probes run on its own, synchronized, host clock; the median of
-    `reps` runs. Then one search under torch.profiler: device time by
-    kernel and the device's busy share of the wall time."""
-    import numpy as np
-    import torch
-    from tpulmi_torch.ops.distance import l2_normalize
-    from tpulmi_torch.ops.probe_topk import (group_slots, merge_slots,
-                                             probe_topk)
-    from tpulmi_torch.search import route_probes
-
-    from tpulmi_torch import SearchConfig
-
-    store, k = index.built.store, 10
-    model = index.built.classifier.model
-    scfg = SearchConfig(k=k, n_buckets=p)
-    plan = index._plan_search(torch.zeros((1, D_NAV)), p, k, scfg)
-    st = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        st.setdefault(name, []).append(time.perf_counter() - t)
-        return out
-
-    qn_np, qs_np = ds["queries_nav"], ds["queries_search"]
-    with torch.no_grad():
-        for _ in range(reps + 1):
-            qn, qs = stage("h2d", lambda: (index._tensor(qn_np),
-                                           index._tensor(qs_np)))
-            probes = stage("route", lambda: route_probes(model(qn), p))
-            q = stage("normalize", lambda: l2_normalize(qs).to(
-                torch.bfloat16).contiguous())
-            lay = stage("group_slots", lambda: group_slots(
-                probes, store.offsets, store.counts))
-            out = stage("probe_topk", lambda: probe_topk(
-                q, lay.qidx, store.data_as(torch.bfloat16), lay.blocks, k))
-            fd, fi = stage("merge", lambda: merge_slots(
-                *out, lay, q.shape[0], p, k, store.ids_sorted))
-            stage("finalize", lambda: index._finalize(
-                *index._fetch_result((fd, fi, lay.slot_counts.max()),
-                                     plan)[:2], plan, k, scfg, qs, qs_np))
-            stage("search", lambda: index.search(qn_np, qs_np, n_buckets=p,
-                                                 k=k))
-    med = {n: float(np.median(v[1:])) * 1e3 for n, v in st.items()}
-    parts = sum(v for n, v in med.items() if n != "search")
-    log(f"[stages] probes={p}, {N_QUERIES} queries, median of {reps} (ms): "
-        + ", ".join(f"{n} {v:.3f}" for n, v in med.items())
-        + f"; stages sum {parts:.3f}")
-
-    def one_search():
-        index.search(qn_np, qs_np, n_buckets=p, k=k)
-        torch.cuda.synchronize()
-
-    one_search()
-    wall, busy, events = device_busy_ms(one_search)
-    log(f"[profile] one search at probes={p}: wall {wall:.3f} ms, "
-        f"device busy {busy:.3f} ms ({busy / wall:.1%}); by device"
-        f" time (ms, calls):")
-    for us, count, key in events[:12]:
-        if us > 0:
-            log(f"[profile]   {us / 1e3:.4f} {count} {key[:90]}")
-
-
 def main(args) -> int:
     import torch
 
@@ -4422,8 +4356,6 @@ def main(args) -> int:
     timing = phase_timing(index, stores, ds, dev, name)
     phase_timing_skewed(dev)
     done("timing")
-    if "--profile" in args:
-        phase_stages(index, ds, dev)
 
     # name -> (source, the TPU kernel it replaces); launches are those of
     # the path that each kernel serves: main, quantized or serving

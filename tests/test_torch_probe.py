@@ -11,8 +11,8 @@ from tpulmi.buckets import build_bucket_store
 from tpulmi.ops.pallas_topk import pallas_probe_search
 from tpulmi_torch.convert import store_from_arrays
 from tpulmi_torch.ops.probe_topk import (BLOCK_SLOTS, group_slots,
-                                         probe_search, probe_topk,
-                                         probe_topk_plain)
+                                         launch_counts, probe_search,
+                                         probe_topk, probe_topk_plain)
 
 torch.set_num_threads(1)
 
@@ -176,10 +176,11 @@ def test_wrapper_takes_plain_version_on_cpu(rng):
     lay = group_slots(probes, ts.offsets, ts.counts)
     q = torch.from_numpy(queries).bfloat16()
     data = ts.data_as(torch.bfloat16)
-    before = probe_topk.launches
+    before = launch_counts()["probe_topk"]
     a = probe_topk(q, lay.qidx, data, lay.blocks, 10)
     b = probe_topk_plain(q, lay.qidx, data, lay.blocks, 10)
-    assert probe_topk.launches == before     # nothing launched on the CPU
+    # nothing launched on the CPU
+    assert launch_counts()["probe_topk"] == before
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     with pytest.raises(ValueError):

@@ -63,7 +63,8 @@ from tpulmi_torch.search import (make_search_program, route_probes,
 from tpulmi_torch.serving import QueryStager
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
 from tpulmi_torch.utils.logging import get_logger
-from tpulmi_torch.utils.profiling import resolve_device, sync
+from tpulmi_torch.utils import profiling
+from tpulmi_torch.utils.profiling import count, resolve_device, span, sync
 
 log = get_logger("tpulmi_torch.index")
 
@@ -90,6 +91,11 @@ def _host_mem_available():
 
 
 SHADOW_SLICE_BYTES = 256 << 20   # float32 bytes a slice of the shadow
+
+
+def _itemsize(dtype) -> int:
+    """Bytes of one element of a host corpus's dtype (bfloat16 included)."""
+    return 2 if str(dtype) == "bfloat16" else np.dtype(dtype).itemsize
 
 
 def _float16_copy(corpus) -> np.ndarray:
@@ -156,7 +162,6 @@ class LearnedIndex:
         self.device = resolve_device(device)
         self.built: Optional[BuiltIndex] = None
         self._search_programs = {}   # static config -> search function
-        self.last_max_slots = None   # slots routed to the busiest bucket
         # (Q, n_buckets) -> worklist length of the probe kernel; -1 = the
         # worklist is off for this shape (its scratch would be too large)
         self._wl_pads = {}
@@ -615,63 +620,83 @@ class LearnedIndex:
         rows are gathered and multiplied with ``torch.bmm``."""
         corpus, normalized = self._host_corpus
         q, k_eff = ids.shape
-        d = int(np.asarray(corpus[:1]).shape[1])
-        # a candidate list may hold one row twice: mark repeats empty so the
-        # exact reorder can never return a row twice (a no-op otherwise)
-        sort_idx = np.argsort(ids, axis=1, kind="stable")
-        sorted_ids = np.take_along_axis(ids, sort_idx, axis=1)
-        dup_sorted = np.zeros(ids.shape, dtype=bool)
-        dup_sorted[:, 1:] = ((sorted_ids[:, 1:] == sorted_ids[:, :-1])
-                             & (sorted_ids[:, 1:] >= 0))
-        if dup_sorted.any():
-            dup = np.zeros(ids.shape, dtype=bool)
-            np.put_along_axis(dup, sort_idx, dup_sorted, axis=1)
-            ids = np.where(dup, -1, ids)
-        if host_queries is not None:
-            qs = np.array(host_queries, np.float32)  # writable copy
-        else:
-            qs = np.array(torch.as_tensor(queries_search).float().cpu(),
-                          np.float32)
-        qs /= np.maximum(np.linalg.norm(qs, axis=1, keepdims=True), 1e-12)
-        flat = np.maximum(ids, 0).reshape(-1)
-        if rerank_dtype == "float16":
-            shadow = self._rerank_shadow
-            if shadow is None or shadow[0] is not corpus:
-                # The shadow is a full-size float16 copy of the corpus. Past
-                # the available host RAM the allocation would not raise, the
-                # kernel's OOM killer would end the process: refuse instead.
-                need = 2 * d * len(corpus)
-                avail = _host_mem_available()
-                if avail is not None and need > avail - (8 << 30):
-                    raise RuntimeError(
-                        f"f16 rerank shadow needs {need / 2**30:.1f} GiB but "
-                        f"only {avail / 2**30:.1f} GiB host RAM is available")
-                shadow = (corpus, _float16_copy(corpus))
-                self._rerank_shadow = shadow
-            src = shadow[1]
-        else:
-            src = corpus if isinstance(corpus, (np.ndarray, HostBF16)) \
-                else None
-        if (src is not None
-                and str(src.dtype) in ("float32", "float16", "bfloat16")
-                and src.flags["C_CONTIGUOUS"] and native_layout.available()):
-            sims = native_layout.rerank_dot(src, ids, qs,
-                                            normalized=normalized)
-            return self._rerank_order(1.0 - sims, ids, k)
-        if rerank_dtype == "float16":
-            # the gathered rows stay float16: torch's CPU half bmm sums in
-            # float32, and an upcast of the block costs more than the
-            # halved gather saves
-            rows = shadow[1][flat].reshape(q, k_eff, d)
-        else:
-            rows = np.asarray(corpus[flat], np.float32).reshape(q, k_eff, d)
-        if not normalized:
-            rows = np.asarray(rows, np.float32)
-            rows /= np.maximum(
-                np.linalg.norm(rows, axis=2, keepdims=True), 1e-12)
-        qcol = torch.from_numpy(qs.astype(rows.dtype)).unsqueeze(2)
-        sims = torch.bmm(torch.from_numpy(rows), qcol).float().numpy()[:, :, 0]
-        return self._rerank_order(1.0 - sims, ids, k)
+        with span("rerank"):
+            with span("rerank.prep"):
+                d = int(np.asarray(corpus[:1]).shape[1])
+                # a candidate list may hold one row twice: mark repeats
+                # empty so the exact reorder can never return a row twice
+                # (a no-op otherwise)
+                sort_idx = np.argsort(ids, axis=1, kind="stable")
+                sorted_ids = np.take_along_axis(ids, sort_idx, axis=1)
+                dup_sorted = np.zeros(ids.shape, dtype=bool)
+                dup_sorted[:, 1:] = ((sorted_ids[:, 1:] == sorted_ids[:, :-1])
+                                     & (sorted_ids[:, 1:] >= 0))
+                if dup_sorted.any():
+                    dup = np.zeros(ids.shape, dtype=bool)
+                    np.put_along_axis(dup, sort_idx, dup_sorted, axis=1)
+                    ids = np.where(dup, -1, ids)
+                if host_queries is not None:
+                    qs = np.array(host_queries, np.float32)  # writable copy
+                else:
+                    qs = np.array(torch.as_tensor(queries_search).float()
+                                  .cpu(), np.float32)
+                qs /= np.maximum(np.linalg.norm(qs, axis=1, keepdims=True),
+                                 1e-12)
+                flat = np.maximum(ids, 0).reshape(-1)
+            if rerank_dtype == "float16":
+                shadow = self._rerank_shadow
+                if shadow is None or shadow[0] is not corpus:
+                    with span("rerank.shadow"):
+                        # The shadow is a full-size float16 copy of the
+                        # corpus. Past the available host RAM the allocation
+                        # would not raise, the kernel's OOM killer would end
+                        # the process: refuse instead.
+                        need = 2 * d * len(corpus)
+                        avail = _host_mem_available()
+                        if avail is not None and need > avail - (8 << 30):
+                            raise RuntimeError(
+                                f"f16 rerank shadow needs "
+                                f"{need / 2**30:.1f} GiB but only "
+                                f"{avail / 2**30:.1f} GiB host RAM is "
+                                f"available")
+                        shadow = (corpus, _float16_copy(corpus))
+                        self._rerank_shadow = shadow
+                src = shadow[1]
+            else:
+                src = corpus if isinstance(corpus, (np.ndarray, HostBF16)) \
+                    else None
+            read = corpus if src is None else src
+            count("rerank_candidates", q * k_eff)
+            with span("rerank.dot"):
+                count("rerank_bytes",
+                      q * k_eff * d * _itemsize(getattr(read, "dtype",
+                                                        "float32")))
+                if (src is not None
+                        and str(src.dtype) in ("float32", "float16",
+                                               "bfloat16")
+                        and src.flags["C_CONTIGUOUS"]
+                        and native_layout.available()):
+                    sims = native_layout.rerank_dot(src, ids, qs,
+                                                    normalized=normalized)
+                else:
+                    if rerank_dtype == "float16":
+                        # the gathered rows stay float16: torch's CPU half
+                        # bmm sums in float32, and an upcast of the block
+                        # costs more than the halved gather saves
+                        rows = shadow[1][flat].reshape(q, k_eff, d)
+                    else:
+                        rows = np.asarray(corpus[flat], np.float32).reshape(
+                            q, k_eff, d)
+                    if not normalized:
+                        rows = np.asarray(rows, np.float32)
+                        rows /= np.maximum(
+                            np.linalg.norm(rows, axis=2, keepdims=True),
+                            1e-12)
+                    qcol = torch.from_numpy(qs.astype(rows.dtype)).unsqueeze(2)
+                    sims = torch.bmm(torch.from_numpy(rows),
+                                     qcol).float().numpy()[:, :, 0]
+            with span("rerank.order"):
+                return self._rerank_order(1.0 - sims, ids, k)
 
     @staticmethod
     def _rerank_order(exact, ids, k: int):
@@ -697,49 +722,54 @@ class LearnedIndex:
         arrives as a numpy array the mirror is captured by itself."""
         if self.built is None:
             raise ValueError("Index is not built, call `build` first.")
-        scfg = search_config or SearchConfig(k=k, n_buckets=n_buckets)
-        # the scan counters are this call's: a search that does not count
-        # leaves them None, and the batched loop below sums its parts'
-        self.last_scan_rows = self.last_nominal_rows = None
-        if queries_search is None:
-            queries_search = queries_nav
-        if queries_search_host is None and isinstance(queries_search,
-                                                      np.ndarray):
-            queries_search_host = queries_search
-        queries_nav = self._tensor(queries_nav)
-        queries_search = self._tensor(queries_search)
+        with span("search"):
+            scfg = search_config or SearchConfig(k=k, n_buckets=n_buckets)
+            # the scan counters are this call's: a search that does not
+            # count leaves them None, and the batched loop below sums its
+            # parts'
+            self.last_scan_rows = self.last_nominal_rows = None
+            if queries_search is None:
+                queries_search = queries_nav
+            if queries_search_host is None and isinstance(queries_search,
+                                                          np.ndarray):
+                queries_search_host = queries_search
+            with span("search.stage"):
+                queries_nav = self._tensor(queries_nav)
+                queries_search = self._tensor(queries_search)
 
-        bq = scfg.batch_queries
-        if bq and queries_nav.shape[0] > bq:
-            parts, counted = [], []
-            for lo in range(0, queries_nav.shape[0], bq):
-                parts.append(self.search(
-                    queries_nav[lo:lo + bq], queries_search[lo:lo + bq],
-                    n_buckets=n_buckets, k=k, search_config=scfg,
-                    queries_search_host=(queries_search_host[lo:lo + bq]
-                                         if queries_search_host is not None
-                                         else None)))
-                if self.last_scan_rows is not None:
-                    counted.append((self.last_scan_rows,
-                                    self.last_nominal_rows))
-            if counted:
-                self.last_scan_rows = sum(c[0] for c in counted)
-                self.last_nominal_rows = sum(c[1] for c in counted)
-            return (np.concatenate([p[0] for p in parts]),
-                    np.concatenate([p[1] for p in parts]))
+            bq = scfg.batch_queries
+            if bq and queries_nav.shape[0] > bq:
+                parts, counted = [], []
+                for lo in range(0, queries_nav.shape[0], bq):
+                    host = (queries_search_host[lo:lo + bq]
+                            if queries_search_host is not None else None)
+                    parts.append(self.search(
+                        queries_nav[lo:lo + bq], queries_search[lo:lo + bq],
+                        n_buckets=n_buckets, k=k, search_config=scfg,
+                        queries_search_host=host))
+                    if self.last_scan_rows is not None:
+                        counted.append((self.last_scan_rows,
+                                        self.last_nominal_rows))
+                if counted:
+                    self.last_scan_rows = sum(c[0] for c in counted)
+                    self.last_nominal_rows = sum(c[1] for c in counted)
+                return (np.concatenate([p[0] for p in parts]),
+                        np.concatenate([p[1] for p in parts]))
 
-        n_buckets = min(n_buckets, self.built.store.n_categories)
-        plan = self._plan_search(queries_nav, n_buckets, k, scfg)
-        while True:
-            program = self._dispatch_program(plan, n_buckets, scfg)
-            out = program(queries_nav, queries_search, self._search_store())
-            status = self._absorb_result(plan, n_buckets,
-                                         self._fetch_result(out, plan))
-            if status != "retry":
-                break
-        dists, ids = status
-        return self._finalize(dists, ids, plan, k, scfg, queries_search,
-                              queries_search_host)
+            n_buckets = min(n_buckets, self.built.store.n_categories)
+            plan = self._plan_search(queries_nav, n_buckets, k, scfg)
+            while True:
+                program = self._dispatch_program(plan, n_buckets, scfg)
+                with span("search.program"):
+                    out = program(queries_nav, queries_search,
+                                  self._search_store())
+                status = self._absorb_result(plan, n_buckets,
+                                             self._fetch_result(out, plan))
+                if status != "retry":
+                    break
+            dists, ids = status
+            return self._finalize(dists, ids, plan, k, scfg, queries_search,
+                                  queries_search_host)
 
     def _search_store(self):
         """What a search program reads: the shards, or the flat store."""
@@ -756,60 +786,68 @@ class LearnedIndex:
         padding classes and pruning. On a sharded store the decisions are
         taken on a shard (every shard has the flat store's width, codes
         and row_align), and the worklist and the pool are not taken."""
-        if scfg.compute_dtype not in _DTYPES:
-            raise ValueError(f"unknown compute_dtype {scfg.compute_dtype!r}")
-        if scfg.pallas_extract not in _EXTRACT_MODES:
-            raise ValueError(f"unknown pallas_extract {scfg.pallas_extract!r}")
-        if scfg.pallas_pool and scfg.pallas_extract == "scalar":
-            raise ValueError(
-                "the rerank pool (pallas_pool) needs a harvesting "
-                "pallas_extract ('group'/'group2'), as in the JAX package")
-        sharded = self._sharded is not None
-        store = (next(st for _, st in self._sharded[0].local()) if sharded
-                 else self.built.store)
-        compute_dtype = _DTYPES[scfg.compute_dtype]
-        backend = scfg.backend
-        if backend == "auto":
-            # a store on the card is always searched by the kernel, which
-            # raises on what it does not take
-            backend = "cuda" if store.device.type == "cuda" else "torch"
-        elif backend not in ("cuda", "torch", "xla"):
-            raise ValueError(f"unknown backend {backend!r}")
-        quantized = bool(getattr(store, "is_quantized", False))
-        # a quantized store with a host corpus attached: fetch extra
-        # candidates and rerank them at full precision on the host
-        rerank = (scfg.rerank and quantized
-                  and self._host_corpus is not None)
-        k_eff = k + self._resolve_rerank_extra(scfg) if rerank else k
-        # rerank pool: the kernel keeps an exact top-k, the pool supplies
-        # the rerank extras
-        pool_k = k if (scfg.pallas_pool and rerank and k_eff > k
-                       and not sharded) else 0
-        int8_queries = scfg.int8_queries and quantized
-        pair = scfg.pallas_pair and probe.resolve_tiling(
-            True, k=pool_k or k_eff, pool=bool(pool_k), device=store.device,
-            query_bytes=1 if int8_queries else compute_dtype.itemsize,
-            code_bits=store.quant_bits if quantized else 0, d=store.dim)
-        q = int(queries_nav.shape[0])
-        plan = SimpleNamespace(
-            q=q, backend=backend, compute_dtype=compute_dtype, k=k,
-            rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair, wl_pad=0,
-            item_rows=scfg.pallas_mc, sharded=sharded,
-            pad_key=("sharded", q, n_buckets) if sharded else (q, n_buckets),
-            int8_queries=int8_queries, pruning=False, want_stats=False)
-        if backend == "xla":
-            self._plan_xla(plan, store, n_buckets, scfg)
+        with span("search.plan"):
+            if scfg.compute_dtype not in _DTYPES:
+                raise ValueError(
+                    f"unknown compute_dtype {scfg.compute_dtype!r}")
+            if scfg.pallas_extract not in _EXTRACT_MODES:
+                raise ValueError(
+                    f"unknown pallas_extract {scfg.pallas_extract!r}")
+            if scfg.pallas_pool and scfg.pallas_extract == "scalar":
+                raise ValueError(
+                    "the rerank pool (pallas_pool) needs a harvesting "
+                    "pallas_extract ('group'/'group2'), as in the JAX package")
+            sharded = self._sharded is not None
+            store = (next(st for _, st in self._sharded[0].local()) if sharded
+                     else self.built.store)
+            compute_dtype = _DTYPES[scfg.compute_dtype]
+            backend = scfg.backend
+            if backend == "auto":
+                # a store on the card is always searched by the kernel, which
+                # raises on what it does not take
+                backend = "cuda" if store.device.type == "cuda" else "torch"
+            elif backend not in ("cuda", "torch", "xla"):
+                raise ValueError(f"unknown backend {backend!r}")
+            quantized = bool(getattr(store, "is_quantized", False))
+            # a quantized store with a host corpus attached: fetch extra
+            # candidates and rerank them at full precision on the host
+            rerank = (scfg.rerank and quantized
+                      and self._host_corpus is not None)
+            k_eff = k + self._resolve_rerank_extra(scfg) if rerank else k
+            # rerank pool: the kernel keeps an exact top-k, the pool supplies
+            # the rerank extras
+            pool_k = k if (scfg.pallas_pool and rerank and k_eff > k
+                           and not sharded) else 0
+            int8_queries = scfg.int8_queries and quantized
+            pair = scfg.pallas_pair and probe.resolve_tiling(
+                True, k=pool_k or k_eff, pool=bool(pool_k),
+                device=store.device,
+                query_bytes=1 if int8_queries else compute_dtype.itemsize,
+                code_bits=store.quant_bits if quantized else 0, d=store.dim)
+            q = int(queries_nav.shape[0])
+            count("searches")
+            count("queries", q)
+            count("slots", q * n_buckets)
+            plan = SimpleNamespace(
+                q=q, backend=backend, compute_dtype=compute_dtype, k=k,
+                rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair,
+                wl_pad=0, item_rows=scfg.pallas_mc, sharded=sharded,
+                pad_key=(("sharded", q, n_buckets) if sharded
+                         else (q, n_buckets)),
+                int8_queries=int8_queries, pruning=False, want_stats=False)
+            if backend == "xla":
+                self._plan_xla(plan, store, n_buckets, scfg)
+                return plan
+            # the worklist: sized from this batch's routing at a shape's
+            # first use (one more routing pass and a host read), then cached
+            if scfg.pallas_worklist and not sharded:
+                wl_pad = self._wl_pads.get((q, n_buckets))
+                if wl_pad is None:
+                    wl_pad = self._estimate_wl_pad(queries_nav, n_buckets,
+                                                   scfg, plan)
+                    self._wl_pads[(q, n_buckets)] = wl_pad or -1
+                plan.wl_pad = max(wl_pad, 0)
             return plan
-        # the worklist: sized from this batch's routing at a shape's first
-        # use (one more routing pass and a host read), then cached
-        if scfg.pallas_worklist and not sharded:
-            wl_pad = self._wl_pads.get((q, n_buckets))
-            if wl_pad is None:
-                wl_pad = self._estimate_wl_pad(queries_nav, n_buckets, scfg,
-                                               plan)
-                self._wl_pads[(q, n_buckets)] = wl_pad or -1
-            plan.wl_pad = max(wl_pad, 0)
-        return plan
 
     def _plan_xla(self, plan, store, n_buckets: int,
                   scfg: SearchConfig) -> None:
@@ -901,6 +939,7 @@ class LearnedIndex:
         program = self._search_programs.get(key)
         if program is not None:
             return program
+        count("program_builds")
         if plan.sharded:
             from tpulmi_torch.parallel.sharded import (
                 make_sharded_search_program)
@@ -931,9 +970,10 @@ class LearnedIndex:
         card. When the plan reranks, the quantized distances stay on the
         card (dists is None): the rerank recomputes every kept candidate's
         distance."""
-        dists, ids, *counts = out
-        return (None if plan.rerank else dists.cpu().float().numpy(),
-                ids.cpu().numpy(), *(int(c) for c in counts))
+        with span("search.fetch"):
+            dists, ids, *counts = out
+            return (None if plan.rerank else dists.cpu().float().numpy(),
+                    ids.cpu().numpy(), *(int(c) for c in counts))
 
     def _absorb_result(self, plan, n_buckets: int, got):
         """Hold a fetched result against its plan. Returns (dists, ids),
@@ -941,22 +981,22 @@ class LearnedIndex:
         worklist (whose trailing items were dropped) or, on the xla scan,
         the slots per bucket (qpb_pad; slots past it were not scanned). The
         kernel's slot layout is sized for the worst case and cannot
-        overflow; the busiest bucket's slot count is kept for callers, and
-        the xla scan's row counters in ``last_scan_rows`` /
-        ``last_nominal_rows``."""
+        overflow. The xla scan's row counters go to ``last_scan_rows`` /
+        ``last_nominal_rows``; a re-run counts ``reruns``."""
         dists, ids, max_slots, *extra = got
         if plan.wl_pad and extra[0] > plan.wl_pad:
             plan.wl_pad = self._wl_pad_for(extra[0], plan, n_buckets)
             self._wl_pads[(plan.q, n_buckets)] = plan.wl_pad or -1
+            count("reruns")
             return "retry"
         if plan.backend == "xla":
             if plan.want_stats:
                 self.last_scan_rows, self.last_nominal_rows = extra
             if max_slots > plan.qpb_pad:
                 plan.qpb_pad = size_class(max_slots)
+                count("reruns")
                 return "retry"
             self._qpb_pads[plan.pad_key] = plan.qpb_pad
-        self.last_max_slots = max_slots
         self._warm_shapes.add(plan.pad_key)
         return dists, ids
 
@@ -966,13 +1006,14 @@ class LearnedIndex:
         by `search` and `search_stream`: the exact rerank when the plan
         asks for it (`dists` is then None), then empty places (id -1) keep
         the sentinel distance and become id 0, and ids become 1-based."""
-        if plan.rerank:
-            dists, ids = self._rerank_host(
-                None, ids, queries_search, k,
-                host_queries=queries_search_host,
-                rerank_dtype=scfg.rerank_dtype)
-        ids = np.where(ids < 0, 0, ids)
-        return (np.asarray(dists, np.float32), ids.astype(np.int64) + 1)
+        with span("search.finalize"):
+            if plan.rerank:
+                dists, ids = self._rerank_host(
+                    None, ids, queries_search, k,
+                    host_queries=queries_search_host,
+                    rerank_dtype=scfg.rerank_dtype)
+            ids = np.where(ids < 0, 0, ids)
+            return (np.asarray(dists, np.float32), ids.astype(np.int64) + 1)
 
     def search_stream(self, batches: Iterable, *, n_buckets: int = 10,
                       k: int = 10,
@@ -1031,18 +1072,23 @@ class LearnedIndex:
         def sync_one():
             """Fetch and absorb the oldest batch in flight; hand its host
             post-processing to the worker. Returns a future."""
-            qn, qs, qh, fetch, plan = pending.popleft()
-            status = self._absorb_result(plan, nb, fetch())
-            if status == "retry":
-                # the plan and its cache have grown: redo this one batch
-                # here (a re-dispatch must not race the dispatch loop)
-                return done(self.search(qn, qs, n_buckets=nb, k=k,
-                                        search_config=scfg,
-                                        queries_search_host=qh))
+            qn, qs, qh, fetch, plan, rid = pending.popleft()
+            with profiling.request(rid):
+                status = self._absorb_result(plan, nb, fetch())
+                if status == "retry":
+                    # the plan and its cache have grown: redo this one
+                    # batch here (a re-dispatch must not race the dispatch
+                    # loop)
+                    return done(self.search(qn, qs, n_buckets=nb, k=k,
+                                            search_config=scfg,
+                                            queries_search_host=qh))
             args = (*status, plan, k, scfg, qs, qh)
             if executor is not None:
-                return executor.submit(self._finalize, *args)
-            return done(self._finalize(*args))
+                # the worker's spans carry this batch's request id
+                return executor.submit(profiling.bind(rid, self._finalize),
+                                       *args)
+            with profiling.request(rid):
+                return done(self._finalize(*args))
 
         try:
             for batch in batches:
@@ -1063,19 +1109,26 @@ class LearnedIndex:
                                       search_config=scfg,
                                       queries_search_host=qh)
                     continue
-                if stager is not None:
-                    qn_dev, qs_dev, slot = stager.upload(qn, qs)
-                else:
-                    qn_dev, qs_dev = self._tensor(qn), self._tensor(qs)
-                plan = self._plan_search(qn_dev, nb, k, scfg)
-                program = self._dispatch_program(plan, nb, scfg)
-                out = program(qn_dev, qs_dev, store)
-                if stager is not None:
-                    fetch = stager.download(slot, out, skip_dists=plan.rerank)
-                else:
-                    fetch = (lambda out=out, plan=plan:
-                             self._fetch_result(out, plan))
-                pending.append((qn, qs, qh, fetch, plan))
+                # a request id of its own for each batch (while tracing)
+                rid = profiling.new_request()
+                with profiling.request(rid):
+                    with span("search.stage"):
+                        if stager is not None:
+                            qn_dev, qs_dev, slot = stager.upload(qn, qs)
+                        else:
+                            qn_dev = self._tensor(qn)
+                            qs_dev = self._tensor(qs)
+                    plan = self._plan_search(qn_dev, nb, k, scfg)
+                    program = self._dispatch_program(plan, nb, scfg)
+                    with span("search.program"):
+                        out = program(qn_dev, qs_dev, store)
+                    if stager is not None:
+                        fetch = stager.download(slot, out,
+                                                skip_dists=plan.rerank)
+                    else:
+                        fetch = (lambda out=out, plan=plan:
+                                 self._fetch_result(out, plan))
+                pending.append((qn, qs, qh, fetch, plan, rid))
                 if len(pending) >= depth:
                     results.append(sync_one())
                 # keep one finalize in flight: yielding the older future

@@ -83,6 +83,7 @@ import torch
 from tpulmi_torch.ops.distance import SENTINEL_DIST
 from tpulmi_torch.ops.quantize import int_dot, quantize_rows, unpack_int4
 from tpulmi_torch.utils.logging import get_logger
+from tpulmi_torch.utils.profiling import count, counters, reset, span
 
 log = get_logger("tpulmi_torch.probe")
 
@@ -729,7 +730,7 @@ def merge_items(blocks: torch.Tensor, parts: WorklistParts, k: int,
             out_d.data_ptr(), out_i.data_ptr(), n_blocks,
             parts.part_d.shape[0] // BLOCK_SLOTS, k, ko,
             torch.cuda.current_stream(dev).cuda_stream), "merge_items")
-    _launches["merge_items"] += 1
+    count(LAUNCHES + "merge_items")
     return out_d, out_i
 
 
@@ -784,13 +785,17 @@ def probe_topk_plain(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
     return _plain_topk(qidx, blocks, k, dist_of, **variant)
 
 
-# launches by kernel configuration, beside the wrappers' own counts: the
+# launch counters (`utils.profiling.count`): ``probe_launches.<name>``, by
+# store and query type (the wrappers below) and by configuration: the
 # worklist's item kernel and its merge kernel, the 128-row tile, the pool,
-# launches in clusters of more than one CTA
-_launches = {"probe_worklist": 0, "merge_items": 0, "probe_pair": 0,
-             "probe_pool": 0, "probe_cluster": 0}
-# launches of the probe kernel by the main loop they took
-_loop_launches = {name: 0 for name in LOOPS}
+# launches in clusters of more than one CTA; ``probe_loop_launches.<loop>``
+# by the main loop the probe kernel took
+LAUNCHES = "probe_launches."
+LOOP_LAUNCHES = "probe_loop_launches."
+_LAUNCH_NAMES = ("probe_topk", "probe_topk_quant_int8",
+                 "probe_topk_quant_int4", "probe_topk_int8q_int8",
+                 "probe_topk_int8q_int4", "probe_worklist", "merge_items",
+                 "probe_pair", "probe_pool", "probe_cluster")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -883,11 +888,12 @@ def _launch(source: str, inputs, d: int, n_rows: int, k: int, codes,
             span if parts else 0,
             *codes, LOOPS.index(loop), cluster,
             torch.cuda.current_stream(dev).cuda_stream), source)
-    _loop_launches[loop] += 1
-    _launches["probe_worklist"] += int(parts is not None)
-    _launches["probe_pair"] += int(pair)
-    _launches["probe_pool"] += int(pool)
-    _launches["probe_cluster"] += int(cluster > 1)
+    count(LOOP_LAUNCHES + loop)
+    for name, on in (("probe_worklist", parts is not None),
+                     ("probe_pair", pair), ("probe_pool", pool),
+                     ("probe_cluster", cluster > 1)):
+        if on:
+            count(LAUNCHES + name)
     if parts is None:
         return out_d, out_i
     if not merge:
@@ -913,11 +919,8 @@ def probe_topk(q: torch.Tensor, qidx: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"probe kernel needs d % 8 == 0, got d={d}")
     out = _launch("probe_topk", (q, qidx, data, blocks), d,
                   int(data.shape[0]), k, (KERNEL_DTYPES[q.dtype],), **variant)
-    probe_topk.launches += 1
+    count(LAUNCHES + "probe_topk")
     return out
-
-
-probe_topk.launches = 0
 
 
 # ------------------------------------------------------- quantized stores
@@ -1029,13 +1032,8 @@ def probe_topk_quant(q: torch.Tensor, qidx: torch.Tensor, codes: torch.Tensor,
                          f"{list(KERNEL_DTYPES)}, got {q.dtype}")
     out = _launch_quant(q, qidx, codes, scales, blocks, k, bits,
                         KERNEL_DTYPES[q.dtype], variant)
-    probe_topk_quant.launches += 1
-    probe_topk_quant.launches_by_bits[bits] += 1
+    count(f"{LAUNCHES}probe_topk_quant_int{bits}")
     return out
-
-
-probe_topk_quant.launches = 0
-probe_topk_quant.launches_by_bits = {8: 0, 4: 0}
 
 
 def probe_topk_int8q(q_codes: torch.Tensor, q_scales: torch.Tensor,
@@ -1052,13 +1050,8 @@ def probe_topk_int8q(q_codes: torch.Tensor, q_scales: torch.Tensor,
     _check_int8q(q_codes, q_scales, qidx, codes, scales, blocks, k, bits)
     out = _launch_quant(q_codes, qidx, codes, scales, blocks, k, bits,
                         INT8_QUERY_CODE, variant)
-    probe_topk_int8q.launches += 1
-    probe_topk_int8q.launches_by_bits[bits] += 1
+    count(f"{LAUNCHES}probe_topk_int8q_int{bits}")
     return apply_query_scale(out, q_scales, qidx)
-
-
-probe_topk_int8q.launches = 0
-probe_topk_int8q.launches_by_bits = {8: 0, 4: 0}
 
 
 def launch_counts() -> dict:
@@ -1066,30 +1059,19 @@ def launch_counts() -> dict:
     any configuration), then by configuration: worklist launches of it,
     launches of the items' merge kernel, of the 128-row tile, with a pool,
     in clusters."""
-    return {
-        "probe_topk": probe_topk.launches,
-        "probe_topk_quant_int8": probe_topk_quant.launches_by_bits[8],
-        "probe_topk_quant_int4": probe_topk_quant.launches_by_bits[4],
-        "probe_topk_int8q_int8": probe_topk_int8q.launches_by_bits[8],
-        "probe_topk_int8q_int4": probe_topk_int8q.launches_by_bits[4],
-        **_launches,
-    }
+    got = counters()
+    return {name: got.get(LAUNCHES + name, 0) for name in _LAUNCH_NAMES}
 
 
 def loop_launch_counts() -> dict:
     """Launches of the probe kernel so far by the main loop they took."""
-    return dict(_loop_launches)
+    got = counters()
+    return {name: got.get(LOOP_LAUNCHES + name, 0) for name in LOOPS}
 
 
 def reset_launch_counts() -> None:
-    probe_topk.launches = 0
-    for name in _loop_launches:
-        _loop_launches[name] = 0
-    for fn in (probe_topk_quant, probe_topk_int8q):
-        fn.launches = 0
-        fn.launches_by_bits = {8: 0, 4: 0}
-    for name in _launches:
-        _launches[name] = 0
+    reset(LAUNCHES)
+    reset(LOOP_LAUNCHES)
 
 
 def merge_slots(out_d: torch.Tensor, out_i: torch.Tensor,
@@ -1136,29 +1118,32 @@ def probe_search(probe_buckets: torch.Tensor, queries: torch.Tensor, store,
         raise ValueError(f"unknown probe backend {backend!r}")
     kernel = backend == "cuda"
     q, p = probe_buckets.shape
-    layout = group_slots(probe_buckets, store.offsets, store.counts)
+    with span("program.group"):
+        layout = group_slots(probe_buckets, store.offsets, store.counts)
     variant = dict(pair=pair, wl_pad=wl_pad, item_rows=item_rows)
     k_exact = k
     if pool_k:
         if not 0 < pool_k < k:
             raise ValueError(f"pool_k={pool_k} must lie in (0, k={k})")
         k_exact, variant["k_out"] = pool_k, k
-    if not store.is_quantized:
-        fn = probe_topk if kernel else probe_topk_plain
-        out = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
-                 store.data_as(compute_dtype), layout.blocks, k_exact,
-                 **variant)
-    elif int8_queries:
-        fn = probe_topk_int8q if kernel else probe_topk_int8q_plain
-        q_codes, q_scales = quantize_rows(queries)
-        out = fn(q_codes, q_scales, layout.qidx, store.data_sorted,
-                 store.scales, layout.blocks, k_exact, store.quant_bits,
-                 **variant)
-    else:
-        fn = probe_topk_quant if kernel else probe_topk_quant_plain
-        out = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
-                 store.data_sorted, store.scales, layout.blocks, k_exact,
-                 store.quant_bits, **variant)
-    final_d, final_i = merge_slots(out[0], out[1], layout, q, p, k,
-                                   store.ids_sorted)
+    with span("program.probe"):
+        if not store.is_quantized:
+            fn = probe_topk if kernel else probe_topk_plain
+            out = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
+                     store.data_as(compute_dtype), layout.blocks, k_exact,
+                     **variant)
+        elif int8_queries:
+            fn = probe_topk_int8q if kernel else probe_topk_int8q_plain
+            q_codes, q_scales = quantize_rows(queries)
+            out = fn(q_codes, q_scales, layout.qidx, store.data_sorted,
+                     store.scales, layout.blocks, k_exact, store.quant_bits,
+                     **variant)
+        else:
+            fn = probe_topk_quant if kernel else probe_topk_quant_plain
+            out = fn(queries.to(compute_dtype).contiguous(), layout.qidx,
+                     store.data_sorted, store.scales, layout.blocks, k_exact,
+                     store.quant_bits, **variant)
+    with span("program.merge"):
+        final_d, final_i = merge_slots(out[0], out[1], layout, q, p, k,
+                                       store.ids_sorted)
     return (final_d, final_i, layout.slot_counts.max(), *out[2:])

@@ -29,6 +29,7 @@ from tpulmi_torch.ops.distance import (SENTINEL_DIST, _topk_stable,
                                        l2_normalize)
 from tpulmi_torch.ops.probe_topk import probe_search as kernel_probe_search
 from tpulmi_torch.ops.quantize import unpack_int4
+from tpulmi_torch.utils.profiling import span
 
 
 def size_class(x: int, minimum: int = 128) -> int:
@@ -318,15 +319,17 @@ def make_search_program(model, *, k: int, n_buckets: int,
 
     @torch.no_grad()
     def search_program(queries_nav, queries_search, store):
-        logits, mass_logits = routing_logits(model, queries_nav,
-                                             need_mass=truncating)
-        probes = route_probes(logits, n_buckets, probe_mass=probe_mass,
-                              dump_id=store.n_categories,
-                              mass_logits=mass_logits)
-        qs = l2_normalize(queries_search.float())
+        with span("program.route"):
+            logits, mass_logits = routing_logits(model, queries_nav,
+                                                 need_mass=truncating)
+            probes = route_probes(logits, n_buckets, probe_mass=probe_mass,
+                                  dump_id=store.n_categories,
+                                  mass_logits=mass_logits)
+            qs = l2_normalize(queries_search.float())
         if backend == "xla":
             # the counts as 0-d tensors, as the kernel path gives them
-            d, i, *counts = xla_probe(probes, qs, store)
+            with span("program.probe"):
+                d, i, *counts = xla_probe(probes, qs, store)
             rest = [i, *(torch.tensor(c, device=d.device) for c in counts)]
         else:
             d, *rest = kernel_probe_search(

@@ -24,6 +24,8 @@ buffers and overwrites the device buffers.
 import numpy as np
 import torch
 
+from tpulmi_torch.utils.profiling import span
+
 
 class QueryStager:
     def __init__(self, device, n_slots: int):
@@ -99,11 +101,12 @@ class QueryStager:
         done = slot["done"]
 
         def fetch():
-            done.synchronize()
-            # copies: the slot's buffers are refilled by a later batch
-            return (None if skip_dists
-                    else held["dists"].float().numpy().copy(),
-                    held["ids"].numpy().copy(),
-                    *(int(c) for c in held["counts"]))
+            with span("search.fetch"):
+                done.synchronize()
+                # copies: the slot's buffers are refilled by a later batch
+                return (None if skip_dists
+                        else held["dists"].float().numpy().copy(),
+                        held["ids"].numpy().copy(),
+                        *(int(c) for c in held["counts"]))
 
         return fetch

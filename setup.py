@@ -9,8 +9,9 @@ setup(
     ),
     packages=find_packages(include=["tpulmi", "tpulmi.*",
                                     "tpulmi_torch", "tpulmi_torch.*"]),
-    # the CUDA sources of tpulmi_torch, compiled with nvcc at first use
-    package_data={"tpulmi_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the CUDA sources of tpulmi_torch, compiled with nvcc at first use,
+    # and its host library's, compiled with g++
+    package_data={"tpulmi_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={

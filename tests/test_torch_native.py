@@ -212,3 +212,140 @@ def test_rerank_host_without_library_takes_bmm(monkeypatch):
     apart = (np.diff(nat_d, axis=1) > 1e-5).all(axis=1)
     assert apart.sum() > q // 2
     np.testing.assert_array_equal(bmm_i[apart], nat_i[apart])
+
+
+def test_layout_source_is_the_jax_packages():
+    """The port's layout.cpp is the JAX package's source byte for byte
+    (rerank_fused.cpp includes it: the two libraries' shared functions
+    compute the same bits)."""
+    from pathlib import Path
+
+    import tpulmi.native as ref
+    from tpulmi_torch import native
+
+    port = native.BUILD_DIR.parent / "csrc" / "layout.cpp"
+    assert port in native.SOURCES
+    assert port.read_bytes() == Path(ref._SRC).read_bytes()
+    assert b'#include "layout.cpp"' in native.SOURCE.read_bytes()
+
+
+def _fused_inputs(k_eff, d=100, n=400, q=12, seed=6):
+    """Candidates that hold every case the fused pass must order as numpy
+    does: ids twice and three times in a row, a row of -1s, trailing -1s,
+    an id past the corpus (clamped), a zero query, and two equal corpus
+    rows under different ids (an exact tie)."""
+    rng = np.random.default_rng(seed)
+    x = _rows(rng, n, d, 2.0)
+    x[7] = x[3]                                  # a tie: ids 3 and 7
+    ids = np.stack([rng.permutation(n)[:k_eff] for _ in range(q)]).astype(
+        np.int32)
+    ids[0, 1] = ids[0, 0]                        # twice
+    ids[1, [2, 4, k_eff - 1]] = ids[1, 0]        # three times
+    ids[2, :] = -1                               # nothing
+    ids[3, k_eff // 2:] = -1                     # trailing empties
+    ids[4, :2] = [7, 3]                          # the tie, 7 first
+    ids[5, :2] = [3, 7]
+    ids[6, 0] = -5                               # another empty mark
+    ids[8, 1] = n + 3                            # read as the last row
+    queries = _rows(rng, q, d)
+    queries[4] = x[3] * 0.5                      # the tie ranks first
+    queries[5] = x[3]
+    queries[9] = 0.0                             # the 1e-12 clamp
+    return x, ids, queries
+
+
+@pytest.mark.parametrize("k_eff", [10, 14, 40], ids=lambda k: f"k_eff{k}")
+@pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_rerank_fused_equals_numpy_composition(dtype, normalized, k_eff):
+    """`rerank_fused` against the numpy steps it replaces (dedup, divide
+    by the clamped norm, `rerank_dot`, `_rerank_order`): the same ids and
+    the same distance bits, on 1 and 3 threads, with int32 and int64
+    ids."""
+    from tpulmi_torch.index import LearnedIndex, _dedup_rows, _row_norms
+
+    k = 10
+    x, ids, queries = _fused_inputs(k_eff)
+    if normalized:
+        x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+    _, corpus = as_ref(x, dtype)
+    kept = _dedup_rows(ids)
+    qs = np.array(queries)
+    qs /= np.maximum(np.linalg.norm(qs, axis=1, keepdims=True), 1e-12)
+    sims = native_layout.rerank_dot(corpus, kept, qs, normalized=normalized)
+    want_d, want_i = LearnedIndex._rerank_order(1.0 - sims, kept, k)
+    norms = _row_norms(queries)
+    before = native_layout.calls["rerank_fused"]
+    for threads in (1, 3):
+        for id_type in (np.int32, np.int64):
+            got_d, got_i = native_layout.rerank_fused(
+                corpus, ids.astype(id_type), queries, norms, k,
+                normalized=normalized, n_threads=threads)
+            assert got_i.dtype == id_type and got_d.dtype == np.float32
+            np.testing.assert_array_equal(got_i, want_i)
+            np.testing.assert_array_equal(got_d.view(np.uint32),
+                                          want_d.view(np.uint32))
+    assert native_layout.calls["rerank_fused"] == before + 4
+    assert (got_i[2] == -1).all() and (got_d[2] == 10000.0).all()
+    assert list(got_i[4, :2]) == [7, 3] and list(got_i[5, :2]) == [3, 7]
+    assert got_d[4, 0] == got_d[4, 1]
+    assert (got_i[3] >= 0).sum() == min(k, k_eff // 2)
+    for row in got_i:                            # no id comes back twice
+        real = row[row >= 0]
+        assert len(set(real.tolist())) == len(real)
+
+
+def test_rerank_fused_orders_nan_last():
+    """A NaN distance sorts after every number, ties in candidate order,
+    as numpy's stable argsort puts it; a k above the candidates keeps
+    them all."""
+    from tpulmi_torch.index import LearnedIndex, _row_norms
+
+    rng = np.random.default_rng(7)
+    x = _rows(rng, 50, 24)
+    x[4] = np.nan
+    ids = np.array([[4, 1, 2, -1, 3, 4], [5, 4, 6, 7, 8, 9]], np.int64)
+    queries = _rows(rng, 2, 24)
+    qs = queries / _row_norms(queries)
+    sims = native_layout.rerank_dot(x, ids, qs, normalized=False)
+    kept = ids.copy()
+    kept[0, 5] = -1                              # the repeat of id 4
+    want_d, want_i = LearnedIndex._rerank_order(1.0 - sims, kept, 8)
+    got_d, got_i = native_layout.rerank_fused(
+        x, ids, queries, _row_norms(queries), 8, normalized=False)
+    assert got_d.shape == (2, 6)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_d.view(np.uint32),
+                                  want_d.view(np.uint32))
+    assert got_i[1, -1] == 4 and np.isnan(got_d[1, -1])
+
+
+@pytest.mark.parametrize("q", [1, 511, 1300])
+def test_row_norms_equal_whole_array_norms(q):
+    """The rerank's query norms, slice by slice from the caller's array,
+    equal numpy's norms of a whole copy to the bit."""
+    from tpulmi_torch.index import _row_norms
+
+    x = _rows(np.random.default_rng(q), q, 768, 0.3)
+    x[0] = 0.0
+    want = np.maximum(np.linalg.norm(np.array(x, np.float32), axis=1,
+                                     keepdims=True), 1e-12)
+    got = _row_norms(x)
+    assert got.shape == (q, 1) and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_rerank_fused_checks_its_inputs():
+    rng = np.random.default_rng(8)
+    x, queries = _rows(rng, 20, 8), _rows(rng, 3, 8)
+    norms = np.ones(3, np.float32)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        native_layout.rerank_fused(x, np.zeros((3, 4), np.float32), queries,
+                                   norms, 2)
+    with pytest.raises(ValueError, match="norms"):
+        native_layout.rerank_fused(x, np.zeros((3, 4), np.int32), queries,
+                                   norms[:2], 2)
+    with pytest.raises(ValueError, match="unsupported"):
+        native_layout.rerank_fused(x.astype(np.int8),
+                                   np.zeros((3, 4), np.int32), queries,
+                                   norms, 2)

@@ -1,6 +1,7 @@
 """The program's own spans and counters (`tpulmi_torch.utils.profiling`) on
 ``device="cpu"``: nothing recorded without a profiler, the span tree of a
-quantized search with the host rerank and a split batch under one request
+quantized search with the host rerank (the native fused pass, and the numpy
+path that orders in `rerank.order`) and a split batch under one request
 id, a stream's finalize carrying its batch's id on the worker thread, the
 spans on the profiler's clock, the counters' values, the bounded record
 list and a span's self time."""
@@ -14,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tpulmi_torch import IndexConfig, LearnedIndex, SearchConfig
+from tpulmi_torch.native import native_layout
 from tpulmi_torch.ops import probe_topk as probe
 from tpulmi_torch.utils import profiling
 
@@ -31,7 +33,7 @@ PARENTS = {
     "program.probe": "search.program", "program.merge": "search.program",
     "rerank": "search.finalize", "rerank.prep": "rerank",
     "rerank.shadow": "rerank", "rerank.dot": "rerank",
-    "rerank.order": "rerank",
+    "rerank.order": "rerank",     # the numpy path only
 }
 
 
@@ -77,11 +79,16 @@ def test_no_profiler_records_nothing(index):
     assert profiling.counters()["searches"] == 1
 
 
+@pytest.mark.parametrize("native", [True, False], ids=["fused", "numpy"])
 @pytest.mark.parametrize("rerank_dtype", ["float32", "float16"])
 @pytest.mark.parametrize("batch", [None, 16], ids=["whole", "split"])
-def test_span_tree_of_a_search(index, rerank_dtype, batch):
+def test_span_tree_of_a_search(index, rerank_dtype, batch, native,
+                               monkeypatch):
     li, qn, qs = index
     li._rerank_shadow = None      # the float16 copy is made in the search
+    if not native:                # the numpy path of a host without g++
+        monkeypatch.setattr(type(native_layout), "available",
+                            lambda self: False)
     scfg = SearchConfig(k=K, n_buckets=P, batch_queries=batch,
                         rerank_dtype=rerank_dtype)
     _traced(lambda: li.search(qn, qs, n_buckets=P, k=K, search_config=scfg))
@@ -90,7 +97,11 @@ def test_span_tree_of_a_search(index, rerank_dtype, batch):
     want = set(PARENTS) | {"search"}
     if rerank_dtype != "float16":
         want.discard("rerank.shadow")
+    if native:                    # the fused pass orders in the library
+        want.discard("rerank.order")
     assert names == want
+    assert profiling.counters().get("rerank_fused", 0) == (Q if native
+                                                           else 0)
     assert [r[0] for r in recs if r[2] is None] == ["search"]
     assert len({r[1] for r in recs}) == 1         # one request
     assert len({r[3] for r in recs}) == 1         # all on this thread
@@ -159,6 +170,7 @@ def test_counters_of_a_search(index):
     assert got["slots"] == Q * P
     assert got["rerank_candidates"] == Q * K_EFF
     assert got["rerank_bytes"] == Q * K_EFF * D * 4       # float32 corpus
+    assert got["rerank_fused"] == Q                       # the native pass
     assert got.get("reruns", 0) == 0
 
 

@@ -117,6 +117,32 @@ def _float16_copy(corpus) -> np.ndarray:
     return out
 
 
+def _dedup_rows(ids: np.ndarray) -> np.ndarray:
+    """Mark a repeat of an earlier id in its row empty (-1), so that the
+    exact reorder can never return a row twice (a no-op otherwise)."""
+    sort_idx = np.argsort(ids, axis=1, kind="stable")
+    sorted_ids = np.take_along_axis(ids, sort_idx, axis=1)
+    dup_sorted = np.zeros(ids.shape, dtype=bool)
+    dup_sorted[:, 1:] = ((sorted_ids[:, 1:] == sorted_ids[:, :-1])
+                         & (sorted_ids[:, 1:] >= 0))
+    if not dup_sorted.any():
+        return ids
+    dup = np.zeros(ids.shape, dtype=bool)
+    np.put_along_axis(dup, sort_idx, dup_sorted, axis=1)
+    return np.where(dup, -1, ids)
+
+
+def _row_norms(x: np.ndarray, rows: int = 512) -> np.ndarray:
+    """``np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)`` of a
+    float32 array, to the bit, taken over slices of `rows` rows: no
+    temporary of the whole array's size."""
+    out = np.empty((len(x), 1), np.float32)
+    for lo in range(0, len(x), rows):
+        out[lo:lo + rows] = np.linalg.norm(x[lo:lo + rows], axis=1,
+                                           keepdims=True)
+    return np.maximum(out, 1e-12, out=out)
+
+
 class _materialize_async:
     """`ensure_in_ram` on a thread of its own, so that the one-time copy of
     a memory-mapped corpus into RAM runs beside the navigation stages of a
@@ -615,88 +641,90 @@ class LearnedIndex:
 
         When the native library (`tpulmi_torch.native`) has loaded and the
         corpus (or its shadow) is a C-contiguous float32, float16 or
-        bfloat16 array, its fused ``rerank_dot`` reads each candidate row
-        once and dots it on the fly, as the JAX package does; otherwise the
-        rows are gathered and multiplied with ``torch.bmm``."""
+        bfloat16 array, its ``rerank_fused`` does the dedup, the queries'
+        division by their norms (taken here, in numpy, from the caller's
+        array), the dot of each candidate row read once, and the stable
+        top-k, one pass a query row on the host's threads: the bits of the
+        numpy steps it replaces. Otherwise the dedup and the normalised
+        query copy are made in numpy, the rows are gathered and multiplied
+        with ``torch.bmm``, and `_rerank_order` orders them."""
         corpus, normalized = self._host_corpus
         q, k_eff = ids.shape
         with span("rerank"):
-            with span("rerank.prep"):
-                d = int(np.asarray(corpus[:1]).shape[1])
-                # a candidate list may hold one row twice: mark repeats
-                # empty so the exact reorder can never return a row twice
-                # (a no-op otherwise)
-                sort_idx = np.argsort(ids, axis=1, kind="stable")
-                sorted_ids = np.take_along_axis(ids, sort_idx, axis=1)
-                dup_sorted = np.zeros(ids.shape, dtype=bool)
-                dup_sorted[:, 1:] = ((sorted_ids[:, 1:] == sorted_ids[:, :-1])
-                                     & (sorted_ids[:, 1:] >= 0))
-                if dup_sorted.any():
-                    dup = np.zeros(ids.shape, dtype=bool)
-                    np.put_along_axis(dup, sort_idx, dup_sorted, axis=1)
-                    ids = np.where(dup, -1, ids)
-                if host_queries is not None:
-                    qs = np.array(host_queries, np.float32)  # writable copy
-                else:
-                    qs = np.array(torch.as_tensor(queries_search).float()
-                                  .cpu(), np.float32)
-                qs /= np.maximum(np.linalg.norm(qs, axis=1, keepdims=True),
-                                 1e-12)
-                flat = np.maximum(ids, 0).reshape(-1)
+            d = int(np.asarray(corpus[:1]).shape[1])
             if rerank_dtype == "float16":
-                shadow = self._rerank_shadow
-                if shadow is None or shadow[0] is not corpus:
-                    with span("rerank.shadow"):
-                        # The shadow is a full-size float16 copy of the
-                        # corpus. Past the available host RAM the allocation
-                        # would not raise, the kernel's OOM killer would end
-                        # the process: refuse instead.
-                        need = 2 * d * len(corpus)
-                        avail = _host_mem_available()
-                        if avail is not None and need > avail - (8 << 30):
-                            raise RuntimeError(
-                                f"f16 rerank shadow needs "
-                                f"{need / 2**30:.1f} GiB but only "
-                                f"{avail / 2**30:.1f} GiB host RAM is "
-                                f"available")
-                        shadow = (corpus, _float16_copy(corpus))
-                        self._rerank_shadow = shadow
-                src = shadow[1]
+                src = self._rerank_float16_shadow(corpus, d)
             else:
                 src = corpus if isinstance(corpus, (np.ndarray, HostBF16)) \
                     else None
+            fused = (src is not None
+                     and str(src.dtype) in ("float32", "float16", "bfloat16")
+                     and src.flags["C_CONTIGUOUS"]
+                     and native_layout.available())
+            with span("rerank.prep"):
+                if host_queries is None:
+                    qs = np.array(torch.as_tensor(queries_search).float()
+                                  .cpu(), np.float32)
+                elif fused:
+                    qs = np.ascontiguousarray(host_queries, np.float32)
+                else:
+                    qs = np.array(host_queries, np.float32)  # writable copy
+                if fused:
+                    norms = _row_norms(qs)
+                else:
+                    ids = _dedup_rows(ids)
+                    qs /= np.maximum(np.linalg.norm(qs, axis=1,
+                                                    keepdims=True), 1e-12)
+                    flat = np.maximum(ids, 0).reshape(-1)
             read = corpus if src is None else src
             count("rerank_candidates", q * k_eff)
             with span("rerank.dot"):
                 count("rerank_bytes",
                       q * k_eff * d * _itemsize(getattr(read, "dtype",
                                                         "float32")))
-                if (src is not None
-                        and str(src.dtype) in ("float32", "float16",
-                                               "bfloat16")
-                        and src.flags["C_CONTIGUOUS"]
-                        and native_layout.available()):
-                    sims = native_layout.rerank_dot(src, ids, qs,
-                                                    normalized=normalized)
+                if fused:
+                    count("rerank_fused", q)
+                    return native_layout.rerank_fused(
+                        src, ids, qs, norms, k, normalized=normalized)
+                if rerank_dtype == "float16":
+                    # the gathered rows stay float16: torch's CPU half
+                    # bmm sums in float32, and an upcast of the block
+                    # costs more than the halved gather saves
+                    rows = src[flat].reshape(q, k_eff, d)
                 else:
-                    if rerank_dtype == "float16":
-                        # the gathered rows stay float16: torch's CPU half
-                        # bmm sums in float32, and an upcast of the block
-                        # costs more than the halved gather saves
-                        rows = shadow[1][flat].reshape(q, k_eff, d)
-                    else:
-                        rows = np.asarray(corpus[flat], np.float32).reshape(
-                            q, k_eff, d)
-                    if not normalized:
-                        rows = np.asarray(rows, np.float32)
-                        rows /= np.maximum(
-                            np.linalg.norm(rows, axis=2, keepdims=True),
-                            1e-12)
-                    qcol = torch.from_numpy(qs.astype(rows.dtype)).unsqueeze(2)
-                    sims = torch.bmm(torch.from_numpy(rows),
-                                     qcol).float().numpy()[:, :, 0]
+                    rows = np.asarray(corpus[flat], np.float32).reshape(
+                        q, k_eff, d)
+                if not normalized:
+                    rows = np.asarray(rows, np.float32)
+                    rows /= np.maximum(
+                        np.linalg.norm(rows, axis=2, keepdims=True),
+                        1e-12)
+                qcol = torch.from_numpy(qs.astype(rows.dtype)).unsqueeze(2)
+                sims = torch.bmm(torch.from_numpy(rows),
+                                 qcol).float().numpy()[:, :, 0]
             with span("rerank.order"):
                 return self._rerank_order(1.0 - sims, ids, k)
+
+    def _rerank_float16_shadow(self, corpus, d: int) -> np.ndarray:
+        """The cached float16 copy of the rerank corpus, made on first use
+        (span ``rerank.shadow``)."""
+        shadow = self._rerank_shadow
+        if shadow is None or shadow[0] is not corpus:
+            with span("rerank.shadow"):
+                # The shadow is a full-size float16 copy of the corpus.
+                # Past the available host RAM the allocation would not
+                # raise, the kernel's OOM killer would end the process:
+                # refuse instead.
+                need = 2 * d * len(corpus)
+                avail = _host_mem_available()
+                if avail is not None and need > avail - (8 << 30):
+                    raise RuntimeError(
+                        f"f16 rerank shadow needs {need / 2**30:.1f} GiB "
+                        f"but only {avail / 2**30:.1f} GiB host RAM is "
+                        f"available")
+                shadow = (corpus, _float16_copy(corpus))
+                self._rerank_shadow = shadow
+        return shadow[1]
 
     @staticmethod
     def _rerank_order(exact, ids, k: int):

@@ -7,14 +7,20 @@ ctypes: the counterpart of the JAX package's native library.
   threads: the host-side store layout of `tpulmi_torch.hoststore`.
 - ``rerank_dot``: ``sims[i, j] = queries[i] . corpus[max(ids[i, j], 0)]``,
   each candidate row read once and dotted on the fly (F16C/FMA where the
-  host has them): the exact host rerank of `LearnedIndex._rerank_host`.
+  host has them).
+- ``rerank_fused`` (``csrc/rerank_fused.cpp``): the exact host rerank of
+  `LearnedIndex._rerank_host` in one threaded pass per query row: repeated
+  ids marked empty, the query divided by its norm, ``rerank_dot``'s dot of
+  every kept candidate, and the k smallest distances by a stable
+  selection; the bits of the numpy composition it replaces.
 
-``layout.cpp`` is the JAX package's source byte for byte, and it is built
-with the same flags (``-O3 -march=native -shared -fPIC -pthread
+``layout.cpp`` is the JAX package's source byte for byte;
+``rerank_fused.cpp`` includes it, and the one library is built from it with
+the JAX package's flags (``-O3 -march=native -shared -fPIC -pthread
 -std=c++17``, then without ``-march=native`` where the compiler refuses
 it), so that both libraries compute the same bits on one host. The library
 is compiled at first use into ``tpulmi_torch/_build/`` (git-ignored), named
-by a hash of the source, the flags and the host's CPU (``-march=native``
+by a hash of the sources, the flags and the host's CPU (``-march=native``
 code runs only where it was built), to a temporary name that is then
 moved into place, so that processes building at once never load a
 half-written file. Nothing is built at import time. Where no compiler or
@@ -23,7 +29,8 @@ paths; once the library has loaded, its calls are never retried in numpy.
 
 Inputs: numpy float32 / float16 arrays, and bfloat16 arrays as
 `tpulmi_torch.hoststore.HostBF16` (uint16 bit patterns, dtype code 2).
-``calls`` counts the calls of each entry point.
+``calls`` counts the calls of each entry point; ``calls["rerank_dot"]``
+counts the rerank's native dot passes, those of ``rerank_fused`` included.
 """
 
 import ctypes
@@ -41,7 +48,9 @@ from tpulmi_torch.utils.logging import get_logger
 log = get_logger("tpulmi_torch.native")
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "layout.cpp"
+# the source compiled, and every source it includes
+SOURCE = _PKG / "csrc" / "rerank_fused.cpp"
+SOURCES = (SOURCE, _PKG / "csrc" / "layout.cpp")
 BUILD_DIR = _PKG / "_build"
 # the JAX package's g++ command, in its order; -march=native goes after -O3
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
@@ -54,6 +63,10 @@ _SIGNATURES = {
     # corpus, corpus_dtype, ids, queries, out_sims, q, k_eff, d, n_rows,
     # normalize, threads
     "tpulmi_rerank_dot": [_P, _I, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I],
+    # corpus, corpus_dtype, ids, ids_64, queries, norms, out_dists,
+    # out_ids, q, k_eff, k, d, n_rows, normalize, threads
+    "tpulmi_rerank_fused": [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _LL, _LL,
+                            _LL, _LL, _I, _I],
 }
 
 
@@ -74,7 +87,9 @@ def host_cpu() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        digest.update(source.read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
     digest.update(host_cpu().encode())
     return BUILD_DIR / f"layout_{digest.hexdigest()[:12]}.so"
@@ -100,7 +115,7 @@ class _NativeLayout:
         self._lib = None
         self._tried = False
         self._lock = threading.Lock()
-        self.calls = {"scatter_rows": 0, "rerank_dot": 0}
+        self.calls = {"scatter_rows": 0, "rerank_dot": 0, "rerank_fused": 0}
         # the library's build: {"seconds", "flags", "path"}; empty when it
         # was already built
         self.build_info = {}
@@ -185,14 +200,7 @@ class _NativeLayout:
         """``sims[i, j] = queries[i] . corpus[max(ids[i, j], 0)]`` (rows
         L2-normalized on the fly unless `normalized`), float32 (Q, K).
         ``corpus`` is a C-contiguous float32 or float16 array or HostBF16."""
-        lib = self._load()
-        if lib is None:
-            raise RuntimeError("native rerank library unavailable")
-        bits, code = _data(corpus), _code(corpus)
-        if code in (None, 3):
-            raise ValueError(f"unsupported rerank corpus dtype {corpus.dtype}")
-        if not bits.flags["C_CONTIGUOUS"]:
-            raise ValueError("the rerank corpus must be C-contiguous")
+        lib, bits, code = self._rerank_source(corpus)
         ids = np.ascontiguousarray(ids, np.int64)
         queries = np.ascontiguousarray(queries, np.float32)
         q, k_eff = ids.shape
@@ -209,6 +217,62 @@ class _NativeLayout:
         if rc != 0:
             raise RuntimeError(f"native rerank_dot failed (rc={rc})")
         return out
+
+    def rerank_fused(self, corpus, ids, queries, norms, k: int, *,
+                     normalized: bool = True, n_threads: int = 0):
+        """The exact rerank of candidates ``ids`` (Q, K_EFF), 0-based, -1 =
+        empty: a repeat of an earlier id in its row becomes -1; each query
+        row is divided by its clamped norm ``norms[i]`` (float32, Q or
+        (Q, 1)); every kept candidate gets ``1 - rerank_dot``'s similarity
+        (rows L2-normalized on the fly unless `normalized`), an empty one
+        the sentinel distance 10000; the ``min(k, K_EFF)`` smallest of each
+        row are kept, ties in candidate order. Returns (dists float32,
+        ids of ``ids``' dtype), both (Q, min(k, K_EFF)): bit for bit what
+        the numpy dedup, divide, `rerank_dot` and stable argsort give.
+        ``corpus`` is as for `rerank_dot`; ``ids`` int32 or int64;
+        ``queries`` float32 (Q, d)."""
+        lib, bits, code = self._rerank_source(corpus)
+        ids = np.asarray(ids)
+        if ids.dtype not in (np.int32, np.int64) or ids.ndim != 2:
+            raise ValueError(f"ids must be (Q, K_EFF) int32 or int64, not "
+                             f"{ids.dtype} {ids.shape}")
+        ids = np.ascontiguousarray(ids)
+        queries = np.ascontiguousarray(queries, np.float32)
+        norms = np.ascontiguousarray(norms, np.float32).reshape(-1)
+        q, k_eff = ids.shape
+        d = corpus.shape[1]
+        if queries.shape != (q, d) or norms.shape != (q,):
+            raise ValueError(f"queries {queries.shape} and norms "
+                             f"{norms.shape} for ids {ids.shape} over rows "
+                             f"of {d}")
+        k = min(k, k_eff)
+        out_d = np.empty((q, k), np.float32)
+        out_i = np.empty((q, k), ids.dtype)
+        if q == 0 or k <= 0:
+            return out_d, out_i
+        self.calls["rerank_dot"] += 1
+        self.calls["rerank_fused"] += 1
+        rc = lib.tpulmi_rerank_fused(
+            bits.ctypes.data, code, ids.ctypes.data,
+            int(ids.dtype == np.int64), queries.ctypes.data,
+            norms.ctypes.data, out_d.ctypes.data, out_i.ctypes.data, q,
+            k_eff, k, d, corpus.shape[0], 0 if normalized else 1,
+            _threads(n_threads))
+        if rc != 0:
+            raise RuntimeError(f"native rerank_fused failed (rc={rc})")
+        return out_d, out_i
+
+    def _rerank_source(self, corpus):
+        """(library, the corpus's bits, its dtype code) for a rerank."""
+        lib = self._load()
+        if lib is None:
+            raise RuntimeError("native rerank library unavailable")
+        bits, code = _data(corpus), _code(corpus)
+        if code in (None, 3):
+            raise ValueError(f"unsupported rerank corpus dtype {corpus.dtype}")
+        if not bits.flags["C_CONTIGUOUS"]:
+            raise ValueError("the rerank corpus must be C-contiguous")
+        return lib, bits, code
 
 
 native_layout = _NativeLayout()

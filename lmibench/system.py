@@ -6,8 +6,12 @@ A configuration's ``build.method`` is the facade's entry point
 (``build`` or ``build_with_host_store``) and its other keys that entry's
 arguments; ``index`` is the `IndexConfig`, ``search`` the `SearchConfig`
 with ``n_buckets``, ``quantize`` an optional `LearnedIndex.quantize`
-after the build. ``control`` names what the control switches: the
-program's own path one precision below the configuration's.
+after the build. An optional ``hierarchy`` holds `HierarchicalConfig`'s
+fields but ``inner``: the index is then a `HierarchicalIndex` whose inner
+routers take ``index``, over ``n_groups * index.n_categories`` buckets,
+and ``search.n_buckets`` counts probes over all of them. ``control``
+names what the control switches: the program's own path one precision
+below the configuration's.
 """
 
 import copy
@@ -16,6 +20,7 @@ import gc
 import numpy as np
 import torch
 
+from tpulmi_torch.hierarchical import HierarchicalConfig, HierarchicalIndex
 from tpulmi_torch.hoststore import HostBF16
 from tpulmi_torch.index import LearnedIndex
 from tpulmi_torch.utils.config import IndexConfig, SearchConfig
@@ -43,8 +48,15 @@ def _host(array, dtype):
 class System:
     def __init__(self, config: dict, device):
         self.config = config
-        self.index = LearnedIndex(IndexConfig(**config["index"]),
-                                  device=device)
+        hierarchy = config.get("hierarchy")
+        if hierarchy is None:
+            self.index = LearnedIndex(IndexConfig(**config["index"]),
+                                      device=device)
+        else:
+            # an unknown key, ``inner`` among them, raises here
+            self.index = HierarchicalIndex(
+                HierarchicalConfig(inner=IndexConfig(**config["index"]),
+                                   **hierarchy), device=device)
         search = dict(config["search"])
         self.n_buckets = search.pop("n_buckets")
         self.k = config["k"]
@@ -79,7 +91,9 @@ class System:
     @torch.no_grad()
     def route(self, queries_nav: np.ndarray) -> np.ndarray:
         """The buckets the built router sends each query to (Q, P): one
-        routing outside the window, for the work model."""
+        routing outside the window, for the work model. Under a hierarchy
+        the model is the joint router, whose logits span all G*C
+        buckets."""
         model = self.index.built.classifier.model
         q = torch.as_tensor(queries_nav, dtype=torch.float32,
                             device=self.index.device)

@@ -1,5 +1,6 @@
 """On the card: a whole run at the smoke sizes, through the card's kernels,
-is correct, and the control is not."""
+is correct, and the control is not; so is a run of the tests' own
+configuration with a ``hierarchy`` section."""
 
 import json
 
@@ -32,3 +33,13 @@ def test_smoke_run_on_the_card(card, capsys, workload):
 @pytest.mark.parametrize("workload", BATCH)
 def test_control_on_the_card_is_not_correct(card, capsys, workload):
     assert card_smoke(capsys, workload, "--control")["correct"] is False
+
+
+@pytest.mark.cuda
+def test_hierarchical_smoke_run_on_the_card(card, capsys, hier_cell):
+    result = card_smoke(capsys, hier_cell)
+    assert result["correct"] is True
+    assert result["device"]["platform"] == "gpu"
+    assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
+    assert 0 < result["metrics"]["probe_roofline_pct"]["value"] <= 105
+    assert card_smoke(capsys, hier_cell, "--control")["correct"] is False

@@ -22,12 +22,21 @@ is the flat `LearnedIndex`'s, unchanged: the hierarchy adds no kernel.
   temperature fitted against each pseudo-query's nearest neighbour's
   stored bucket, with no labelled queries.
 
+Spans (`utils/profiling.py`): ``hier.outer`` (the outer router's build),
+``hier.inner`` (the G inner builds, one after another) and
+``hier.calibrate``, whose host-clock seconds a build also keeps in
+``last_build_stages`` as ``outer``, ``inner`` and ``calibrate`` (summed
+over the candidates of a build with restarts); ``route.joint`` around
+`JointRouter.forward`, which adds Q * G * C to the counter
+``route_joint_scores``.
+
 The JAX package's twin is ``tpulmi/hierarchical.py``; numpy draws (the
 size-class fill, the pseudo-queries) are the same in both packages.
 """
 
 import json
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Optional, Tuple
@@ -45,7 +54,7 @@ from tpulmi_torch.ops.distance import l2_normalize
 from tpulmi_torch.search import size_class
 from tpulmi_torch.utils.config import IndexConfig
 from tpulmi_torch.utils.logging import get_logger
-from tpulmi_torch.utils.profiling import sync
+from tpulmi_torch.utils.profiling import count, span, sync
 
 log = get_logger("tpulmi_torch.hierarchical")
 
@@ -120,9 +129,12 @@ class JointRouter(nn.Module):
         return lo, li.transpose(0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lo, li = self.components(x)
-        joint = self.outer_weight * lo[:, :, None] + li
-        return joint.reshape(x.shape[0], self.n_groups * self.n_cat)
+        with span("route.joint"):
+            count("route_joint_scores",
+                  int(x.shape[0]) * self.n_groups * self.n_cat)
+            lo, li = self.components(x)
+            joint = self.outer_weight * lo[:, :, None] + li
+            return joint.reshape(x.shape[0], self.n_groups * self.n_cat)
 
 
 class JointRouterClassifier:
@@ -167,11 +179,36 @@ class HierarchicalIndex(LearnedIndex):
                  device="cuda"):
         super().__init__(config.inner, device=device)
         self.hconfig = config
+        # host seconds of the hierarchy's build stages (`_stage`) in the
+        # build under way
+        self._stage_s = {}
         # per-candidate containment of the last build with restarts > 1
         self._router_restart_scores = None
         self.stage_inputs: Optional[Callable[..., StageInputs]] = None
 
     # ------------------------------------------------------------------ build
+    @contextmanager
+    def _stage(self, name: str):
+        """A build stage: the span ``hier.<name>``, its host seconds added
+        to ``_stage_s[name]``. It adds no synchronization: a stage that
+        ends in a read from the card (the outer build's groups, the
+        calibration's components) waits for its work there."""
+        start = time.perf_counter()
+        with span(f"hier.{name}"):
+            yield
+        self._stage_s[name] = (self._stage_s.get(name, 0.0)
+                               + time.perf_counter() - start)
+
+    def _calibrate_stage(self, data_nav, stages: dict) -> None:
+        """The calibration at ``calibrate_budget`` probes, when it is set,
+        as the stage ``calibrate``; then ``last_build_stages`` is `stages`
+        (the build's own) with the hierarchy's."""
+        if self.hconfig.calibrate_budget:
+            with self._stage("calibrate"):
+                self.calibrate_outer_weight(
+                    data_nav, probe_budget=self.hconfig.calibrate_budget)
+        self.last_build_stages = {**stages, **self._stage_s}
+
     def _build_navigation(self, data_nav):
         """The outer router, one inner router per group and the joint
         argmax of every row; with ``router_restarts > 1`` the best of that
@@ -180,6 +217,7 @@ class HierarchicalIndex(LearnedIndex):
         (classifier, pred (numpy int32), outer centroids)."""
         hcfg = self.hconfig
         self._router_restart_scores = None
+        self._stage_s = {}
         nav = self._nav_tensor(data_nav)
         restarts = max(1, int(hcfg.router_restarts))
         if restarts == 1:
@@ -242,31 +280,34 @@ class HierarchicalIndex(LearnedIndex):
         hcfg, cfg = self.hconfig, self.hconfig.inner
         G, C = hcfg.n_groups, cfg.n_categories
         n, d_nav = int(nav.shape[0]), int(nav.shape[1])
-        outer = self._nav_stage(nav, seed, hcfg.outer_model_type,
-                                hcfg.outer_lr, G, hcfg.outer_epochs)
-        groups = outer.pred_categories.cpu().numpy()
+        with self._stage("outer"):
+            outer = self._nav_stage(nav, seed, hcfg.outer_model_type,
+                                    hcfg.outer_lr, G, hcfg.outer_epochs)
+            groups = outer.pred_categories.cpu().numpy()
         log.info("outer router: %d groups, sizes %s", G,
                  np.bincount(groups, minlength=G).tolist())
         rng = np.random.default_rng(seed + 17)
         gather_safe = n <= GATHER_SAFE_ROWS
         inner = []
-        for g in range(G):
-            idx = np.where(groups == g)[0]
-            if not gather_safe and idx.size > INNER_CAP:
-                idx = np.sort(rng.choice(idx, size=INNER_CAP, replace=False))
-            m_pad = size_class(max(idx.size, cfg.batch_size))
-            if idx.size:
-                idx_pad = np.concatenate(
-                    [idx, rng.choice(idx, size=m_pad - idx.size,
-                                     replace=True)])
-            else:
-                idx_pad = np.zeros((m_pad,), np.int64)
-            rows = nav[torch.as_tensor(idx_pad, device=nav.device)]
-            res = self._nav_stage(rows, seed + 100 + g, cfg.model_type,
-                                  cfg.lr, C, cfg.epochs)
-            inner.append(res.model)
-            log.info("inner %d/%d: %d rows (padded %d)", g + 1, G, idx.size,
-                     m_pad)
+        with self._stage("inner"):
+            for g in range(G):
+                idx = np.where(groups == g)[0]
+                if not gather_safe and idx.size > INNER_CAP:
+                    idx = np.sort(rng.choice(idx, size=INNER_CAP,
+                                             replace=False))
+                m_pad = size_class(max(idx.size, cfg.batch_size))
+                if idx.size:
+                    idx_pad = np.concatenate(
+                        [idx, rng.choice(idx, size=m_pad - idx.size,
+                                         replace=True)])
+                else:
+                    idx_pad = np.zeros((m_pad,), np.int64)
+                rows = nav[torch.as_tensor(idx_pad, device=nav.device)]
+                res = self._nav_stage(rows, seed + 100 + g, cfg.model_type,
+                                      cfg.lr, C, cfg.epochs)
+                inner.append(res.model)
+                log.info("inner %d/%d: %d rows (padded %d)", g + 1, G,
+                         idx.size, m_pad)
         router = JointRouter(outer.model, StackedMLP.stack(inner), G, C)
         classifier = JointRouterClassifier(
             router, d_nav,
@@ -276,7 +317,9 @@ class HierarchicalIndex(LearnedIndex):
     def build(self, data_nav, data_search=None, **_ignored
               ) -> Tuple[np.ndarray, float]:
         """The store on the index's device (`build_bucket_store` over G*C
-        buckets). Returns (pred_categories, build_seconds)."""
+        buckets), then the calibration. Returns (pred_categories,
+        build_seconds); ``last_build_stages`` holds the hierarchy's
+        stages."""
         start = time.perf_counter()
         hcfg, cfg = self.hconfig, self.hconfig.inner
         classifier, pred, centroids = self._build_navigation(data_nav)
@@ -295,9 +338,7 @@ class HierarchicalIndex(LearnedIndex):
         self._set_built(BuiltIndex(
             centroids, classifier, store,
             torch.as_tensor(pred, device=self.device), cfg, mx))
-        if hcfg.calibrate_budget:
-            self.calibrate_outer_weight(data_nav,
-                                        probe_budget=hcfg.calibrate_budget)
+        self._calibrate_stage(data_nav, {})
         return pred, build_time
 
     def build_with_host_store(self, data_nav, data_search_host,
@@ -308,14 +349,14 @@ class HierarchicalIndex(LearnedIndex):
         """`LearnedIndex.build_with_host_store` over G*C buckets with this
         index's navigation stages, then the calibration. A ``mesh`` of G
         entries places one group per shard (``cat_pad == C``): the
-        configuration whose store no single card holds."""
+        configuration whose store no single card holds.
+        ``last_build_stages`` gains ``outer``, ``inner`` (both inside
+        ``nav``) and ``calibrate`` (after ``total``)."""
         out = super().build_with_host_store(
             data_nav, data_search_host, normalized=normalized,
             store_dtype=store_dtype, overlap_upload=overlap_upload,
             mesh=mesh)
-        if self.hconfig.calibrate_budget:
-            self.calibrate_outer_weight(
-                data_nav, probe_budget=self.hconfig.calibrate_budget)
+        self._calibrate_stage(data_nav, self.last_build_stages)
         return out
 
     # ------------------------------------------------------------ calibration

@@ -132,10 +132,13 @@ short check of a changed kernel) and prints no result line.
              bench_10m.py's variants, each best of 3: the worklist (equal
              to the dense search but for ties, or declined with its
              scratch), probe_mass 0.95 / 0.98, the float16 rerank copy,
-             rerank_extra 6 / 4, rerank off; 4 stream batches with the
-             host mirror equal to search; the kernels of the path
-             launched, then each against its plain version on the path's
-             first 1000 queries; K3's time, bound and library time; the
+             then the rerank kernel on the card (rerank_card_on_path) at
+             the 10M cell's depth: its launches and counter over those
+             searches, held against its plain version on their own
+             candidates and timed; rerank_extra 6 / 4, rerank off; 4
+             stream batches with the host mirror equal to search; the
+             kernels of the path launched, then each against its plain
+             version on the path's first 1000 queries; K3's time, bound and library time; the
              probe's work model against the card's peaks;
 11. hier20m - the hier phase's configuration with bench_20m.py's own
              data clusters: HIER20M_N x 768 rows (96 navigation features;
@@ -154,8 +157,9 @@ short check of a changed kernel) and prints no result line.
              and float queries (K2) within 0.01 of its recall; every
              kernel of the path launched, then each against its plain
              version on the path's probes, store and first 1000 queries;
-             K3's time, bound and library time; the peak card memory; the
-             directory removed;
+             K3's time, bound and library time; the rerank kernel on the
+             card (rerank_card_on_path) over a float16 search at that
+             budget; the peak card memory; the directory removed;
 12. hier40m - bench_40m.py's configuration (16 x 61 = 976 buckets, 488
              data clusters, a packed int4 host store, int8 queries) at
              HIER40M_N rows (cut from 40M to what a run may write to the
@@ -205,7 +209,8 @@ short check of a changed kernel) and prints no result line.
              kernel against the worklist and the 128-row tile (in
              clusters and without, in turns) on a skewed store.
 
-The last lines are one JSON object with every kernel's numbers, the card's
+The last lines are one JSON object with every kernel's numbers (the rerank
+kernel's from the flat10m and hier20m phases), the card's
 name and power limit as nvidia-smi reports them, and
 {"ok": true, "device": {...}}.
 """
@@ -229,11 +234,15 @@ DIST_TOL = 1e-4   # bf16 inputs, f32 sums taken in another order
 # int8 x int8: the integer sums are exact and the scaling is written without
 # contraction on both sides, so kernel and plain version agree to rounding
 INT8Q_TOL = 1e-5
+# the rerank kernel against its plain version: float32 dots of the same
+# float16 rows summed in another order
+RERANK_TOL = 1e-5
 KERNEL_SOURCES = {"probe_topk": "tpulmi_torch/csrc/probe_topk.cu",
                   "probe_topk_quant": "tpulmi_torch/csrc/probe_topk_quant.cu",
                   "probe_common": "tpulmi_torch/csrc/probe_common.cuh",
                   "probe_wgmma": "tpulmi_torch/csrc/probe_wgmma.cuh",
-                  "merge_items": "tpulmi_torch/csrc/merge_items.cu"}
+                  "merge_items": "tpulmi_torch/csrc/merge_items.cu",
+                  "rerank_card": "tpulmi_torch/csrc/rerank_card.cu"}
 N_BATCHES, STREAM_DEPTH = 8, 2   # the serving phase's stream
 BIG_N = 2_000_000   # rows of the host-store phase's realistic size
 SHARDS = 4          # shards of the 300K index in phase shard, on one card
@@ -1831,10 +1840,10 @@ def hier_calibrate(tag, hi, data_nav, beside=""):
 
 
 def hier_searcher(hi, queries, rerank_extra=10):
-    """search(p, batch=queries, **opts) -> (dists, ids, seconds, rerank
-    seconds): a warm-up and one timed search, int8 queries, rerank depth
-    `rerank_extra` (10; opts may name another), items of 1024 rows
-    (bench_20m.py's)."""
+    """search(p, batch=queries, **opts) -> (dists, ids, seconds, host
+    rerank seconds, 0 where the rerank ran on the card): a warm-up and one
+    timed search, int8 queries, rerank depth `rerank_extra` (10; opts may
+    name another), items of 1024 rows (bench_20m.py's)."""
     import numpy as np
     import torch
     from tpulmi_torch import SearchConfig
@@ -1854,6 +1863,7 @@ def hier_searcher(hi, queries, rerank_extra=10):
             k=10, n_buckets=p, int8_queries=int8_queries, pallas_mc=1024,
             **opts))
         hi._rerank_host = timed_rerank
+        seen.clear()
         try:
             hi.search(*batch, **kw)
             torch.cuda.synchronize()
@@ -1864,7 +1874,7 @@ def hier_searcher(hi, queries, rerank_extra=10):
             del hi._rerank_host
         if d.shape != (batch[0].shape[0], 10) or not np.isfinite(d).all():
             raise AssertionError(f"bad hierarchical result {d.shape}")
-        return d, ids, secs, seen["rerank_s"]
+        return d, ids, secs, seen.get("rerank_s", 0.0)
     return search
 
 
@@ -1983,6 +1993,101 @@ def hier_stream(tag, hi, queries, p, rerank_extra=10):
     return kw
 
 
+def float16_copy_of(index):
+    """The float16 copy of the rerank corpus that a float16 rerank read:
+    on the card where the plan put the rerank there, else on the host."""
+    return (index._card_copy or index._rerank_shadow)[1]
+
+
+def rerank_card_on_path(tag, index, search, name):
+    """The rerank kernel (csrc/rerank_card.cu) on a path's own candidates.
+    `search()` runs float16-rerank searches of `index` that the plan puts
+    on the card: the kernel's launches (``rerank_card.launches``, from 0)
+    must equal the searches' calls of it, and the counter `rerank_card`
+    must grow as `queries` does. On the last call's (q, k_eff) candidates
+    and queries the kernel is then held against `rerank_card_plain` on the
+    card: distances within RERANK_TOL, ids equal but where the plain
+    version's distance lies within RERANK_TOL of a neighbour's (a tie); and
+    timed by CUDA events beside the plain version and its bound by the
+    bytes that must move (each distinct candidate row, the queries, the
+    ids, the results). Returns the numbers of the `kernels` line."""
+    import numpy as np
+    import torch
+    from tpulmi_torch.ops.rerank_card import rerank_card, rerank_card_plain
+    from tpulmi_torch.utils.profiling import counters
+
+    calls = []
+    on_card = index._rerank_on_card
+
+    def kept(out, queries_search, plan):
+        calls.append((out[1].clone(), queries_search.contiguous(), plan.k))
+        return on_card(out, queries_search, plan)
+
+    index._rerank_on_card = kept
+    before = counters()
+    rerank_card.launches = 0
+    try:
+        search()
+        torch.cuda.synchronize()
+    finally:
+        del index._rerank_on_card
+    launches, after = rerank_card.launches, counters()
+    counted, queries = (after.get(c, 0) - before.get(c, 0)
+                        for c in ("rerank_card", "queries"))
+    if not (calls and launches == len(calls) and counted == queries):
+        raise AssertionError(
+            f"{tag} the float16 searches called the card's rerank "
+            f"{len(calls)} times, launched its kernel {launches} times, "
+            f"and counted {counted} reranked of {queries} queries")
+    ids, qs, k = calls[-1]
+    copy, normalized = index._card_copy[1], index._host_corpus[1]
+
+    def kernel():
+        return rerank_card(copy, ids, qs, k, normalized=normalized)
+
+    def plain():
+        return rerank_card_plain(copy, ids, qs, k, normalized=normalized)
+
+    got, want = kernel(), plain()
+    gd, gi, wd, wi = (x.cpu().numpy() for x in (*got, *want))
+    err = float(abs(gd - wd).max())
+    if not err <= RERANK_TOL:
+        raise AssertionError(f"{tag} the rerank kernel's distances differ "
+                             f"from its plain version's by {err}")
+    step = abs(wd[:, 1:] - wd[:, :-1]) <= RERANK_TOL
+    tied = np.zeros(wd.shape, bool)
+    tied[:, 1:] |= step
+    tied[:, :-1] |= step
+    differ = gi != wi
+    untied = int((differ & ~tied).any(axis=1).sum())
+    if untied:
+        raise AssertionError(f"{tag} the rerank kernel's ids differ from "
+                             f"its plain version's, untied, in {untied} "
+                             f"rows")
+    q, k_eff = ids.shape
+    n, d = copy.shape
+    srt = ids.sort(dim=1).values
+    fresh = torch.ones_like(srt, dtype=torch.bool)
+    fresh[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    rows = int(((srt >= 0) & fresh).sum())
+    nbytes = (rows * d * 2 + q * d * 4 + ids.numel() * ids.element_size()
+              + q * k * (4 + ids.element_size()))
+    bound_ms = nbytes / peaks(name)[1] * 1e3
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 3)
+    log(f"{tag} rerank_card on the path's candidates (q {q}, k_eff "
+        f"{k_eff}, k {k}, d {d}, {n} rows on the card): {len(calls)} "
+        f"launches over the float16 searches, rerank_card {counted} = "
+        f"queries {queries}; against its plain version max |err| "
+        f"{err:.3g}, ids differ in {int(differ.any(axis=1).sum())} rows, "
+        f"all at ties; {ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s of the "
+        f"{nbytes / 1e9:.4f} GB that must move ({rows} distinct rows); "
+        f"bound {bound_ms:.4f} ms by bytes; plain {plain_ms:.3f} ms; {name}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                q=q, k_eff=k_eff, rows=n)
+
+
 def hier_float16_shadow(tag, hi, search, p, dense, gt):
     """rerank_dtype="float16" at budget p: the port's guard refuses a
     float16 copy of the corpus that the host's available memory cannot
@@ -2004,14 +2109,14 @@ def hier_float16_shadow(tag, hi, search, p, dense, gt):
             f"allocated ({e}); {host_memory()}")
         return
     made = time.perf_counter() - t
-    shadow = hi._rerank_shadow[1]
+    shadow = float16_copy_of(hi)
     rec, want = (recall_at_k(x - 1, gt, 10) for x in (ids, dense[1]))
     log(f"{tag} rerank_dtype='float16' admitted by the guard at this size: "
         f"a {shadow.nbytes / 1e9:.2f} GB float16 copy of the corpus, made "
         f"and searched twice in {made:.2f}s; recall@10 {rec:.4f} (float32 "
         f"rerank {want:.4f}); {secs:.4f}s a search; {host_memory()}")
     del shadow
-    hi._rerank_shadow = None
+    hi._rerank_shadow = hi._card_copy = None
     gc.collect()
     if not abs(rec - want) <= 0.01:
         raise AssertionError(f"the float16 rerank's recall@10 {rec} is more "
@@ -2543,7 +2648,8 @@ def phase_flat10m(dev, name, errs):
     HIER20M_HOLD queries; `k3_time`, then K3 dense and on the worklist in
     turns; probe_work_model against the card's peaks; the peak card
     memory. Launches made after the path's count was
-    read are not counted."""
+    read are not counted. Returns `rerank_card_on_path`'s numbers for the
+    float16 search at the 10M cell's depth."""
     import dataclasses
     import gc
 
@@ -2736,12 +2842,17 @@ def phase_flat10m(dev, name, errs):
         t = time.perf_counter()
         t16, r16, _, _ = run_cfg("rerank_dtype='float16'", cfg16)
         log(f"{tag} the float16 rerank copy: "
-            f"{li._rerank_shadow[1].nbytes / 1e9:.2f} GB, made and searched "
+            f"{float16_copy_of(li).nbytes / 1e9:.2f} GB, made and searched "
             f"4 times in {time.perf_counter() - t:.2f}s; {host_memory()}")
+        # the rerank kernel at the 10M cell's depth (rerank_extra 4)
+        cell16 = dataclasses.replace(cfg16, rerank_extra=4)
+        card_rerank = rerank_card_on_path(tag, li, lambda: li.search(
+            qn, qs, n_buckets=p, k=10, search_config=cell16,
+            queries_search_host=q_host), name)
         if r16 >= RECALL_GATE and t16 < t_best:
             best, t_best = cfg16, t16
         else:
-            li._rerank_shadow = None
+            li._rerank_shadow = li._card_copy = None
             gc.collect()
         for extra in (6, 4):
             cfge = dataclasses.replace(best, rerank_extra=extra)
@@ -2809,6 +2920,7 @@ def phase_flat10m(dev, name, errs):
     log(f"{tag} phase {time.perf_counter() - t_phase:.1f}s; peak card "
         f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, of "
         f"which earlier phases held {held / 1e9:.2f} GB; {name}")
+    return card_rerank
 
 
 def phase_hier20m(dev, name, errs):
@@ -2826,8 +2938,9 @@ def phase_hier20m(dev, name, errs):
     `hier_variants` at that budget; every kernel of the path launched;
     `hold_on_path` on the first HIER20M_HOLD queries (the plain worklist
     walks its items one by one); K3's time, bound and library time; the
-    peak card memory. Launches made after the path's count was read are
-    not counted."""
+    peak card memory; then `rerank_card_on_path` on a float16 search at
+    that budget, whose numbers it returns. Launches made after the path's
+    count was read are not counted."""
     import gc
     import torch
     from tpulmi_torch.ops.probe_topk import (launch_counts,
@@ -2874,6 +2987,8 @@ def phase_hier20m(dev, name, errs):
         hold_on_path(tag, hi, tuple(x[:HIER20M_HOLD] for x in queries), p,
                      dev, errs)
         k3_time(tag, hi, queries, p, dev, name)
+        card_rerank = rerank_card_on_path(
+            tag, hi, lambda: search(p, rerank_dtype="float16"), name)
         del hi, search, dense, big, corpus
         gc.collect()
         torch.cuda.empty_cache()
@@ -2881,6 +2996,7 @@ def phase_hier20m(dev, name, errs):
     log(f"{tag} phase {time.perf_counter() - t_phase:.1f}s; peak card "
         f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, of "
         f"which earlier phases held {held / 1e9:.2f} GB; {name}")
+    return card_rerank
 
 
 def phase_hier40m(dev, name, errs):
@@ -4343,9 +4459,9 @@ def main(args) -> int:
         phase_baseline(ds, dev, gt, big, gt_big)
         done("baseline")
         del big
-    phase_flat10m(dev, name, kernel_errs)
+    card_rerank = {"flat10m": phase_flat10m(dev, name, kernel_errs)}
     done("flat10m")
-    phase_hier20m(dev, name, kernel_errs)
+    card_rerank["hier20m"] = phase_hier20m(dev, name, kernel_errs)
     done("hier20m")
     phase_hier40m(dev, name, kernel_errs)
     done("hier40m")
@@ -4385,6 +4501,14 @@ def main(args) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # replaces no TPU kernel: the JAX package reranks on the host
+    for phase, t in card_rerank.items():
+        kernels.append({
+            "name": f"rerank_card.{phase}", "route": "cuda",
+            "source": KERNEL_SOURCES["rerank_card"], "replaces": None,
+            **{key: t[key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "q", "k_eff", "rows")}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

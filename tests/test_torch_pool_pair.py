@@ -325,7 +325,7 @@ def test_index_pool_rerank(rng):
     scfg = SearchConfig(k=10, compute_dtype=None, pallas_pool=True,
                         rerank_extra=10)
     plan = li._plan_search(torch.from_numpy(qn), 12, 10, scfg)
-    assert (plan.pool_k, plan.k_eff, plan.rerank) == (10, 20, True)
+    assert (plan.pool_k, plan.k_eff, plan.rerank) == (10, 20, "host")
     d_p, i_p = li.search(qn, qs, n_buckets=12, k=10, search_config=scfg)
     assert all(len(set(row.tolist())) == 10 for row in i_p)
     _, want = exact_knn(torch.from_numpy(qs), torch.from_numpy(data), k=10,

@@ -9,7 +9,9 @@
 - ``quantize(host_corpus, bits)``: turn the store into int8 or packed int4
   codes with per-row scales. With a host-resident full-precision corpus
   attached, `search` fetches a few more candidates than k and reranks them
-  exactly on the host, which takes the quantization error out of the result.
+  exactly, which takes the quantization error out of the result: on the
+  card from a float16 copy of the corpus in its memory where that copy fits
+  (`ops/rerank_card.py`), else on the host.
 - ``search_stream(batches, ...)``: the serving loop: `search`'s results per
   batch, in order, with the next batches' copies and kernels queued on the
   card while a batch's results are fetched and reranked.
@@ -56,6 +58,7 @@ from tpulmi_torch.models.train import BucketClassifier
 from tpulmi_torch.native import native_layout
 from tpulmi_torch.ops.distance import SENTINEL_DIST, l2_normalize
 from tpulmi_torch.ops import probe_topk as probe
+from tpulmi_torch.ops import rerank_card
 from tpulmi_torch.ops.kmeans import kmeans
 from tpulmi_torch.parallel.mesh import Mesh, check_mesh, make_mesh
 from tpulmi_torch.search import (make_search_program, route_probes,
@@ -91,6 +94,9 @@ def _host_mem_available():
 
 
 SHADOW_SLICE_BYTES = 256 << 20   # float32 bytes a slice of the shadow
+# card memory left free beside the float16 copy of the corpus on the card:
+# the search's own buffers and the allocator's slack
+CARD_COPY_HEADROOM = 4 << 30
 
 
 def _itemsize(dtype) -> int:
@@ -201,6 +207,7 @@ class LearnedIndex:
         self._host_corpus = None
         self._rerank_meta = None     # a restored checkpoint's rerank contract
         self._rerank_shadow = None   # (corpus, its float16 copy)
+        self._card_copy = None       # (corpus, its float16 copy on the card)
         # pad key -> slots per bucket the xla scan was sized for; the key is
         # (Q, n_buckets), or ("sharded", Q, n_buckets) on a sharded store
         self._qpb_pads = {}
@@ -735,6 +742,51 @@ class LearnedIndex:
         return (np.take_along_axis(exact, order, axis=1).astype(np.float32),
                 np.take_along_axis(ids, order, axis=1))
 
+    def _rerank_site(self, store, sharded: bool, k_eff: int,
+                     scfg: SearchConfig) -> str:
+        """Where a plan's exact rerank runs: "card" when the store is on a
+        CUDA device, the index is not sharded, the rerank reads the float16
+        copy, the kernel takes the shapes (`rerank_card.takes`), and the
+        copy of the corpus on the card exists or fits in the card's free
+        memory less `CARD_COPY_HEADROOM`; else "host" (`_rerank_host`)."""
+        corpus = self._host_corpus[0]
+        d = int(np.asarray(corpus[:1]).shape[1])
+        if (store.device.type != "cuda" or sharded
+                or scfg.rerank_dtype != "float16"
+                or not rerank_card.takes(k_eff, d)):
+            return "host"
+        if self._card_copy is not None and self._card_copy[0] is corpus:
+            return "card"
+        free, _ = torch.cuda.mem_get_info(store.device)
+        return ("card" if 2 * d * len(corpus) <= free - CARD_COPY_HEADROOM
+                else "host")
+
+    def _card_float16_copy(self, corpus) -> torch.Tensor:
+        """The float16 copy of the rerank corpus on the store's device,
+        made on first use (span ``rerank.card_copy``) from the host corpus
+        itself; the host float16 shadow is then let go."""
+        card = self._card_copy
+        if card is None or card[0] is not corpus:
+            self._card_copy = None     # a copy of another corpus goes first
+            with span("rerank.card_copy"):
+                card = self._card_copy = (corpus, rerank_card.float16_copy(
+                    corpus, self.built.store.device))
+            self._rerank_shadow = None
+        return card[1]
+
+    def _rerank_on_card(self, out, queries_search, plan):
+        """A search program's result with its candidates reranked on the
+        card (`rerank_card.rerank_card`, on the current stream, no sync):
+        (dists, ids) become the exact (q, k) ones; the counts stay."""
+        corpus, normalized = self._host_corpus
+        copy = self._card_float16_copy(corpus)
+        dists, ids, *counts = out
+        with span("rerank.card"):
+            dists, ids = rerank_card.rerank_card(
+                copy, ids.contiguous(), queries_search.contiguous(), plan.k,
+                normalized=normalized)
+        return (dists, ids, *counts)
+
     # ----------------------------------------------------------------- search
     def search(self, queries_nav, queries_search=None, n_buckets: int = 4,
                k: int = 10, search_config: Optional[SearchConfig] = None,
@@ -791,6 +843,8 @@ class LearnedIndex:
                 with span("search.program"):
                     out = program(queries_nav, queries_search,
                                   self._search_store())
+                if plan.rerank == "card":
+                    out = self._rerank_on_card(out, queries_search, plan)
                 status = self._absorb_result(plan, n_buckets,
                                              self._fetch_result(out, plan))
                 if status != "retry":
@@ -809,8 +863,9 @@ class LearnedIndex:
         """Resolve the static decisions of one probe search into a mutable
         plan shared by `search` (with its overflow re-run) and
         `search_stream` (which dispatches ahead of the fetch): backend,
-        compute dtype, rerank depth, the probe kernel's configuration
-        (rerank pool, tile height, worklist length), and the xla scan's
+        compute dtype, rerank depth and where the rerank runs
+        (`_rerank_site`), the probe kernel's configuration (rerank pool,
+        tile height, worklist length), and the xla scan's
         padding classes and pruning. On a sharded store the decisions are
         taken on a shard (every shard has the flat store's width, codes
         and row_align), and the worklist and the pool are not taken."""
@@ -842,6 +897,8 @@ class LearnedIndex:
             rerank = (scfg.rerank and quantized
                       and self._host_corpus is not None)
             k_eff = k + self._resolve_rerank_extra(scfg) if rerank else k
+            site = (self._rerank_site(store, sharded, k_eff, scfg)
+                    if rerank else None)
             # rerank pool: the kernel keeps an exact top-k, the pool supplies
             # the rerank extras
             pool_k = k if (scfg.pallas_pool and rerank and k_eff > k
@@ -858,7 +915,7 @@ class LearnedIndex:
             count("slots", q * n_buckets)
             plan = SimpleNamespace(
                 q=q, backend=backend, compute_dtype=compute_dtype, k=k,
-                rerank=rerank, k_eff=k_eff, pool_k=pool_k, pair=pair,
+                rerank=site, k_eff=k_eff, pool_k=pool_k, pair=pair,
                 wl_pad=0, item_rows=scfg.pallas_mc, sharded=sharded,
                 pad_key=(("sharded", q, n_buckets) if sharded
                          else (q, n_buckets)),
@@ -995,12 +1052,13 @@ class LearnedIndex:
     def _fetch_result(self, out, plan):
         """A program's result on the host: (dists, ids, max_slots[, the
         worklist's item total | scanned rows, nominal rows]); waits for the
-        card. When the plan reranks, the quantized distances stay on the
-        card (dists is None): the rerank recomputes every kept candidate's
-        distance."""
+        card. When the plan reranks on the host, the quantized distances
+        stay on the card (dists is None): the rerank recomputes every kept
+        candidate's distance."""
         with span("search.fetch"):
             dists, ids, *counts = out
-            return (None if plan.rerank else dists.cpu().float().numpy(),
+            return (None if plan.rerank == "host"
+                    else dists.cpu().float().numpy(),
                     ids.cpu().numpy(), *(int(c) for c in counts))
 
     def _absorb_result(self, plan, n_buckets: int, got):
@@ -1010,7 +1068,8 @@ class LearnedIndex:
         the slots per bucket (qpb_pad; slots past it were not scanned). The
         kernel's slot layout is sized for the worst case and cannot
         overflow. The xla scan's row counters go to ``last_scan_rows`` /
-        ``last_nominal_rows``; a re-run counts ``reruns``."""
+        ``last_nominal_rows``; a re-run counts ``reruns``, a kept result of
+        a rerank on the card its queries in ``rerank_card``."""
         dists, ids, max_slots, *extra = got
         if plan.wl_pad and extra[0] > plan.wl_pad:
             plan.wl_pad = self._wl_pad_for(extra[0], plan, n_buckets)
@@ -1026,16 +1085,19 @@ class LearnedIndex:
                 return "retry"
             self._qpb_pads[plan.pad_key] = plan.qpb_pad
         self._warm_shapes.add(plan.pad_key)
+        if plan.rerank == "card":
+            count("rerank_card", plan.q)
         return dists, ids
 
     def _finalize(self, dists, ids, plan, k: int, scfg: SearchConfig,
                   queries_search, queries_search_host):
         """Host post-processing of a fetched result (numpy arrays), shared
         by `search` and `search_stream`: the exact rerank when the plan
-        asks for it (`dists` is then None), then empty places (id -1) keep
-        the sentinel distance and become id 0, and ids become 1-based."""
+        puts it on the host (`dists` is then None), then empty places (id
+        -1) keep the sentinel distance and become id 0, and ids become
+        1-based."""
         with span("search.finalize"):
-            if plan.rerank:
+            if plan.rerank == "host":
                 dists, ids = self._rerank_host(
                     None, ids, queries_search, k,
                     host_queries=queries_search_host,
@@ -1067,8 +1129,9 @@ class LearnedIndex:
         (which builds the kernels and sizes the worklist). A worklist that
         overflows in flight redoes that one batch through `search` on the
         caller's thread. ``overlap_finalize`` runs `_finalize`, and with it
-        the exact rerank, on one worker thread, so batch i's rerank runs
-        beside batch i+1's fetch; the single worker keeps the order. A
+        a rerank on the host, on one worker thread, so batch i's rerank runs
+        beside batch i+1's fetch; the single worker keeps the order (a
+        rerank on the card is queued behind the batch's program). A
         sharded index (`shard`) dispatches ahead the same way through its
         sharded program."""
         if self.built is None:
@@ -1150,9 +1213,11 @@ class LearnedIndex:
                     program = self._dispatch_program(plan, nb, scfg)
                     with span("search.program"):
                         out = program(qn_dev, qs_dev, store)
+                    if plan.rerank == "card":
+                        out = self._rerank_on_card(out, qs_dev, plan)
                     if stager is not None:
-                        fetch = stager.download(slot, out,
-                                                skip_dists=plan.rerank)
+                        fetch = stager.download(
+                            slot, out, skip_dists=plan.rerank == "host")
                     else:
                         fetch = (lambda out=out, plan=plan:
                                  self._fetch_result(out, plan))

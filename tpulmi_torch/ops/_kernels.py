@@ -32,6 +32,7 @@ LIBRARIES = {
     "probe_topk_quant": ("probe_topk_quant", ()),
     "probe_topk_quant_pair": ("probe_topk_quant", ("-DPROBE_NB=128",)),
     "merge_items": ("merge_items", ()),
+    "rerank_card": ("rerank_card", ()),
 }
 
 # C signatures of every entry point, by source name
@@ -69,6 +70,12 @@ SIGNATURES = {
     "merge_items": {
         "merge_items_launch": ([_P] * 8 + [_I, _I, _I, _I, _P], _I),
         "merge_items_block_slots": ([], _I),
+    },
+    # corpus, ids, ids_64, queries, out_d, out_i, q, k_eff, k, d, n_rows,
+    # normalize, stream
+    "rerank_card": {
+        "rerank_card_launch": ([_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _LL,
+                                _I, _P], _I),
     },
 }
 
